@@ -1,0 +1,16 @@
+"""BGR -> gray with OpenCV's 8-bit convention (JAX ``ops/color.py``)."""
+from __future__ import annotations
+
+import torch
+
+# ITU-R BT.601 luma weights used by cv2.COLOR_BGR2GRAY.
+_GRAY_W = (0.299, 0.587, 0.114)  # R, G, B
+
+
+def bgr_to_gray(bgr: torch.Tensor) -> torch.Tensor:
+    """BGR (..., H, W, 3) uint8/float -> float32 gray, rounded half to even
+    like the reference's uint8 gray."""
+    b = bgr[..., 0].float()
+    g = bgr[..., 1].float()
+    r = bgr[..., 2].float()
+    return torch.round(_GRAY_W[0] * r + _GRAY_W[1] * g + _GRAY_W[2] * b)

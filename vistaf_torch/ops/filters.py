@@ -1,0 +1,121 @@
+"""Separable filters with OpenCV-compatible kernels and borders
+(JAX ``ops/filters.py``).
+
+The force path's blurs run in the banded-matmul association order
+(``conv_vpu=False`` in the JAX package): ``(B_y @ x) @ B_x^T`` with the
+REFLECT_101 border folded into dense band matrices.  That order is part of
+the accuracy contract (the JAX ``config.py`` ``conv_vpu``), and it is why
+the pipelines turn TF32 off: a TF32 matmul would change every blur.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vistaf_torch.ops.consts import DeviceConsts
+from vistaf_torch.ops.padding import fold_index, pad_last2
+
+
+def gaussian_kernel1d(sigma: float, ksize: int = 0, u8: bool = False) -> np.ndarray:
+    """cv2.getGaussianKernel-compatible kernel; ``ksize`` 0 derives it from
+    sigma the way cv2.GaussianBlur does for (0, 0) kernels."""
+    if ksize <= 0:
+        ksize = int(round(sigma * (3 if u8 else 4) * 2 + 1)) | 1
+    if sigma <= 0:
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    half = (ksize - 1) * 0.5
+    x = np.arange(ksize, dtype=np.float64) - half
+    k = np.exp(-(x * x) / (2.0 * sigma * sigma))
+    k /= k.sum()
+    return k.astype(np.float32)
+
+
+def band_matrix(n: int, k_key: tuple) -> np.ndarray:
+    """Dense banded filter matrix with the REFLECT_101 border folded in:
+    (B @ v)[i] = sum_t k[t] * v[fold(i - half + t)]."""
+    k = np.asarray(k_key, np.float64)
+    half = (len(k) - 1) // 2
+    src = fold_index(n, half, half, "reflect", torch.device("cpu")).numpy()
+    B = np.zeros((n, n), np.float32)
+    for t, w in enumerate(k):
+        B[np.arange(n), src[t:t + n]] += w
+    return B
+
+
+def _band(consts: DeviceConsts, n: int, k: np.ndarray) -> torch.Tensor:
+    key = tuple(np.asarray(k, np.float64))
+    return consts.get(("band", n, key), lambda: band_matrix(n, key))
+
+
+def sep_conv2d(x: torch.Tensor, ky: np.ndarray, kx: np.ndarray,
+               consts: DeviceConsts) -> torch.Tensor:
+    """Separable 2-D convolution of the trailing (H, W) planes of ``x``,
+    REFLECT_101 border, float32, banded-matmul order."""
+    x = x.float()
+    h, w = x.shape[-2:]
+    out = torch.matmul(_band(consts, h, ky), x)
+    return torch.matmul(out, _band(consts, w, kx).T)
+
+
+def gaussian_blur(x: torch.Tensor, sigma: float,
+                  consts: DeviceConsts) -> torch.Tensor:
+    """cv2.GaussianBlur(x, (0, 0), sigma) on float32, REFLECT_101 border."""
+    k = gaussian_kernel1d(sigma)
+    return sep_conv2d(x, k, k, consts)
+
+
+def box_filter(x: torch.Tensor, ksize: int, consts: DeviceConsts) -> torch.Tensor:
+    """cv2.boxFilter(normalize=False) with REFLECT_101 border."""
+    k = np.ones(ksize, np.float32)
+    return sep_conv2d(x, k, k, consts)
+
+
+def _shift_add_conv3(x: torch.Tensor, ky: np.ndarray, kx: np.ndarray) -> torch.Tensor:
+    """3-tap separable conv via padded shifts, REFLECT_101 border, in the
+    JAX package's term order (left + centre) + right, then rows."""
+    x = x.float()
+    h, w = x.shape[-2:]
+    xp = pad_last2(x, (1, 1, 1, 1), "reflect")
+    c = [float(v) for v in kx]
+    row = (c[0] * xp[..., 1:-1, 0:w] + c[1] * xp[..., 1:-1, 1:w + 1]
+           + c[2] * xp[..., 1:-1, 2:w + 2])
+    rp = pad_last2(row, (0, 0, 1, 1), "reflect")
+    c = [float(v) for v in ky]
+    return c[0] * rp[..., 0:h, :] + c[1] * rp[..., 1:h + 1, :] + c[2] * rp[..., 2:h + 2, :]
+
+
+_DERIV = np.array([-1.0, 0.0, 1.0], np.float32)
+_SMOOTH = np.array([1.0, 2.0, 1.0], np.float32)
+
+
+def gradient_magnitude(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(Sobel_x^2 + Sobel_y^2) with cv2's 3x3 Sobel kernels."""
+    gx = _shift_add_conv3(x, _SMOOTH, _DERIV)
+    gy = _shift_add_conv3(x, _DERIV, _SMOOTH)
+    return torch.sqrt(gx * gx + gy * gy)
+
+
+def masked_gaussian_smooth(z: torch.Tensor, mask: torch.Tensor, sigma: float,
+                           consts: DeviceConsts) -> torch.Tensor:
+    """Normalized-convolution smoothing blur(z*m) / (blur(m) + 1e-6)."""
+    if sigma <= 0:
+        return z
+    m = mask.float()
+    z0 = torch.where(mask, z, 0.0).float()
+    num = gaussian_blur(z0, sigma, consts)
+    den = gaussian_blur(m, sigma, consts) + 1e-6
+    return num / den
+
+
+def hanning_window(h: int, w: int) -> np.ndarray:
+    """cv2.createHanningWindow: sqrt(hann_row * hann_col), (h, w) float32."""
+    wy = np.hanning(h) if h > 1 else np.ones(1)
+    wx = np.hanning(w) if w > 1 else np.ones(1)
+    return np.sqrt(wy[:, None] * wx[None, :]).astype(np.float32)
+
+
+def hann_patch(hp: int, wp: int) -> np.ndarray:
+    """Hann window for the FFT sideband patch."""
+    wy = np.hanning(hp).astype(np.float32)
+    wx = np.hanning(wp).astype(np.float32)
+    return wy[:, None] * wx[None, :]

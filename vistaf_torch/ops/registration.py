@@ -1,0 +1,86 @@
+"""Image registration (JAX ``ops/registration.py``): cv2-style phase
+correlation and the ECC alignment's euclidean / shear-sampler / whole-loop
+branch, which is the K5 kernel (``kernels/ecc_loop_kernel.py``).  The
+other ECC branches (translation and affine modes, the bilinear-gather
+sampler, seeded ``p_init`` solves and the per-iteration K4 kernel) are not
+ported yet."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from vistaf_torch.kernels.ecc_loop_kernel import ecc_loop_euclidean
+
+
+def phase_correlate(src1: torch.Tensor, src2: torch.Tensor, window: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """cv2.phaseCorrelate: (dx, dy, response), the translation of ``src1``
+    relative to ``src2``, from the whitened cross-power spectrum and a 5x5
+    weighted centroid around the correlation peak (0-d tensors)."""
+    h, w = src1.shape
+    a = src1.to(torch.float32) * window
+    b = src2.to(torch.float32) * window
+    F = torch.fft.rfft2(torch.stack([a, b]))
+    P = F[0] * torch.conj(F[1])
+    P = P / torch.clamp(torch.abs(P), min=1e-20)
+    C = torch.fft.fftshift(torch.fft.irfft2(P, s=(h, w)))
+    peak = torch.argmax(C)
+    py = peak // w
+    px = peak % w
+    yy = torch.arange(h, device=C.device)[:, None]
+    xx = torch.arange(w, device=C.device)[None, :]
+    inwin = ((torch.abs(yy - py) <= 2) & (torch.abs(xx - px) <= 2)).to(torch.float32)
+    vals = C * inwin
+    s = vals.sum()
+    den = torch.where(torch.abs(s) < 1e-20, 1.0, s)
+    cy = (yy.to(torch.float32) * vals).sum() / den
+    cx = (xx.to(torch.float32) * vals).sum() / den
+    return w / 2.0 - cx, h / 2.0 - cy, s / (h * w)
+
+
+def warp_matrix_euclidean(p: torch.Tensor) -> torch.Tensor:
+    """[[cos t, -sin t, tx], [sin t, cos t, ty]] for p = (t, tx, ty)."""
+    c, s = torch.cos(p[0]), torch.sin(p[0])
+    return torch.stack([torch.stack([c, -s, p[1]]), torch.stack([s, c, p[2]])])
+
+
+def ecc_prepare(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor):
+    """Centre both images on the template's masked mean and stack the
+    image with its central-difference gradients and the mask:
+    returns (S_cf (4, H, W) = [I, gx, gy, mask01], centred template)."""
+    T = template.to(torch.float32)
+    I = image.to(torch.float32)
+    M01 = mask.to(torch.float32)
+    c0 = (T * M01).sum() / torch.clamp(M01.sum(), min=1.0)
+    T = T - c0
+    I = I - c0
+    gx = torch.zeros_like(I)
+    gx[:, 1:-1] = 0.5 * (I[:, 2:] - I[:, :-2])
+    gy = torch.zeros_like(I)
+    gy[1:-1, :] = 0.5 * (I[2:, :] - I[:-2, :])
+    return torch.stack([I, gx, gy, M01]), T
+
+
+def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
+              mode: str = "euclidean", max_iters: int = 300, eps: float = 1e-7,
+              stride: int = 1, sampler: str = "shear", shear_k: int = 4,
+              stall_patience: int = 0, loop_kernel: bool = True):
+    """Warp maximizing the enhanced correlation coefficient between
+    ``template`` and ``image`` sampled at W(x; p): returns (warp (2, 3),
+    rho, n_iters).  On StsNoConv failure the warp is the identity and rho
+    NaN, as the reference falls back to the unaligned image."""
+    if (mode, sampler, loop_kernel) != ("euclidean", "shear", True):
+        raise NotImplementedError("vistaf_torch ports the euclidean/shear whole-loop "
+                                  f"ECC only, got mode={mode!r}, sampler={sampler!r}, "
+                                  f"loop_kernel={loop_kernel}")
+    S_cf, T = ecc_prepare(template, image, mask)
+    smask = torch.zeros_like(T)
+    smask[::stride, ::stride] = 1.0
+    p, rho, it, failed = ecc_loop_euclidean(S_cf, T, smask, K=shear_k,
+                                            max_iters=max_iters, eps=eps,
+                                            stall_patience=stall_patience)
+    identity = warp_matrix_euclidean(torch.zeros_like(p))
+    warp = torch.where(failed, identity, warp_matrix_euclidean(p))
+    rho = torch.where(failed, float("nan"), rho)
+    return warp, rho, it
