@@ -26,7 +26,7 @@ def test_dataclass_fields_match(name):
 def test_deploy_and_slice_presets_match():
     assert dataclasses.asdict(tcfg.FTPConfig().deploy()) == \
         dataclasses.asdict(jcfg.FTPConfig().deploy())
-    want = jsyn.scaled_ftp_config(480, 640).deploy().replace(unwrap_method="wls")
+    want = jsyn.scaled_ftp_config(480, 640).deploy()
     assert dataclasses.asdict(tcfg.slice_ftp_config(480, 640)) == dataclasses.asdict(want)
 
 
@@ -69,8 +69,38 @@ def test_pipeline_requires_an_explicit_device_and_a_ported_config():
     with pytest.raises(TypeError):
         FTPPipeline(cfg, P2H)
     with pytest.raises(NotImplementedError, match="unwrap_method"):
-        FTPPipeline(cfg.replace(unwrap_method="wls_pallas"), P2H, device="cpu")
+        FTPPipeline(cfg.replace(unwrap_method="flood_fill"), P2H, device="cpu")
+    with pytest.raises(NotImplementedError, match="ecc_sampler"):
+        FTPPipeline(cfg.replace(ecc_sampler="gather"), P2H, device="cpu")
+    with pytest.raises(NotImplementedError, match="_DCT_FFT_MIN_PX"):
+        FTPPipeline(tcfg.FTPConfig().deploy().replace(unwrap_downsample=1), P2H,
+                    device="cpu")
+    for ported in (cfg.replace(unwrap_method="wls"), tcfg.FTPConfig().deploy(),
+                   cfg.replace(ecc_downsample_min_px=0, unwrap_downsample_min_px=0,
+                               polyfit_kernel=False, ecc_loop_kernel=False)):
+        FTPPipeline.check_config(ported)
     with pytest.raises(ValueError, match="percentile method"):
         from vistaf_torch.ops.percentile import get_percentile_fn
         get_percentile_fn("sort")
     assert FTPGeometry.from_config(cfg).bbox == (204, 440, 143, 379)
+
+
+@pytest.mark.parametrize("preset,route", [
+    ("640", ("k6", (236, 236))),
+    ("640_wls", ("plain", (236, 236))),
+    ("4k", ("pooled", (296, 296))),
+    ("4k_full_res", ("plain", (1182, 1182))),
+])
+def test_unwrap_route_of_each_preset(preset, route):
+    """The JAX package's unwrap dispatch: K6 for the shipped 640 preset, the
+    plain PCG for ``wls``, the 4x-pooled grid at native 4K; a 1182x1182
+    full-resolution solve needs the unported FFT DCT."""
+    from vistaf_torch.ftp.pipeline import unwrap_route
+    from vistaf_torch.ops.unwrap import dense_dct_solve
+    cfg = {"640": tcfg.slice_ftp_config(480, 640),
+           "640_wls": tcfg.slice_ftp_config(480, 640).replace(unwrap_method="wls"),
+           "4k": tcfg.FTPConfig().deploy(),
+           "4k_full_res": tcfg.FTPConfig().deploy().replace(unwrap_downsample=1)}[preset]
+    g = FTPGeometry.from_config(cfg)
+    assert unwrap_route(cfg, (g.crop_h, g.crop_w)) == route
+    assert dense_dct_solve(route[1]) == (preset != "4k_full_res")

@@ -1,5 +1,5 @@
-"""The four Hopper kernels against their plain PyTorch versions on the card,
-and the slice on the card against the port's CPU run.  Marked ``cuda``:
+"""The seven Hopper kernels against their plain PyTorch versions on the card,
+and the 640x480 slice on the card against the port's CPU run.  Marked ``cuda``:
 they skip where PyTorch sees no GPU (the decision is made in a fixture, not
 at import).  Run on a GPU machine with
 
@@ -13,10 +13,12 @@ import pytest
 import torch
 
 from vistaf_torch import kernels
+from vistaf_torch.kernels import ecc_kernel as k4
 from vistaf_torch.kernels import ecc_loop_kernel as k5
 from vistaf_torch.kernels import inpaint_kernel as k3
 from vistaf_torch.kernels import polyfit_kernel as k7
 from vistaf_torch.kernels import quantile_kernel as k1
+from vistaf_torch.kernels import unwrap_kernel as k6
 
 pytestmark = pytest.mark.cuda
 
@@ -36,11 +38,12 @@ def _disk(h, w, r):
     return (yy - h // 2) ** 2 + (xx - w // 2) ** 2 <= r * r
 
 
-def test_k1_bit_equal_on_card(dev):
+@pytest.mark.parametrize("n", [236, 1182])     # the 640 and native-4K crops
+def test_k1_bit_equal_on_card(dev, n):
     rng = np.random.default_rng(0)
-    x = rng.normal(size=(2, 236, 236)).astype(np.float32)
+    x = rng.normal(size=(2, n, n)).astype(np.float32)
     x[:, 5:9, 5:9] = np.nan
-    m = torch.as_tensor(_disk(236, 236, 117), device=dev)
+    m = torch.as_tensor(_disk(n, n, n // 2 - 1), device=dev)
     xt = torch.as_tensor(x, device=dev)
     for qs in ((99.9,), (92.0, 95.0, 98.0), (0.0, 50.0, 100.0)):
         assert torch.equal(k1.masked_quantiles(xt, m, qs),
@@ -50,11 +53,12 @@ def test_k1_bit_equal_on_card(dev):
                        torch.zeros((2, 1), device=dev))
 
 
-def test_k3_matches_plain_on_card(dev):
+@pytest.mark.parametrize("n", [236, 1182])     # the 640 and native-4K crops
+def test_k3_matches_plain_on_card(dev, n):
     rng = np.random.default_rng(1)
-    img = torch.as_tensor(np.round(rng.random((2, 236, 236)) * 255).astype(np.float32),
+    img = torch.as_tensor(np.round(rng.random((2, n, n)) * 255).astype(np.float32),
                           device=dev)
-    fill = torch.as_tensor(rng.random((2, 236, 236)) < 0.05, device=dev)
+    fill = torch.as_tensor(rng.random((2, n, n)) < 0.05, device=dev)
     got = k3.inpaint_diffusion(img, fill, 20)
     want = k3.inpaint_diffusion_plain(img, fill, 20)
     assert float((got - want).abs().max()) <= 1e-5
@@ -101,6 +105,65 @@ def test_k7_matches_plain_on_card(dev, order):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
+def test_k2_bit_equal_on_card(dev):
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 300, 310)).astype(np.float32)
+    x[:, rng.random((300, 310)) > 0.97] += 8.0
+    x[:, 5:9, 5:9] = np.nan
+    xt = torch.as_tensor(x, device=dev)
+    m = torch.as_tensor(_disk(300, 310, 140), device=dev)
+    for a, b in zip(k1.masked_median_mad(xt, m), k1.masked_median_mad_plain(xt, m)):
+        assert a.shape == (2,) and torch.equal(a, b)
+
+
+def test_k2_above_budget_launches_k1_on_card(dev):
+    """Above K2's budget the bisection pair runs as two K1 launches, bit-equal
+    to its plain version on the CPU."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(1300, 1290)).astype(np.float32)
+    x[rng.random(x.shape) > 0.97] += 6.0
+    m = rng.random(x.shape) > 0.2
+    assert not k1.fits(x.shape)
+    kernels.reset_launches()
+    got = k1.masked_median_mad(torch.as_tensor(x, device=dev), torch.as_tensor(m, device=dev))
+    assert kernels.LAUNCHES["masked_quantiles"] == 2
+    assert kernels.LAUNCHES["masked_median_mad"] == 0
+    want = k1.masked_median_mad(torch.as_tensor(x), torch.as_tensor(m))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_k4_matches_plain_on_card(dev):
+    rng = np.random.default_rng(5)
+    S = torch.as_tensor(rng.random((4, 295, 295)).astype(np.float32), device=dev)
+    S[3] = (S[3] > 0.2).float()
+    T = torch.as_tensor(rng.random((295, 295)).astype(np.float32) - 0.5, device=dev)
+    sm = torch.zeros_like(T)
+    sm[::2, ::2] = 1.0
+    co = k4.shear_coeffs(torch.tensor([0.003, 0.4, -0.7], device=dev))
+    got = k4.gn_moments_euclidean(S, T, sm, co, K=4)
+    want = k4.gn_moments_euclidean_plain(S, T, sm, co, K=4)
+    # each entry within 1e-5 of its Cauchy-Schwarz scale sqrt(b_ii b_jj)
+    d = torch.sqrt(want.diagonal())
+    assert float(((got - want).abs() / torch.outer(d, d)).max()) <= 1e-5
+    assert torch.equal(got, k4.gn_moments_euclidean(S, T, sm, co, K=4))   # fixed order
+
+
+def test_k6_matches_plain_on_card(dev):
+    rng = np.random.default_rng(6)
+    yy, xx = np.mgrid[0:236, 0:236].astype(np.float32)
+    field = 0.09 * xx + 0.05 * yy + 4.0 * np.sin(xx / 30.0) * np.cos(yy / 25.0)
+    wrapped = torch.as_tensor(np.angle(np.exp(1j * field)).astype(np.float32), device=dev)
+    mask = torch.as_tensor(_disk(236, 236, 112) & (rng.random((236, 236)) > 0.01), device=dev)
+    from vistaf_torch.ops.consts import DeviceConsts
+    consts = DeviceConsts(dev)
+    got = k6.unwrap_wls(wrapped, mask, consts, 16, 1e-8)
+    want = k6.unwrap_wls_plain(wrapped, mask, consts, 16, 1e-8)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    same_k = (got[mask] - want[mask]).abs() < 1e-3
+    assert float(same_k.float().mean()) >= 0.999
+
+
 def test_slice_on_card_launches_every_kernel(dev):
     from vistaf_torch.config import ForceConfig, slice_ftp_config
     from vistaf_torch.pipelines.force import ForcePipeline
@@ -113,6 +176,8 @@ def test_slice_on_card_launches_every_kernel(dev):
     ref, de = synthetic_pair(480, 640, cfg)
     kernels.reset_launches()
     gpu = ForcePipeline(cfg, ForceConfig(), p2h, fm, device=dev)(ref, de)
-    assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    for name in ("masked_quantiles", "inpaint_diffusion", "ecc_loop_euclidean",
+                 "unwrap_wls", "robust_polyfit2d"):
+        assert kernels.LAUNCHES[name] > 0, kernels.LAUNCHES
     cpu = ForcePipeline(cfg, ForceConfig(), p2h, fm, device="cpu")(ref, de)
     assert abs(gpu["force_N"] - cpu["force_N"]) <= 0.01 * cpu["force_N"]

@@ -189,10 +189,10 @@ class ForceConfig:
 
 
 def slice_ftp_config(height: int, width: int) -> FTPConfig:
-    """The configuration this port runs: the deploy preset scaled to
-    (height, width) with the plain PCG unwrap (``unwrap_method="wls"``)."""
+    """The deploy preset scaled to (height, width), as shipped
+    (``scaled_ftp_config(height, width).deploy()``)."""
     from vistaf_torch.utils.synthetic import scaled_ftp_config
-    return scaled_ftp_config(height, width).deploy().replace(unwrap_method="wls")
+    return scaled_ftp_config(height, width).deploy()
 
 
 def _from_dict(cls, d: Dict[str, Any]):

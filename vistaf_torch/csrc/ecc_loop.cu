@@ -7,18 +7,19 @@
 //   2. vertical shear pass of the 4 planes [I, gx, gy, mask] with 2K+1 hat
 //      taps and a zero border, into 4 scratch planes;
 //   3. horizontal pass, mask threshold, steepest-descent rows and the 21
-//      moment sums, accumulated per thread and reduced in a fixed order;
+//      moment sums, accumulated per thread and reduced in a fixed order
+//      (steps 1-3 are ecc_common.cuh, shared with K4);
 //   4. thread 0 runs the scalar tail (two adjugate 3x3 solves, the lambda
 //      step, rho, the StsNoConv failure rule, eps, stall bookkeeping) and
 //      broadcasts whether to go on.
 // Output: [theta, tx, ty, rho, iters, failed]; identity/NaN handling on
 // failure stays with the caller.
-#include "common.cuh"
+#include "ecc_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kMoments = 21;
+constexpr int kMoments = vt::kEccMoments;
 
 struct Solver {
   float p0 = 0.f, p1 = 0.f, p2 = 0.f;
@@ -110,7 +111,7 @@ ecc_loop_kernel(const float* __restrict__ S, const float* __restrict__ T,
                 float* __restrict__ out, int h, int w, int K, int max_iters, float eps,
                 int stall_patience) {
   __shared__ float red[kMoments * 33];
-  __shared__ float sc[8];
+  __shared__ vt::ShearScalars sc_s;
   __shared__ int go;
   const int hw = h * w;
   Solver st;  // meaningful in thread 0 only
@@ -118,39 +119,16 @@ ecc_loop_kernel(const float* __restrict__ S, const float* __restrict__ T,
   if (threadIdx.x == 0) go = st.keep_going(max_iters, eps, stall_patience);
   __syncthreads();
   while (go) {
-    if (threadIdx.x == 0) {
-      const float c = cosf(st.p0), s = sinf(st.p0);
-      // shear decomposition of [[c, -s, tx], [s, c, ty]] (ops/warp.py)
-      const float r = s / c;
-      sc[0] = r;
-      sc[1] = c - r * (-s) - 1.0f;
-      sc[2] = st.p2 - r * st.p1;
-      sc[3] = c - 1.0f;
-      sc[4] = -s;
-      sc[5] = st.p1;
-      sc[6] = c;
-      sc[7] = s;
-    }
+    if (threadIdx.x == 0) sc_s = vt::shear_scalars(st.p0, st.p1, st.p2);
     __syncthreads();
-    const float cy_u = sc[0], cy_v = sc[1], cy_c = sc[2];
-    const float cx_u = sc[3], cx_v = sc[4], cx_c = sc[5];
-    const float c = sc[6], s = sc[7];
+    const vt::ShearScalars sc = sc_s;
 
-    // vertical pass: mid(v, u) = sum_k S(v + k, u) * hat(disp_y - k)
+    // vertical pass of the 4 planes into `mid`
     for (int idx = threadIdx.x; idx < 4 * hw; idx += blockDim.x) {
       const int ch = idx / hw;
       const int pix = idx - ch * hw;
       const int v = pix / w, u = pix - v * w;
-      const float* P = S + (size_t)ch * hw;
-      const float disp = (cy_u * (float)u + cy_v * (float)v) + cy_c;
-      float acc = 0.0f;
-      for (int k = -K; k <= K; ++k) {
-        const int vv = v + k;
-        if (vv < 0 || vv >= h) continue;  // zero border adds exactly nothing
-        const float wt = fmaxf(0.0f, 1.0f - fabsf(disp - (float)k));
-        acc = acc + P[vv * w + u] * wt;
-      }
-      mid[idx] = acc;
+      mid[idx] = vt::shear_vertical(S + (size_t)ch * hw, h, w, K, sc, v, u);
     }
     __syncthreads();
 
@@ -159,29 +137,9 @@ ecc_loop_kernel(const float* __restrict__ S, const float* __restrict__ T,
 #pragma unroll
     for (int q = 0; q < kMoments; ++q) mom[q] = 0.0f;
     for (int pix = threadIdx.x; pix < hw; pix += blockDim.x) {
-      const int v = pix / w, u = pix - v * w;
-      const float fu = (float)u, fv = (float)v;
-      const float disp = (cx_u * fu + cx_v * fv) + cx_c;
-      float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int k = -K; k <= K; ++k) {
-        const int uu = u + k;
-        if (uu < 0 || uu >= w) continue;
-        const float wt = fmaxf(0.0f, 1.0f - fabsf(disp - (float)k));
-        const int o = v * w + uu;
-#pragma unroll
-        for (int ch = 0; ch < 4; ++ch) a[ch] = a[ch] + mid[(size_t)ch * hw + o] * wt;
-      }
-      const float mf = (a[3] > 0.95f ? 1.0f : 0.0f) * SM[pix];
-      const float gxm = a[1] * mf;
-      const float gym = a[2] * mf;
-      const float dwx = -s * fu - c * fv;
-      const float dwy = c * fu - s * fv;
-      const float row[6] = {mf, T[pix] * mf, a[0] * mf, gxm * dwx + gym * dwy, gxm, gym};
-      int q = 0;
-#pragma unroll
-      for (int i = 0; i < 6; ++i)
-#pragma unroll
-        for (int j = i; j < 6; ++j) mom[q++] += row[i] * row[j];
+      float row[6];
+      vt::shear_moment_row(mid, T, SM, h, w, K, sc, pix, row);
+      vt::accumulate_moments(row, mom);
     }
     vt::block_reduce(mom, red, vt::SumOp(), 0.0f);
 

@@ -4,9 +4,10 @@
 // Per round: the w^2-weighted normal equations as plane sums (21 + 6 for
 // order 2), +1e-9 on the diagonal, an unrolled Cholesky solve by thread 0;
 // then, in the first `resigma_iters` rounds, the bisection median and MAD
-// of the residual over the mask; Cauchy weights 1 / (1 + u^2) with
-// u = r / (c * 1.4826 * (mad + 1e-6)).  The weights are recomputed from the
-// previous round's coefficients instead of being kept as a plane.  Output:
+// of the residual over the mask (vt::median_mad, shared with K2); Cauchy
+// weights 1 / (1 + u^2) with u = r / (c * 1.4826 * (mad + 1e-6)).  The
+// weights are recomputed from the previous round's coefficients instead of
+// being kept as a plane.  Output:
 // the coefficients, zeros when the mask holds fewer than 200 pixels.
 #include "common.cuh"
 
@@ -69,14 +70,12 @@ struct MaskedResidual {
   const uint8_t* mask;
   const Basis* basis;
   const float* coef;
-  float center;  // subtracted before |.|; NaN means "the signed residual"
   __device__ bool operator()(int i, float* v) const {
     const float zi = z[i];
     if (!(mask[i] && isfinite(zi))) return false;
     float col[kMaxCoef];
     basis->at(i, col);
-    const float r = basis->residual(zi, coef, col);
-    *v = isnan(center) ? r : fabsf(r - center);
+    *v = basis->residual(zi, coef, col);
     return true;
   }
 };
@@ -149,13 +148,9 @@ polyfit_kernel(const float* __restrict__ z, const uint8_t* __restrict__ mask,
       }
       lo = vt::block_min(lo, red);
       hi = vt::block_max(hi, red);
-      const float target = 0.5f * vt::jmax(nf - 1.0f, 0.0f);
-      const float nan = __int_as_float(0x7fc00000);
-      const float med = vt::bisect_quantile(MaskedResidual{z, mask, &basis, coef, nan}, n,
-                                            target, lo, hi, levels, redi);
-      const float mad =
-          vt::bisect_quantile(MaskedResidual{z, mask, &basis, coef, med}, n, target, 0.0f,
-                              vt::jmax(hi - med, med - lo), levels, redi);
+      float med, mad;
+      vt::median_mad(MaskedResidual{z, mask, &basis, coef}, 0, n, nf, lo, hi, levels,
+                     vt::block_count(redi), &med, &mad);
       sigma = 1.4826f * (mad + 1e-6f);
     }
   }

@@ -2,21 +2,26 @@
 (JAX ``ftp/pipeline.py``).
 
 Stages in order: gray conversion, full-frame phase-correlation shift, ROI
-crop, ECC crop alignment (K5), demodulation of the pair (K1, K3), the
-reliable mask (K1, close, dominant component, distance erode), wrapped
-phase difference, WLS unwrap, two-pass IRLS detrend (K7, K1), smoothing,
-sign flip, frontier taper, unreliable-region fill, clamp, mm conversion and
-the contact-blob filter.  The pipeline owns its static geometry (circle
+crop, ECC crop alignment (K5, or the pooled and coarse-to-fine solves with
+K4), demodulation of the pair (K1, K3), the reliable mask (K1, close,
+dominant component, distance erode), wrapped phase difference, WLS unwrap
+(K6, or the pooled PCG), two-pass IRLS detrend (K7, or the IRLS with K2;
+K1), smoothing, sign flip, frontier taper, unreliable-region fill, clamp,
+mm conversion and the contact-blob filter.  Each kernel is taken where the
+JAX package takes its Pallas kernel on a TPU, by shape (the routing rule in
+``kernels/__init__.py``).  The pipeline owns its static geometry (circle
 mask, eroded ROI, apodization, Hann window) and blur/DCT/DFT matrices as
 tensors on its device, built once.
 
-Configurations the port does not run yet raise at construction: see
-``FTPPipeline.check_config``.
+It runs the JAX package's deploy preset as shipped at 640x480
+(``scaled_ftp_config(480, 640).deploy()``) and at native 2160x3840
+(``FTPConfig().deploy()``); configurations the port does not run yet raise
+at construction: see ``FTPPipeline.check_config``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +31,7 @@ from vistaf_torch.calib import scalar_models
 from vistaf_torch.config import FTPConfig
 from vistaf_torch.ftp import demod
 from vistaf_torch.ftp.demod import ftp_complex_demod_pair
+from vistaf_torch.kernels import unwrap_kernel
 from vistaf_torch.ops import geometry
 from vistaf_torch.ops.color import bgr_to_gray
 from vistaf_torch.ops.components import dominant_component, filter_components_by_peak
@@ -37,7 +43,7 @@ from vistaf_torch.ops.morphology import dilate, ellipse_kernel
 from vistaf_torch.ops.percentile import get_percentile_fn, masked_max
 from vistaf_torch.ops.polyfit import robust_polyfit2d
 from vistaf_torch.ops.registration import ecc_align, phase_correlate
-from vistaf_torch.ops.unwrap import unwrap_wls
+from vistaf_torch.ops.unwrap import dense_dct_solve, unwrap_wls
 from vistaf_torch.ops.warp import translate_bilinear, warp_affine_inverse_shear
 
 STAGES = ("align", "demod", "reliable", "unwrap", "detrend", "assemble")
@@ -74,6 +80,20 @@ def _curve01(t: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "cosine":
         return 0.5 - 0.5 * torch.cos(np.pi * t)
     return t * t * (3.0 - 2.0 * t)
+
+
+def unwrap_route(cfg: FTPConfig, shape) -> Tuple[str, Tuple[int, int]]:
+    """The JAX package's unwrap dispatch (``ftp/pipeline.py:454-473``) for a
+    crop of ``shape``: ('pooled', the pooled solve grid) when
+    ``unwrap_downsample`` engages, else ('k6', shape) for ``wls_pallas``
+    while K6's budget holds, else ('plain', shape)."""
+    h, w = shape
+    d = int(cfg.unwrap_downsample)
+    if d > 1 and min(h, w) >= cfg.unwrap_downsample_min_px:
+        return "pooled", (-(-h // d), -(-w // d))
+    if cfg.unwrap_method == "wls_pallas" and unwrap_kernel.fits((h, w)):
+        return "k6", (h, w)
+    return "plain", (h, w)
 
 
 class FTPPipeline:
@@ -120,24 +140,29 @@ class FTPPipeline:
     @staticmethod
     def check_config(cfg: FTPConfig) -> None:
         """Raise NotImplementedError for a configuration outside the ported
-        slice (the 640x480 deploy preset with ``unwrap_method='wls'``)."""
+        paths.  Both deploy presets run as shipped: the 640x480 one (K1, K3,
+        K5, K6, K7) and the native-4K one (pooled and coarse-to-fine ECC with
+        K4, pooled unwrap, IRLS with K2; K1, K3).  Still unported: the other
+        percentile methods, the ECC's gather sampler and non-euclidean
+        modes, the pooled or windowed global shift, the grating-band
+        prealignment, the hole fill, the single-pass detrend, the unfolded
+        plane removal, the labelling component method and the FFT-based DCT
+        of full-resolution unwrap solves from 512 px."""
         demod.check_config(cfg)
         g = FTPGeometry.from_config(cfg)
-        crop_min = min(g.crop_h, g.crop_w)
+        unwrap_kind, unwrap_grid = unwrap_route(cfg, (g.crop_h, g.crop_w))
         unported = {
             "percentile_method": cfg.percentile_method != "hist_pallas",
-            "ecc_sampler/ecc_warp_mode/ecc_loop_kernel": cfg.use_ecc_crop_alignment and (
-                cfg.ecc_sampler != "shear" or cfg.ecc_warp_mode != "euclidean"
-                or not cfg.ecc_loop_kernel),
-            "ecc_downsample": cfg.ecc_downsample > 1 and crop_min >= cfg.ecc_downsample_min_px,
+            "ecc_sampler/ecc_warp_mode": cfg.use_ecc_crop_alignment and (
+                cfg.ecc_sampler != "shear" or cfg.ecc_warp_mode != "euclidean"),
             "global_shift_downsample": cfg.global_shift_downsample > 1 and min(
                 cfg.image_height, cfg.image_width) >= cfg.global_shift_downsample_min_px,
             "global_shift_window_px": cfg.global_shift_window_px > 0,
             "use_grating_band_prealign": cfg.use_grating_band_prealign,
-            "unwrap_method": cfg.unwrap_method != "wls",
-            "unwrap_downsample": cfg.unwrap_downsample > 1
-            and crop_min >= cfg.unwrap_downsample_min_px,
-            "polyfit_kernel": not cfg.polyfit_kernel,
+            "unwrap_method": cfg.unwrap_method not in ("wls", "wls_pallas"),
+            # K6 multiplies dense DCT matrices at every size it takes
+            "FFT-based DCT (_DCT_FFT_MIN_PX)": unwrap_kind != "k6"
+            and not dense_dct_solve(unwrap_grid),
             "largest_cc_method": cfg.reliable_keep_largest_cc
             and cfg.largest_cc_method != "seed_edt",
             "fill_internal_holes_in_reliable": cfg.fill_internal_holes_in_reliable,
@@ -191,7 +216,65 @@ class FTPPipeline:
     def _polyfit(self, z, mask, order):
         cfg = self.cfg
         return robust_polyfit2d(z, mask, order=order, iters=cfg.polyfit_iters,
-                                resigma_iters=cfg.polyfit_resigma_iters)[1]
+                                resigma_iters=cfg.polyfit_resigma_iters,
+                                fused=cfg.polyfit_kernel)[1]
+
+    def _pool_crop(self, crop01, d):
+        """d x d mean-pooled crop pair, its circle mask (pooled mean > 0.5)
+        and the shear reach max(4, ceil(K / d))."""
+        g = self.geom
+        hh, ww = (g.crop_h // d) * d, (g.crop_w // d) * d
+        pooled = crop01[:, :hh, :ww].reshape(2, hh // d, d, ww // d, d).mean(dim=(2, 4))
+        circ_p = self.circ[:hh, :ww].to(torch.float32).reshape(
+            hh // d, d, ww // d, d).mean(dim=(1, 3)) > 0.5
+        return pooled, circ_p, max(4, -(-self.cfg.ecc_shear_k // d))
+
+    def _ecc(self, crop01):
+        """ECC crop alignment: on the ``ecc_downsample`` pooled crop when it
+        engages (translations scaled back up), seeded by a coarse solve on
+        the ``ecc_coarse_downsample`` grid when ``ecc_polish_iters`` > 0."""
+        cfg, g = self.cfg, self.geom
+        kw = dict(mode=cfg.ecc_warp_mode, eps=cfg.ecc_eps, stride=cfg.ecc_stride,
+                  sampler=cfg.ecc_sampler, stall_patience=cfg.ecc_stall_patience)
+        ds = int(cfg.ecc_downsample)
+        use_ds = ds > 1 and min(g.crop_h, g.crop_w) >= cfg.ecc_downsample_min_px
+        cds = int(cfg.ecc_coarse_downsample)
+        use_c2f = (use_ds and int(cfg.ecc_polish_iters) > 0 and cds > ds
+                   and cfg.ecc_warp_mode == "euclidean")
+        p_seed = None
+        if use_c2f:
+            pooled_c, circ_c, k_c = self._pool_crop(crop01, cds)
+            warp_c, _, _ = ecc_align(pooled_c[0], pooled_c[1], circ_c,
+                                     max_iters=cfg.ecc_iters, shear_k=k_c,
+                                     loop_kernel=False, **kw)
+            theta_c = torch.atan2(warp_c[1, 0], warp_c[0, 0])
+            p_seed = torch.stack([theta_c, warp_c[0, 2] * (float(cds) / float(ds)),
+                                  warp_c[1, 2] * (float(cds) / float(ds))])
+        if use_ds:
+            pooled, circ_p, shear_k = self._pool_crop(crop01, ds)
+            ecc_in0, ecc_in1, ecc_mask = pooled[0], pooled[1], circ_p
+        else:
+            ecc_in0, ecc_in1, ecc_mask = crop01[0], crop01[1], self.circ
+            shear_k = cfg.ecc_shear_k
+        warp, rho, it = ecc_align(
+            ecc_in0, ecc_in1, ecc_mask,
+            max_iters=int(cfg.ecc_polish_iters) if use_c2f else cfg.ecc_iters,
+            shear_k=shear_k, loop_kernel=cfg.ecc_loop_kernel, p_init=p_seed, **kw)
+        if use_ds:
+            warp = torch.cat([warp[:, :2], warp[:, 2:] * float(ds)], dim=1)
+        return warp, rho, it
+
+    def _unwrap(self, phase_wrapped, reliable):
+        """The pooled PCG, K6 or the plain PCG, as ``unwrap_route`` says."""
+        cfg = self.cfg
+        kind, _ = unwrap_route(cfg, tuple(phase_wrapped.shape))
+        kw = dict(cg_iters=cfg.unwrap_cg_iters, tol=cfg.unwrap_cg_tol)
+        if kind == "pooled":
+            return unwrap_wls(phase_wrapped, reliable, self.consts,
+                              downsample=int(cfg.unwrap_downsample), **kw)
+        if kind == "k6":
+            return unwrap_kernel.unwrap_wls(phase_wrapped, reliable, self.consts, **kw)
+        return unwrap_wls(phase_wrapped, reliable, self.consts, **kw)
 
     def forward(self, ref_bgr: torch.Tensor, def_bgr: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
@@ -226,11 +309,7 @@ class FTPPipeline:
             crop01 = torch.stack([ref_gray, def_gray]) / 255.0
             if cfg.ecc_gauss_filt and cfg.ecc_gauss_filt > 0:
                 crop01 = gaussian_blur(crop01, cfg.ecc_gauss_filt, consts)
-            ecc_warp, ecc_rho, ecc_it = ecc_align(
-                crop01[0], crop01[1], self.circ, mode=cfg.ecc_warp_mode,
-                max_iters=cfg.ecc_iters, eps=cfg.ecc_eps, stride=cfg.ecc_stride,
-                sampler=cfg.ecc_sampler, shear_k=cfg.ecc_shear_k,
-                stall_patience=cfg.ecc_stall_patience, loop_kernel=cfg.ecc_loop_kernel)
+            ecc_warp, ecc_rho, ecc_it = self._ecc(crop01)
             def_gray = warp_affine_inverse_shear(def_gray, ecc_warp, K=cfg.ecc_shear_k)
         if self.stop_after == "align":
             return {"x": def_gray}
@@ -251,8 +330,7 @@ class FTPPipeline:
         phase_wrapped = torch.angle(ratio).to(torch.float32)
 
         # --- unwrap
-        phase_unwrapped = unwrap_wls(phase_wrapped, reliable, consts,
-                                     cg_iters=cfg.unwrap_cg_iters, tol=cfg.unwrap_cg_tol)
+        phase_unwrapped = self._unwrap(phase_wrapped, reliable)
         if self.stop_after == "unwrap":
             return {"x": phase_unwrapped}
 

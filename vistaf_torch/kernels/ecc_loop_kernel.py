@@ -9,6 +9,11 @@ step and the TPU kernel's rules: stop on ``|rho - last_rho| < eps``, on
 with ``stall_patience``, after that many iterations without a better rho,
 returning the best-rho iterate.
 
+Routing (``kernels/__init__.py``): ``fits`` copies the JAX package's
+whole-solver budget; above it, or with a seed, ``ops/registration.py``
+runs the per-iteration loop with K4.  The warp and moment rows are K4's
+(``ecc_kernel.moment_rows``, ``csrc/ecc_common.cuh``).
+
 On the H100 the solve runs on one CTA: each iteration is ~2 M hat taps and
 four barriers, and the iterations are sequential, so the kernel is bound by
 one SM's arithmetic and by barrier latency.  A later PR could split the
@@ -21,33 +26,32 @@ import numpy as np
 import torch
 
 from vistaf_torch import kernels
-from vistaf_torch.ops.warp import hat_resample_axis
+from vistaf_torch.kernels.ecc_kernel import moment_rows
 
 _f32 = np.float32
+# the JAX package's whole-solver budget (pallas/ecc_loop_kernel.py:39-46):
+# ~167 bytes of scoped VMEM per padded element, 90% of 16 MiB
+_BYTES_PER_ELEM_LOOP = 167
+_VMEM_SCOPED_LIMIT = 16 * 2 ** 20
+_VMEM_MARGIN = 0.90
+_MAX_ELEMS_LOOP = int(_VMEM_MARGIN * _VMEM_SCOPED_LIMIT / _BYTES_PER_ELEM_LOOP)
+
+
+def fits(shape) -> bool:
+    """The JAX package's ``fits_vmem_loop``: above it (or with a seed) the
+    ECC takes the per-iteration loop (``ops/registration.py``)."""
+    return kernels.padded_elems(shape) <= _MAX_ELEMS_LOOP
 
 
 def _moments(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor,
              p, K: int) -> np.ndarray:
     """(6, 6) moment matrix of the rows [m, T m, I m, G_theta, gx m, gy m]
-    sampled at the warp p = (theta, tx, ty), as float32."""
+    sampled at the warp p = (theta, tx, ty), as float32 (K4's rows, with
+    the shear scalars formed on the host in float32)."""
     c, s = np.cos(p[0]), np.sin(p[0])
     r = s / c
-    cy = (r, c - r * (-s) - _f32(1.0), p[2] - r * p[1])
-    cx = (c - _f32(1.0), -s, p[1])
-    H, W = T.shape
-    vv = torch.arange(H, dtype=torch.float32, device=T.device)[:, None].expand(H, W)
-    uu = torch.arange(W, dtype=torch.float32, device=T.device)[None, :].expand(H, W)
-    disp_y = float(cy[0]) * uu + float(cy[1]) * vv + float(cy[2])
-    mid = hat_resample_axis(S_cf, disp_y, K, axis=1)
-    disp_x = float(cx[0]) * uu + float(cx[1]) * vv + float(cx[2])
-    iw, gxw, gyw, mw = hat_resample_axis(mid, disp_x, K, axis=2)
-    mf = torch.where(mw > 0.95, 1.0, 0.0) * sm
-    gxm = gxw * mf
-    gym = gyw * mf
-    dwx = float(-s) * uu - float(c) * vv
-    dwy = float(c) * uu - float(s) * vv
-    rows = torch.stack([mf, T * mf, iw * mf, gxm * dwx + gym * dwy, gxm, gym]
-                       ).reshape(6, -1)
+    co = (r, c - r * (-s) - _f32(1.0), p[2] - r * p[1], c - _f32(1.0), -s, p[1], c, s)
+    rows = moment_rows(S_cf, T, sm, [float(v) for v in co], K)
     return (rows @ rows.T).cpu().numpy().astype(np.float32)
 
 

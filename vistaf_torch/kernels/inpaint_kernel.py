@@ -23,6 +23,16 @@ import torch
 from vistaf_torch import kernels
 from vistaf_torch.ops.padding import pad_last2
 
+# the JAX package's _MAX_PADDED_ELEMS (pallas/inpaint_kernel.py:30)
+_MAX_PADDED_ELEMS = 400_000
+
+
+def fits(shape) -> bool:
+    """The JAX package's ``fits_vmem`` (``pallas/inpaint_kernel.py:89``).
+    Not a route: above it the JAX package runs the same stencil in XLA, so
+    the port keeps the kernel at every size."""
+    return kernels.padded_elems(shape) <= _MAX_PADDED_ELEMS
+
 
 def _avg3(x: torch.Tensor) -> torch.Tensor:
     """3x3 box sum with an edge-replicate border, row sums first."""

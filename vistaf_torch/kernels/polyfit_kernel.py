@@ -11,7 +11,8 @@ u = r / (c * 1.4826 * (mad + 1e-6)).  Zeros when the mask holds fewer than
 On the H100 the fit runs on one CTA: a round is one pass of 27 fused sums
 plus up to 32 bisection count passes, each ending in a block reduction, so
 the kernel is bound by one SM's load bandwidth and barrier latency.  A
-later PR could spread the plane over a cluster of CTAs.
+later PR could spread the plane over a cluster of CTAs.  The median/MAD
+device code is K2's (``csrc/common.cuh::median_mad``).
 """
 from __future__ import annotations
 
@@ -21,10 +22,18 @@ import numpy as np
 import torch
 
 from vistaf_torch import kernels
-from vistaf_torch.kernels.quantile_kernel import bisect_levels, bisect_rows
+from vistaf_torch.kernels.quantile_kernel import bisect_levels, median_mad_rows
 
 LEVELS = bisect_levels(128, 1)
 _f32 = np.float32
+# the JAX package's _MAX_PADDED_ELEMS (pallas/polyfit_kernel.py:32)
+_MAX_PADDED_ELEMS = 300_000
+
+
+def fits(shape) -> bool:
+    """The JAX package's ``fits_vmem`` (``pallas/polyfit_kernel.py:38``):
+    above it the fit is the IRLS with K2 (``ops/polyfit.py``)."""
+    return kernels.padded_elems(shape) <= _MAX_PADDED_ELEMS
 
 
 def basis(h: int, w: int, ncoef: int, device) -> List[torch.Tensor]:
@@ -71,16 +80,11 @@ def _chol_solve(H, g, n):
 
 
 def _median_mad(r: torch.Tensor, m: torch.Tensor, n: torch.Tensor):
-    one = torch.ones((1, 1), dtype=torch.float32, device=r.device)
-    half = torch.full((1,), 0.5, dtype=torch.float32, device=r.device)
     lo0 = torch.where(m, r, 3.0e38).amin()
     hi0 = torch.where(m, r, -3.0e38).amax()
     xs = torch.where(m, r, float("nan")).reshape(1, -1)
-    med = bisect_rows(xs, n.reshape(1), half, lo0 * one, hi0 * one, LEVELS)[0, 0]
-    ar = torch.where(m, torch.abs(r - med), float("nan")).reshape(1, -1)
-    span = torch.maximum(hi0 - med, med - lo0)
-    mad = bisect_rows(ar, n.reshape(1), half, 0.0 * one, span * one, LEVELS)[0, 0]
-    return med, mad
+    med, mad = median_mad_rows(xs, n.reshape(1), lo0.reshape(1), hi0.reshape(1), LEVELS)
+    return med[0], mad[0]
 
 
 def robust_polyfit2d_coef_plain(z: torch.Tensor, mask: torch.Tensor, order: int = 2,

@@ -1,9 +1,12 @@
 """Weighted least-squares phase unwrap (JAX ``ops/unwrap.py::unwrap_wls``):
-PCG with a DCT-Poisson preconditioner (dense DCT matmuls at crop scale),
-gauge anchoring and congruence projection.  The PCG ``while_loop`` is a
-Python loop whose convergence check is one host sync per iteration.  The
-``downsample`` path and the FFT-based DCT (both native-4K only) are not
-ported yet."""
+PCG with a DCT-Poisson preconditioner (dense DCT matmuls below
+``_DCT_FFT_MIN_PX``), gauge anchoring and congruence projection, and the
+``downsample`` path of the native-4K deploy preset (the solve on a pooled
+grid, pooled in the complex domain, upsampled as ``jax.image.resize``
+'linear' does).  The PCG ``while_loop`` is a Python loop whose convergence
+check is one host sync per iteration.  The FFT-based DCT the JAX package
+takes for solve grids of ``_DCT_FFT_MIN_PX`` and more is not ported yet.
+The K6 kernel (``kernels/unwrap_kernel.py``) is the ``wls_pallas`` route."""
 from __future__ import annotations
 
 import math
@@ -38,9 +41,22 @@ def _poisson_denominator(h: int, w: int) -> np.ndarray:
     return np.where(np.abs(denom) < 1e-12, np.float32(1.0), denom).astype(np.float32)
 
 
+# the JAX package's switch to the FFT-based DCT (ops/unwrap.py:49)
+_DCT_FFT_MIN_PX = 512
+
+
+def dense_dct_solve(shape) -> bool:
+    """Whether the JAX package solves an unwrap grid of ``shape`` with the
+    dense DCT matrices, the only DCT ported (else its FFT-based DCT)."""
+    return min(shape) < _DCT_FFT_MIN_PX
+
+
 def _poisson_dct_solve(rho: torch.Tensor, consts: DeviceConsts) -> torch.Tensor:
     """Neumann Poisson solve Laplacian(phi) = rho via DCT-II matmuls."""
     h, w = rho.shape
+    if not dense_dct_solve((h, w)):
+        raise NotImplementedError(f"{h}x{w} unwrap solve: the FFT-based DCT "
+                                  f"(min side >= {_DCT_FFT_MIN_PX}) is not ported")
     Dh = consts.get(("dct", h), lambda: _dct2_matrix(h))
     Dw = consts.get(("dct", w), lambda: _dct2_matrix(w))
     denom = consts.get(("poisson_denom", h, w), lambda: _poisson_denominator(h, w))
@@ -106,12 +122,58 @@ def _gauge_and_project(phi: torch.Tensor, psi: torch.Tensor, m: torch.Tensor,
     return torch.where(mask, phi, float("nan"))
 
 
+def _linear_upsample_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) weights of ``jax.image.resize(..., 'linear')`` along one
+    axis (its ``compute_weight_mat`` for upsampling): half-pixel centres,
+    triangle taps, weights renormalised where a tap falls off the edge."""
+    scale = n_out / n_in
+    inv_scale = np.float32(1.0 / scale)
+    sample_f = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale
+                - np.float32(0.0) * inv_scale - np.float32(0.5))
+    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=np.float32)[:, None])
+    weights = np.maximum(np.float32(0.0), np.float32(1.0) - x)
+    total = weights.sum(axis=0, keepdims=True, dtype=np.float32)
+    weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                       weights / np.where(total != 0, total, np.float32(1.0)),
+                       np.float32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return np.where(inside[None, :], weights, np.float32(0.0)).astype(np.float32)
+
+
+def resize_linear(x: torch.Tensor, shape, consts: DeviceConsts) -> torch.Tensor:
+    """``jax.image.resize(x, shape, 'linear')`` of an (h, w) plane for an
+    upsample, as two weight-matrix products."""
+    (h, w), (H, W) = x.shape, shape
+    Wy = consts.get(("resize_linear", h, H), lambda: _linear_upsample_matrix(h, H))
+    Wx = consts.get(("resize_linear", w, W), lambda: _linear_upsample_matrix(w, W))
+    return Wy.T @ x @ Wx
+
+
 def unwrap_wls(wrapped: torch.Tensor, mask: torch.Tensor, consts: DeviceConsts,
-               cg_iters: int = 30, tol: float = 1e-8) -> torch.Tensor:
+               cg_iters: int = 30, tol: float = 1e-8, downsample: int = 1) -> torch.Tensor:
     """Weighted least-squares unwrap of ``wrapped`` over ``mask``, anchored
     to the wrapped input's masked mean and congruent with it; NaN outside
-    the mask."""
+    the mask.  ``downsample=d`` solves on the d x d sum-pooled grid (the
+    wrapped phase pooled as the angle of the masked phasor sum) and
+    upsamples the smooth solution before the full-resolution gauge and
+    congruence step."""
     psi = torch.where(mask, wrapped, 0.0).to(torch.float32)
     m = mask.to(torch.float32)
-    phi = _wls_pcg_solve(psi, m, cg_iters, tol, consts)
+    if downsample > 1:
+        d = int(downsample)
+        h, w = psi.shape
+        Hp, Wp = -(-h // d) * d, -(-w // d) * d
+
+        def pool(a):
+            return F.pad(a, (0, Wp - w, 0, Hp - h)).reshape(
+                Hp // d, d, Wp // d, d).sum(dim=(1, 3))
+
+        zr, zi = pool(torch.cos(psi) * m), pool(torch.sin(psi) * m)
+        mc = pool(m)
+        psi_c = torch.atan2(zi, zr)
+        phi_c = _wls_pcg_solve(torch.where(mc > 0, psi_c, 0.0), (mc > 0).to(torch.float32),
+                               cg_iters, tol, consts)
+        phi = resize_linear(phi_c, (Hp, Wp), consts)[:h, :w]
+    else:
+        phi = _wls_pcg_solve(psi, m, cg_iters, tol, consts)
     return _gauge_and_project(phi, psi, m, mask)
