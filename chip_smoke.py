@@ -5,20 +5,30 @@
 Phases, one line each, any failure raises and exits non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the Hopper kernels from vistaf_torch/csrc;
-  3. kernels: each of the seven kernels against its plain PyTorch version on
+  3. kernels: each of the eight kernels against its plain PyTorch version on
      the card at the shapes its paths give it (236x236 planes for K1, K3,
      K5, K6, K7; the 295x295 coarse ECC grid for K4; the 1182x1182 crop of
-     the native-4K path for K1, K2 and K3), with CUDA-event median times of
-     both;
+     the native-4K force path for K1, K2 and K3; the 2160x3840 gray plane
+     for K1, and the 1608x1664 compute crop for K3 and K8, of the native-4K
+     temperature path), with CUDA-event median times of both, the bound
+     (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, whichever
+     is longer) and, where one PyTorch call computes the same function
+     (K1: torch.nanquantile), that call's time;
   4. end to end at 640x480: ForcePipeline under the deploy preset as
      shipped, K1, K3, K5, K6 and K7 must launch, force within 1% of the
      same port run on the CPU;
   5. end to end at 2160x3840: ForcePipeline under FTPConfig().deploy(), K1,
      K2, K3 and K4 must launch, force within 1% and the ECC warp within
      0.05 px of the port's CPU run;
-  6. timing: steady-state frame->force p50/p90, fps and the host syncs one
-     frame makes, for both paths (fewer frames at 4K);
-  7. profile: device busy share and the heaviest kernels of a few frames of
+  6. end to end at 2160x3840: TemperaturePipeline under TempConfig().deploy()
+     on a synthetic thermochromic frame with models of the shipped form, K1,
+     K3 and K8 must launch, against the port's CPU run: equal carrier bin,
+     t_mean within 0.1 degC, t_min and t_max within 0.75 degC, valid pixels
+     within 0.5%, and COLOR on at least 1% of the ROI;
+  7. timing: steady-state p50/p90, fps and the host syncs one frame makes,
+     for each path (fewer frames at 4K; the temperature path both through
+     __call__, which fetches every map, and through stats());
+  8. profile: device busy share and the heaviest kernels of a few frames of
      each path under torch.profiler.
 Then the card line, one JSON line with the kernel table and, last, the
 device line.
@@ -44,12 +54,19 @@ FORCE_MODEL = {"type": "growth",
                "params": {"a": 1.6197727931063521, "b": 9.756634595755994}}
 FORCE_RTOL = 0.01          # the deploy preset's 1% force contract
 ECC_ATOL_PX = 0.05         # ECC warp translation, card vs CPU
+# the temperature deploy contract (the JAX TempConfig.deploy): scene mean
+# within 0.1 degC, hottest/coldest pixel within 0.75 degC
+T_MEAN_ATOL, T_EXTREME_ATOL, VALID_RTOL, COLOR_MIN_SHARE = 0.1, 0.75, 0.005, 0.01
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, float32 FLOP/s
+# outside the tensor cores
+HBM_BPS, FP32_OPS = 3.35e12, 67e12
 # kernels each path must launch (the JAX package's Pallas routes at that size)
 PATH_KERNELS = {
     "640": ("masked_quantiles", "inpaint_diffusion", "ecc_loop_euclidean", "unwrap_wls",
             "robust_polyfit2d"),
     "4k": ("masked_quantiles", "masked_median_mad", "inpaint_diffusion",
            "gn_moments_euclidean"),
+    "temp4k": ("masked_quantiles", "inpaint_diffusion", "fused_temperature"),
 }
 
 
@@ -85,11 +102,14 @@ def kernel_cases(device):
     """Inputs at the slice's shapes, made with numpy from SEED, and the
     check each kernel's output must pass against its plain version."""
     import torch
-    from vistaf_torch.config import FTPConfig, slice_ftp_config
+    from vistaf_torch.config import FTPConfig, TempConfig, slice_ftp_config
     from vistaf_torch.ftp.pipeline import FTPGeometry
     from vistaf_torch.kernels import (ecc_kernel, ecc_loop_kernel, inpaint_kernel,
-                                      polyfit_kernel, quantile_kernel, unwrap_kernel)
+                                      polyfit_kernel, quantile_kernel, temp_kernel,
+                                      unwrap_kernel)
     from vistaf_torch.ops import geometry
+    from vistaf_torch.temperature.inference import TemperaturePipeline
+    from vistaf_torch.utils.synthetic import synthetic_deploy_temp_weights
     from vistaf_torch.ops.registration import ecc_prepare
 
     cfg = slice_ftp_config(H, W)
@@ -218,6 +238,43 @@ def kernel_cases(device):
         assert float(same_k) >= 0.999, float(same_k)
         return float((a[m] - b[m]).abs().max())
 
+    # K1, K3 and K8 at the native-4K temperature path's shapes: the median
+    # of the 2160x3840 gray over its effective ROI, and the 1608x1664
+    # compute crop's 16-iteration WIDE inpaint and fused models
+    tcfg = TempConfig().deploy()
+    y0, y1, x0, x1 = TemperaturePipeline.compute_bbox(tcfg)
+    outer = geometry.circle_from_3_points_exact(tcfg.outer_circle_p1, tcfg.outer_circle_p2,
+                                                tcfg.outer_circle_p3)
+    roi_t = geometry.circular_mask(H4K, W4K, *outer)
+    gray_t = np.round(rng.uniform(0, 255, size=(H4K, W4K))).astype(np.float32)
+    k1_t_args = (t(gray_t), t(roi_t & (rng.random((H4K, W4K)) > 0.01)), (50.0,))
+    hc, wc = y1 - y0, x1 - x0
+    gray_c = np.round(rng.uniform(0, 255, size=(hc, wc))).astype(np.float32)
+    k3_t_args = (t(gray_c), t(rng.random((hc, wc)) > 0.995), tcfg.wide_inpaint_iters)
+    color, wide = synthetic_deploy_temp_weights(SEED)
+    roi_c = t(roi_t[y0:y1, x0:x1].copy())
+    k8_args = (t(np.round(rng.uniform(0, 255, size=(hc, wc, 3))).astype(np.float32)), roi_c,
+               roi_c & t(rng.random((hc, wc)) > 0.5))
+    k8_fn = temp_kernel.make_fused_temperature_fn(tcfg.color_chroma_min, color, wide)
+
+    def k8_plain(bgr, roi, cpre):
+        return temp_kernel.fused_temperature_maps_plain(bgr, roi, cpre,
+                                                        tcfg.color_chroma_min, color, wide)
+
+    def k8_check(a, b):
+        # test_pallas_temp.py's tolerance: expf/logf/powf of two libraries
+        # can flip an 8-bit LAB step on a .5 boundary
+        errs = []
+        for x, y in zip(a[:2], b[:2]):
+            both = torch.isfinite(x) & torch.isfinite(y)
+            assert float((torch.isfinite(x) != torch.isfinite(y)).float().mean()) < 2e-3
+            d = (x[both] - y[both]).abs()
+            assert float((d > 1e-2).float().mean()) < 2e-3
+            assert float(torch.quantile(d, 0.995)) < 0.5
+            errs.append(float(d.max()))
+        assert float((a[2] != b[2]).float().mean()) < 2e-3
+        return max(errs)
+
     k1 = ("masked_quantiles", "vistaf_torch/csrc/quantile.cu",
           "vistaf_tpu/pallas/quantile_kernel.py:91",
           quantile_kernel.masked_quantiles, quantile_kernel.masked_quantiles_plain)
@@ -227,8 +284,12 @@ def kernel_cases(device):
     return [
         (*k1, k1_args, k1_check),
         (*k1, k1_4k_args, k1_check),
+        (*k1, k1_t_args, k1_check),
         (*k3, k3_args, k3_check),
         (*k3, k3_4k_args, k3_check),
+        (*k3, k3_t_args, k3_check),
+        ("fused_temperature", "vistaf_torch/csrc/temp.cu",
+         "vistaf_tpu/pallas/temp_kernel.py:139", k8_fn, k8_plain, k8_args, k8_check),
         ("ecc_loop_euclidean", "vistaf_torch/csrc/ecc_loop.cu",
          "vistaf_tpu/pallas/ecc_loop_kernel.py:161",
          ecc_loop_kernel.ecc_loop_euclidean, ecc_loop_kernel.ecc_loop_euclidean_plain,
@@ -251,33 +312,113 @@ def kernel_cases(device):
     ]
 
 
+def work(name: str, args, out):
+    """(bytes, float32 operations) one call needs on these inputs: each
+    input read once and each output written once; operations counted per
+    element from the algorithm (a compare, add, multiply or transcendental
+    is one), with data-dependent trip counts taken from this call."""
+    from vistaf_torch.kernels import polyfit_kernel, quantile_kernel, temp_kernel, unwrap_kernel
+    from vistaf_torch.utils.synthetic import synthetic_deploy_temp_weights
+    x = args[0]
+    n = x.numel()
+    if name == "fused_temperature":
+        # every pixel's LAB, the WIDE model on roi_eff and the COLOR model
+        # on the final colour support, with the models kernel_cases built
+        color, wide = synthetic_deploy_temp_weights(SEED)
+        hw = args[1].numel()
+        return 23 * hw, temp_kernel.op_count(wide, color, hw, int(args[1].sum()),
+                                             int(out[2].sum()))
+    if name == "masked_quantiles":       # min, max; per level a compare and a count
+        q = len(args[2])
+        return 5 * n + 4 * out.numel(), n * (2 + 2 * quantile_kernel.LEVELS * q)
+    if name == "masked_median_mad":      # median levels; |x - med|; MAD levels
+        ml = quantile_kernel.MAD_LEVELS
+        return 5 * n + 8, n * (2 + 2 * ml + 2 + 2 * ml)
+    if name == "inpaint_diffusion":      # per step: two 3x3 box sums, update
+        return 9 * n, n * (2 + 24 * int(args[2]))
+    hw = args[1].numel()
+    taps = 2 * int(args[3] if name == "ecc_loop_euclidean" else args[4]) + 1
+    per_iter = hw * (2 * taps * (4 + 4 * 2) + 60)   # two hat passes, moment rows
+    if name == "gn_moments_euclidean":
+        return 4 * (6 * hw + 8 + 36), per_iter
+    if name == "ecc_loop_euclidean":
+        return 4 * (6 * hw + 6), per_iter * max(1, int(out[2]))
+    if name == "unwrap_wls":             # PCG: 4 DCT products a preconditioner
+        hp, wp = unwrap_kernel.padded_shape(x.shape)
+        apps = int(args[3]) + 1
+        mats = 2 * (hp * hp + wp * wp) + hp * wp
+        return 9 * n + 4 * mats, apps * 4 * hp * wp * (hp + wp) + hp * wp * 40 * apps
+    if name == "robust_polyfit2d":       # per round 27 weighted sums; bisections
+        ncoef = out.numel()
+        levels = polyfit_kernel.LEVELS
+        return 5 * n + 4 * ncoef, n * (int(args[3]) * (54 + 2 * ncoef + 6)
+                                       + int(args[5]) * (4 * levels + 2))
+    raise KeyError(name)
+
+
+def library_call(name: str, args):
+    """One PyTorch call that computes the kernel's function, or None: only
+    K1 has one (torch.nanquantile over the plane with NaN outside the
+    mask, prepared outside the timed call)."""
+    import torch
+    if name != "masked_quantiles":
+        return None
+    x, m, qs = args
+    xn = torch.where(m.expand(x.shape), x, float("nan")).reshape(-1, x.shape[-2] * x.shape[-1])
+    q = torch.tensor([v / 100.0 for v in qs], dtype=torch.float32, device=x.device)
+    return lambda: torch.nanquantile(xn, q, dim=-1)
+
+
+def bound_ms(nbytes: int, ops: int):
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_kernels(device):
     """One row per kernel: ``max_abs_err`` over every shape it was checked
-    at, ``ms`` and ``plain_ms`` at the first, each shape under ``shapes``."""
+    at; ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` at the first;
+    each shape's numbers under ``shapes``."""
     import torch
     rows = {}
-    for name, source, replaces, kern, plain, args, check in kernel_cases(device):
+    for case in kernel_cases(device):
+        name, source, replaces, kern, plain, args, check = case
         got = kern(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
         err = check(got, ref)
+        nbytes, ops = work(name, args, got)
+        bms, by = bound_ms(nbytes, ops)
         ms = cuda_ms(lambda: kern(*args))
         plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
+        lib = library_call(name, args)
+        lib_ms = cuda_ms(lib, reps=10, warmup=2) if lib is not None else None
         shape = list(args[0].shape)
-        say("kernel", name=name, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        one = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops,
+               "library_ms": lib_ms}
+        say("kernel", name=name, **one)
         row = rows.setdefault(name, {"name": name, "route": "cuda", "source": source,
-                                     "replaces": replaces, "max_abs_err": err, "ms": ms,
-                                     "plain_ms": plain_ms, "shapes": []})
+                                     "replaces": replaces, "launches": 0,
+                                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                     "bound_ms": bms, "bound_by": by,
+                                     "library_ms": lib_ms, "shapes": []})
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["shapes"].append({"shape": shape, "max_abs_err": err, "ms": ms,
-                              "plain_ms": plain_ms})
+        row["shapes"].append(one)
     return list(rows.values())
+
+
+def record_launches(path: str, rows, launches) -> None:
+    for row in rows:
+        row[f"launches_{path}"] = launches[row["name"]]
+        row["launches"] += launches[row["name"]]
+    for name in PATH_KERNELS[path]:
+        assert launches[name] > 0, f"{name} was not launched on the {path} path"
 
 
 def run_path(path: str, device, rows, cfg, h: int, w: int):
     """Drive ForcePipeline once on the card with the launch counts set to 0
     just before, check the path's kernels launched and the result against
-    the port's CPU run; returns the pipeline and the frames for timing."""
+    the port's CPU run; returns a frame callable for timing."""
     import torch
     from vistaf_torch import kernels
     from vistaf_torch.config import ForceConfig
@@ -292,11 +433,7 @@ def run_path(path: str, device, rows, cfg, h: int, w: int):
     res = gpu(ref, de)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    for row in rows:
-        row[f"launches_{path}"] = launches[row["name"]]
-        row["launches"] = row.get("launches", 0) + launches[row["name"]]
-    for name in PATH_KERNELS[path]:
-        assert launches[name] > 0, f"{name} was not launched on the {path} path"
+    record_launches(path, rows, launches)
     force = res["force_N"]
     assert np.isfinite(force) and force > 0.0, force
     hm = res["height_map_mm_crop"]
@@ -317,20 +454,77 @@ def run_path(path: str, device, rows, cfg, h: int, w: int):
         cpu_seconds=cpu_s, launches=launches)
     assert gap <= FORCE_RTOL, (force, res_cpu["force_N"])
     assert warp_gap < ECC_ATOL_PX, warp_gap
-    return ForcePipeline(*args, device=device), ref, de
+    fast = ForcePipeline(*args, device=device)
+    return lambda: fast(ref, de)
 
 
-def phase_timing(path, gpu, ref, de, card, frames: int, warmup: int):
+def run_temperature(device, rows):
+    """Drive TemperaturePipeline under TempConfig().deploy() once on the card
+    at 2160x3840 with the launch counts set to 0 just before, check K1, K3
+    and K8 launched and the result against the port's CPU run; returns the
+    pipeline and the frame for timing."""
+    import torch
+    from vistaf_torch import kernels
+    from vistaf_torch.config import TempConfig
+    from vistaf_torch.temperature.inference import STATS, TemperaturePipeline
+    from vistaf_torch.utils.synthetic import synthetic_deploy_temp_weights, synthetic_tlc_frame
+
+    cfg = TempConfig().deploy()
+    color, wide = synthetic_deploy_temp_weights(SEED)
+    frame = synthetic_tlc_frame(H4K, W4K, cfg, SEED)
+    gpu = TemperaturePipeline(cfg, color, wide, device=device)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = gpu(frame)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    record_launches("temp4k", rows, launches)
+    final = res["temperature_map_final"]
+    roi = res["roi_outer"]
+    assert final.shape == (H4K, W4K) and np.isfinite(final[roi]).mean() > 0.99
+    st = gpu.stats(frame)
+    for k in STATS:      # the same graph up to the stats; 1e-4 covers any reduction reorder
+        assert abs(float(st[k]) - float(res[k])) <= 1e-4 * max(1.0, abs(float(res[k]))), \
+            (k, st[k], res[k])
+
+    t0 = time.perf_counter()
+    res_cpu = TemperaturePipeline(cfg, color, wide, device="cpu")(frame)
+    cpu_s = time.perf_counter() - t0
+    gaps = {k: abs(float(res[k]) - float(res_cpu[k])) for k in ("t_mean", "t_min", "t_max")}
+    valid_gap = abs(int(res["valid_pixels"]) - int(res_cpu["valid_pixels"])) \
+        / int(res_cpu["valid_pixels"])
+    color_share = float(np.mean(res["source_map"][roi] == 255))
+    agree = {k: float(np.mean(res[k] == res_cpu[k]))
+             for k in ("mask_dark", "mask_sat", "mask_color_support")}
+    fa, fb = np.isfinite(final), np.isfinite(res_cpu["temperature_map_final"])
+    both = fa & fb
+    say("end_to_end", path="temp4k", **{k: float(res[k]) for k in STATS},
+        seg_peak_xy=res["seg_peak_xy"].tolist(), seg_peak_xy_cpu=res_cpu["seg_peak_xy"].tolist(),
+        **{f"{k}_cpu": float(res_cpu[k]) for k in ("t_mean", "t_min", "t_max")},
+        **{f"{k}_gap": v for k, v in gaps.items()}, valid_pixels_gap=valid_gap,
+        color_share_of_roi=color_share, mask_agreement=agree,
+        final_map_max_gap=float(np.abs(final[both] - res_cpu["temperature_map_final"][both]).max()),
+        final_finite_agreement=float(np.mean(fa == fb)), cpu_seconds=cpu_s,
+        compute_bbox=list(gpu._compute_bbox), launches=launches)
+    np.testing.assert_array_equal(res["seg_peak_xy"], res_cpu["seg_peak_xy"])
+    assert gaps["t_mean"] <= T_MEAN_ATOL, gaps
+    assert gaps["t_min"] <= T_EXTREME_ATOL and gaps["t_max"] <= T_EXTREME_ATOL, gaps
+    assert valid_gap <= VALID_RTOL, valid_gap
+    assert color_share >= COLOR_MIN_SHARE, color_share
+    return gpu, frame
+
+
+def phase_timing(path, fn, card, frames: int, warmup: int):
     import torch
     for _ in range(warmup):
-        gpu(ref, de)
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(frames):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        gpu(ref, de)
+        fn()
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
@@ -339,7 +533,7 @@ def phase_timing(path, gpu, ref, de, card, frames: int, warmup: int):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            gpu(ref, de)
+            fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     syncs = sum("synchroniz" in str(w.message) for w in caught)
@@ -349,19 +543,19 @@ def phase_timing(path, gpu, ref, de, card, frames: int, warmup: int):
         host_syncs_per_frame=syncs, card=card)
 
 
-def phase_profile(path, gpu, ref, de, frames: int):
+def phase_profile(path, fn, frames: int):
     """Device busy share of a steady window: the kernels' self device time
     (``torch.profiler``) over the window's wall time, profiler on, and the
     kernels that take the most of it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    gpu(ref, de)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
-            gpu(ref, de)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     averages = prof.key_averages()
@@ -370,7 +564,7 @@ def phase_profile(path, gpu, ref, de, frames: int):
     events = [e for e in averages
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / frames
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel")
     say("profile", path=path, frames=frames, wall_ms_per_frame=wall_ms,
         device_busy_ms_per_frame=busy_ms, device_busy_share=busy_ms / wall_ms,
@@ -398,10 +592,16 @@ def main() -> int:
     rows = phase_kernels(device)
     runs = {"640": run_path("640", device, rows, slice_ftp_config(H, W), H, W),
             "4k": run_path("4k", device, rows, FTPConfig().deploy(), H4K, W4K)}
-    phase_timing("640", *runs["640"], card, frames=40, warmup=5)
-    phase_timing("4k", *runs["4k"], card, frames=5, warmup=2)
-    phase_profile("640", *runs["640"], frames=5)
-    phase_profile("4k", *runs["4k"], frames=2)
+    temp, frame = run_temperature(device, rows)
+    runs["temp4k"] = lambda: temp(frame)
+    runs["temp4k_stats"] = lambda: temp.stats(frame)
+    phase_timing("640", runs["640"], card, frames=40, warmup=5)
+    phase_timing("4k", runs["4k"], card, frames=5, warmup=2)
+    phase_timing("temp4k", runs["temp4k"], card, frames=10, warmup=2)
+    phase_timing("temp4k_stats", runs["temp4k_stats"], card, frames=10, warmup=2)
+    phase_profile("640", runs["640"], frames=5)
+    phase_profile("4k", runs["4k"], frames=2)
+    phase_profile("temp4k_stats", runs["temp4k_stats"], frames=3)
 
     print(card)
     print(json.dumps({"kernels": rows}))

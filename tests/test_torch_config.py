@@ -16,7 +16,7 @@ from vistaf_torch.utils import synthetic as tsyn
 P2H = {"type": "hinge_saturating", "params": {"a": 2.08, "b": 4.2, "c": 0.0}}
 
 
-@pytest.mark.parametrize("name", ["FTPConfig", "ForceConfig"])
+@pytest.mark.parametrize("name", ["FTPConfig", "ForceConfig", "TempConfig"])
 def test_dataclass_fields_match(name):
     jf = {f.name: f.default for f in dataclasses.fields(getattr(jcfg, name))}
     tf = {f.name: f.default for f in dataclasses.fields(getattr(tcfg, name))}
@@ -28,6 +28,26 @@ def test_deploy_and_slice_presets_match():
         dataclasses.asdict(jcfg.FTPConfig().deploy())
     want = jsyn.scaled_ftp_config(480, 640).deploy()
     assert dataclasses.asdict(tcfg.slice_ftp_config(480, 640)) == dataclasses.asdict(want)
+
+
+def test_temp_presets_match():
+    assert dataclasses.asdict(tcfg.TempConfig().deploy()) == \
+        dataclasses.asdict(jcfg.TempConfig().deploy())
+    for h, w in ((320, 640), (480, 640), (2160, 3840)):
+        assert dataclasses.asdict(tsyn.scaled_temp_config(h, w).deploy()) == \
+            dataclasses.asdict(jsyn.scaled_temp_config(h, w).deploy())
+    cfg = jsyn.scaled_temp_config(320, 640).deploy()
+    assert dataclasses.asdict(tcfg.temp_config_from_dict(dataclasses.asdict(cfg))) == \
+        dataclasses.asdict(cfg)
+    with pytest.raises(ValueError):
+        tcfg.temp_config_from_dict({"no_such_field": 1})
+
+
+def test_synthetic_temp_weights_match():
+    for a, b in zip(jsyn.synthetic_temp_weights(), tsyn.synthetic_temp_weights()):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            assert np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y, f.name
 
 
 def test_config_round_trip_from_jax_dicts():
@@ -65,9 +85,18 @@ def test_geometry_arrays_bit_equal():
 
 
 def test_pipeline_requires_an_explicit_device_and_a_ported_config():
+    """The force entry points default to the card, so a run without one must
+    name ``device="cpu"``; configurations with unported knobs raise."""
+    import inspect
+    import torch
+    from vistaf_torch.pipelines.force import ForcePipeline
     cfg = tcfg.slice_ftp_config(480, 640)
-    with pytest.raises(TypeError):
-        FTPPipeline(cfg, P2H)
+    # the entry points run on the card unless the caller names the CPU
+    for cls in (FTPPipeline, ForcePipeline):
+        assert inspect.signature(cls).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            FTPPipeline(cfg, P2H)
     with pytest.raises(NotImplementedError, match="unwrap_method"):
         FTPPipeline(cfg.replace(unwrap_method="flood_fill"), P2H, device="cpu")
     with pytest.raises(NotImplementedError, match="ecc_sampler"):

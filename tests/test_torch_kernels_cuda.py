@@ -1,5 +1,6 @@
-"""The seven Hopper kernels against their plain PyTorch versions on the card,
-and the 640x480 slice on the card against the port's CPU run.  Marked ``cuda``:
+"""The eight Hopper kernels against their plain PyTorch versions on the card,
+and the 640x480 force slice and a small temperature frame on the card
+against the port's CPU run.  Marked ``cuda``:
 they skip where PyTorch sees no GPU (the decision is made in a fixture, not
 at import).  Run on a GPU machine with
 
@@ -18,6 +19,7 @@ from vistaf_torch.kernels import ecc_loop_kernel as k5
 from vistaf_torch.kernels import inpaint_kernel as k3
 from vistaf_torch.kernels import polyfit_kernel as k7
 from vistaf_torch.kernels import quantile_kernel as k1
+from vistaf_torch.kernels import temp_kernel as k8
 from vistaf_torch.kernels import unwrap_kernel as k6
 
 pytestmark = pytest.mark.cuda
@@ -181,3 +183,47 @@ def test_slice_on_card_launches_every_kernel(dev):
         assert kernels.LAUNCHES[name] > 0, kernels.LAUNCHES
     cpu = ForcePipeline(cfg, ForceConfig(), p2h, fm, device="cpu")(ref, de)
     assert abs(gpu["force_N"] - cpu["force_N"]) <= 0.01 * cpu["force_N"]
+
+
+@pytest.mark.parametrize("kind", ["degree1", "deploy_form"])
+def test_k8_matches_plain_on_card(dev, kind):
+    """K8 against its plain version on the same card, with
+    ``test_pallas_temp.py``'s tolerance (expf/logf/powf round differently
+    from PyTorch's kernels, which can flip an 8-bit LAB step)."""
+    from vistaf_torch.utils.synthetic import (synthetic_deploy_temp_weights,
+                                              synthetic_temp_weights)
+    color, wide = (synthetic_temp_weights() if kind == "degree1"
+                   else synthetic_deploy_temp_weights(seed=5))
+    rng = np.random.default_rng(8)
+    h, w = 200, 333
+    bgr = torch.as_tensor(np.round(rng.random((h, w, 3)) * 255).astype(np.float32),
+                          device=dev)
+    roi = torch.as_tensor(rng.random((h, w)) > 0.2, device=dev)
+    cpre = roi & torch.as_tensor(rng.random((h, w)) > 0.5, device=dev)
+    kernels.reset_launches()
+    got = k8.fused_temperature_maps(bgr, roi, cpre, 10.0, color, wide)
+    assert kernels.LAUNCHES["fused_temperature"] == 1
+    want = k8.fused_temperature_maps_plain(bgr, roi, cpre, 10.0, color, wide)
+    for a, b in zip(got[:2], want[:2]):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        both = np.isfinite(a) & np.isfinite(b)
+        assert (np.isfinite(a) != np.isfinite(b)).mean() < 2e-3
+        d = np.abs(a[both] - b[both])
+        assert (d > 1e-2).mean() < 2e-3 and np.percentile(d, 99.5) < 0.5
+    assert (got[2] != want[2]).float().mean() < 2e-3
+
+
+def test_temperature_on_card_launches_k1_k3_k8(dev):
+    from vistaf_torch.temperature.inference import TemperaturePipeline
+    from vistaf_torch.utils.synthetic import (scaled_temp_config, synthetic_deploy_temp_weights,
+                                              synthetic_tlc_frame)
+    cfg = scaled_temp_config(540, 960).deploy()
+    color, wide = synthetic_deploy_temp_weights()
+    frame = synthetic_tlc_frame(540, 960, cfg)
+    kernels.reset_launches()
+    gpu = TemperaturePipeline(cfg, color, wide, device=dev)(frame)
+    for name in ("masked_quantiles", "inpaint_diffusion", "fused_temperature"):
+        assert kernels.LAUNCHES[name] > 0, kernels.LAUNCHES
+    cpu = TemperaturePipeline(cfg, color, wide, device="cpu")(frame)
+    np.testing.assert_array_equal(gpu["seg_peak_xy"], cpu["seg_peak_xy"])
+    assert abs(float(gpu["t_mean"]) - float(cpu["t_mean"])) <= 0.1

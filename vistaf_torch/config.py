@@ -1,7 +1,8 @@
-"""Frozen configuration dataclasses for the force path.
+"""Frozen configuration dataclasses for the force and temperature paths.
 
-A field-for-field copy of the JAX package's ``FTPConfig`` (with its
-``deploy()`` preset) and ``ForceConfig``; the port cannot import them
+A field-for-field copy of the JAX package's ``FTPConfig`` and
+``TempConfig`` (each with its ``deploy()`` preset) and ``ForceConfig``; the
+port cannot import them
 because importing the JAX package may load jax.  ``tests/test_torch_config.py``
 compares every field name and default with the JAX dataclasses, so drift is
 caught.  The field documentation lives in the JAX package.
@@ -188,6 +189,85 @@ class ForceConfig:
     override_mm_per_px: Optional[float] = None
 
 
+@dataclass(frozen=True)
+class TempConfig:
+    """Temperature-sensor configuration (the JAX package's
+    ``config.TempConfig``)."""
+
+    outer_circle_p1: Point = (1845, 1818)
+    outer_circle_p2: Point = (1517, 623)
+    outer_circle_p3: Point = (2687, 914)
+    use_inner_circle: bool = False
+    inner_circle_p1: Point = (1881, 1749)
+    inner_circle_p2: Point = (1579, 665)
+    inner_circle_p3: Point = (2616, 936)
+
+    crop_output_to_outer_roi: bool = True
+    crop_pad_px: int = 10
+
+    blur_ksize: int = 5
+
+    color_t_min: float = 20.0
+    color_t_max: float = 33.0
+    color_guard_band: float = 0.5
+    switch_margin_c: float = 1.0
+    final_t_min: float = 20.0
+    final_t_max: float = 75.0
+
+    seg_band_radius: float = 22.0
+    seg_dc_exclusion: int = 28
+    seg_force_right_half_plane: bool = True
+    seg_prefer_peak_near_center_row: bool = True
+    seg_peak_max_dy_from_center: float = 0.14
+    seg_illum_sigma: float = 20.0
+    seg_n_peaks: int = 16
+    seg_peak_method: str = "topk"
+    seg_bandpass: str = "fft"
+    seg_fft: str = "fft2"
+
+    sat_thresh_gray: int = 245
+    sat_dilate_ksize: int = 13
+
+    post_close_kx: int = 3
+    post_close_ky: int = 31
+    post_open_kx: int = 3
+    post_open_ky: int = 7
+
+    color_chroma_min: float = 10.0
+    color_support_dilate: int = 3
+
+    final_smooth_enable: bool = True
+    final_smooth_sigma_across: float = 6.0
+    final_smooth_sigma_along: float = 1.0
+
+    use_fused_kernel: bool = False
+    percentile_method: str = "sort"
+    conv_vpu: bool = False
+    wide_inpaint_iters: int = 96
+    color_inpaint_iters: int = 48
+    rotate_method: str = "gather"
+    crop_compute: bool = False
+
+    def deploy(self) -> "TempConfig":
+        """The JAX package's latency preset (``TempConfig.deploy`` of the
+        JAX package), value for value; its measurements and reasons are
+        documented there and were taken on a TPU."""
+        return self.replace(percentile_method="hist_pallas", use_fused_kernel=True,
+                            wide_inpaint_iters=16, color_inpaint_iters=8,
+                            rotate_method="shear", crop_compute=True,
+                            conv_vpu=True, seg_peak_method="cascade",
+                            seg_bandpass="matmul", seg_fft="rfft2")
+
+    wide_inpaint_radius: int = 7
+    color_inpaint_radius: int = 5
+
+    image_height: int = 2160
+    image_width: int = 3840
+
+    def replace(self, **kw) -> "TempConfig":
+        return dataclasses.replace(self, **kw)
+
+
 def slice_ftp_config(height: int, width: int) -> FTPConfig:
     """The deploy preset scaled to (height, width), as shipped
     (``scaled_ftp_config(height, width).deploy()``)."""
@@ -214,3 +294,9 @@ def ftp_config_from_dict(d: Dict[str, Any]) -> FTPConfig:
 def force_config_from_dict(d: Dict[str, Any]) -> ForceConfig:
     """ForceConfig from a field dict."""
     return _from_dict(ForceConfig, d)
+
+
+def temp_config_from_dict(d: Dict[str, Any]) -> TempConfig:
+    """TempConfig from a field dict, e.g. ``dataclasses.asdict`` of the JAX
+    package's config."""
+    return _from_dict(TempConfig, d)

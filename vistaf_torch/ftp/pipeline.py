@@ -99,15 +99,15 @@ def unwrap_route(cfg: FTPConfig, shape) -> Tuple[str, Tuple[int, int]]:
 class FTPPipeline:
     """Frame pair -> mm depth map on one device::
 
-        pipe = FTPPipeline(cfg, p2h_model, device="cuda")
-        out = pipe(ref_bgr_u8, def_bgr_u8)   # dict of numpy arrays/scalars
+        pipe = FTPPipeline(cfg, p2h_model)     # on the card; device="cpu" runs
+        out = pipe(ref_bgr_u8, def_bgr_u8)     # the kernels' plain versions
 
     ``stop_after`` truncates the forward after a named stage (one of
     ``STAGES``) and returns ``{'x': ...}``, as the JAX pipeline does."""
 
     def __init__(self, cfg: FTPConfig, p2h_model: Dict[str, Any],
                  use_negated_height: bool = True, debug_outputs: bool = False,
-                 stop_after: Optional[str] = None, *, device):
+                 stop_after: Optional[str] = None, *, device="cuda"):
         if stop_after is not None and stop_after not in STAGES:
             raise ValueError(f"stop_after must be one of {STAGES}, got {stop_after!r}")
         self.check_config(cfg)

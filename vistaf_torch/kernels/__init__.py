@@ -5,7 +5,8 @@ package's ``pallas/``: ``quantile_kernel`` (K1 masked quantiles, K2 the
 fused median/MAD), ``inpaint_kernel`` (K3), ``ecc_kernel`` (K4, one ECC
 Gauss-Newton iteration's moments), ``ecc_loop_kernel`` (K5, the whole ECC
 solve), ``unwrap_kernel`` (K6, the whole WLS-PCG unwrap) and
-``polyfit_kernel`` (K7, the whole IRLS fit).  The CUDA sources live in
+``polyfit_kernel`` (K7, the whole IRLS fit) and ``temp_kernel`` (K8, the
+fused per-pixel temperature models).  The CUDA sources live in
 ``vistaf_torch/csrc``; they are compiled by ``nvcc`` into one shared
 library with a plain C interface at first use, into ``vistaf_torch/_build``
 (keyed on a hash of the sources and flags), and loaded with ``ctypes``.
@@ -34,6 +35,7 @@ never on the device, so a CPU run walks the same route as the card.
 - Where the above-budget route is the same computation, the port keeps its
   kernel at every size: K1 (the JAX package's bisection fallback has the
   same levels) and K3 (its XLA diffusion is the same stencil).
+- K8 has no budget: the JAX package tiles it over rows at any size.
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ LAUNCHES: Dict[str, int] = {
     "ecc_loop_euclidean": 0,
     "unwrap_wls": 0,
     "robust_polyfit2d": 0,
+    "fused_temperature": 0,
 }
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -104,6 +107,11 @@ _SIGNATURES = {
     "vt_unwrap_wls": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # z, mask, out, h, w, ncoef, iters, resigma_iters, c, levels, stream
     "vt_robust_polyfit2d": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    # bgr, roi_eff, csup_pre, wide_out, color_out, csup_out, n, params (host
+    # struct), wide_seg, color_seg, stream
+    "vt_fused_temperature": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P),
+    # -> sizeof(TempParams)
+    "vt_temp_params_size": (),
 }
 
 _lib: Optional[ctypes.CDLL] = None

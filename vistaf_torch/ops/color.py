@@ -1,4 +1,6 @@
-"""BGR -> gray with OpenCV's 8-bit convention (JAX ``ops/color.py``)."""
+"""BGR -> gray and LAB chroma with OpenCV's 8-bit conventions (JAX
+``ops/color.py``).  The LAB conversion itself lives in the fused
+temperature kernel (``kernels/temp_kernel.py``), as in the deploy preset."""
 from __future__ import annotations
 
 import torch
@@ -13,4 +15,10 @@ def bgr_to_gray(bgr: torch.Tensor) -> torch.Tensor:
     b = bgr[..., 0].float()
     g = bgr[..., 1].float()
     r = bgr[..., 2].float()
-    return torch.round(_GRAY_W[0] * r + _GRAY_W[1] * g + _GRAY_W[2] * b)
+    y = _GRAY_W[0] * r + _GRAY_W[1] * g + _GRAY_W[2] * b
+    return torch.round(y)
+
+
+def chroma_ab(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """LAB chroma with OpenCV's +128 centering."""
+    return torch.sqrt((a - 128.0) * (a - 128.0) + (b - 128.0) * (b - 128.0))

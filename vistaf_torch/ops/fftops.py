@@ -1,8 +1,11 @@
-"""FFT helpers of the demodulation (JAX ``ops/fftops.py``): the carrier
-cascade, sub-bin parabolic refinement, the fractional phase ramp and the
-sparse-patch inverse DFT.  ``find_top_peaks``/``choose_carrier_peak`` (the
-'topk' search) and the temperature path's bandpass helpers are not ported
-yet.  Peak positions stay 0-d device tensors; nothing here syncs."""
+"""FFT helpers (JAX ``ops/fftops.py``): the carrier cascade over the full
+and the half spectrum, sub-bin parabolic refinement, the fractional phase
+ramp, the sparse-patch inverse DFT and the temperature segmentation's
+windowed bandpass over the rfft2 half spectrum.  ``find_top_peaks``/
+``choose_carrier_peak`` (the 'topk' search) and the full-spectrum
+``ifft2_bandpass_dynamic`` are not ported yet.  Peak positions stay 0-d
+device tensors and windows are taken with index tensors; nothing here
+syncs."""
 from __future__ import annotations
 
 import math
@@ -86,3 +89,92 @@ def ifft2_sparse_patch(patch: torch.Tensor, hf: int, wf: int, row0: int, col0: i
     Ey = consts.get(key + ("y",), lambda: _sparse_patch_twiddles(hf, wf, psz, row0, col0)[0])
     Ex = consts.get(key + ("x",), lambda: _sparse_patch_twiddles(hf, wf, psz, row0, col0)[1])
     return torch.matmul(torch.matmul(Ey, patch), Ex)
+
+
+def carrier_peak_cascade_half(mag_half: torch.Tensor, dc_exclusion: int,
+                              prefer_near_center_row: bool = True,
+                              peak_max_dy_frac: float = 0.12
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cascade over the row-shifted rfft2 half spectrum
+    (``mag_half[r, k] == |F_shift[r, cx + k]|``, k in [0, w/2], the Nyquist
+    column included, as the JAX package scans it): (notch & k >= 1 & near
+    row), else (notch & k >= 1), else the notched plane.  Returns (k, row)."""
+    hf, kw = mag_half.shape
+    cy = hf // 2
+    dc = int(dc_exclusion)
+    iy = torch.arange(hf, device=mag_half.device)[:, None]
+    ik = torch.arange(kw, device=mag_half.device)[None, :]
+    notch = (ik < dc) & (iy >= cy - dc) & (iy < cy + dc)
+    m1 = ~notch & (ik >= 1)
+    m2 = (m1 & (torch.abs(iy - cy) <= int(peak_max_dy_frac * hf))
+          if prefer_near_center_row else m1)
+    mf = mag_half.to(torch.float32)
+    i2 = torch.argmax(torch.where(m2, mf, -3.0e38))
+    i1 = torch.argmax(torch.where(m1, mf, -3.0e38))
+    i0 = torch.argmax(torch.where(~notch, mf, -3.0e38))
+    idx = torch.where(m2.any(), i2, torch.where(m1.any(), i1, i0))
+    return idx % kw, idx // kw
+
+
+def _window_twiddles(n: int, psz: int, sel, rows: bool) -> np.ndarray:
+    o = np.arange(n, dtype=np.float64)
+    o = o[sel] if sel is not None else o
+    if rows:
+        return np.exp(2j * np.pi * np.outer(o, np.arange(psz)) / n).astype(np.complex64)
+    return np.exp(2j * np.pi * np.outer(np.arange(psz), o) / n).astype(np.complex64)
+
+
+def _bandpass_window_tail(P: torch.Tensor, sy, sx, px, py, h: int, w: int,
+                          radius: float, rows, cols, consts: DeviceConsts) -> torch.Tensor:
+    """Disk-mask the (psz, psz) spectrum window ``P`` (full-plane shifted
+    start (sy, sx)), then Ey @ P @ Ex times the rank-1 carrier ramp."""
+    psz = P.shape[0]
+    ii = consts.iota(psz, psz, 0)
+    jj = consts.iota(psz, psz, 1)
+    dy = ii + (sy - py).to(torch.float32)
+    dx = jj + (sx - px).to(torch.float32)
+    P = torch.where(dy * dy + dx * dx <= float(radius) ** 2, P, 0.0)
+    rkey = (rows.start, rows.stop) if rows is not None else None
+    ckey = (cols.start, cols.stop) if cols is not None else None
+    Ey = consts.get(("bp_twiddle", h, psz, rkey, 0),
+                    lambda: _window_twiddles(h, psz, rows, True))
+    Ex = consts.get(("bp_twiddle", w, psz, ckey, 1),
+                    lambda: _window_twiddles(w, psz, cols, False))
+    oy = consts.get(("bp_o", h, rkey), lambda: np.arange(h, dtype=np.float32)[
+        rows if rows is not None else slice(None)])
+    ox = consts.get(("bp_o", w, ckey), lambda: np.arange(w, dtype=np.float32)[
+        cols if cols is not None else slice(None)])
+    inner = torch.matmul(torch.matmul(Ey, P), Ex)
+    fy = (sy - h // 2).to(torch.float32)
+    fx = (sx - w // 2).to(torch.float32)
+    two_pi = float(np.float32(2.0 * np.pi))
+    cay = torch.polar(torch.ones_like(oy), two_pi * (oy * fy / h))
+    cax = torch.polar(torch.ones_like(ox), two_pi * (ox * fx / w))
+    return inner * (cay[:, None] / (h * w)) * cax[None, :]
+
+
+def ifft2_bandpass_dynamic_half(Rr: torch.Tensor, k_i: torch.Tensor, py: torch.Tensor,
+                                radius: float, consts: DeviceConsts,
+                                rows: slice = None, cols: slice = None) -> torch.Tensor:
+    """ifft2(ifftshift(F_shift * disk((cx + k_i, py), radius))) from the
+    row-shifted rfft2 half spectrum ``Rr`` (``Rr[r, k] == F_shift[r, cx + k]``)
+    by two twiddle matmuls over the disk's window; the window's negative-kx
+    columns come from Hermitian symmetry, F_shift[r, cx - k] =
+    conj(Rr[(h - r) % h, k]), as the JAX package builds them.  ``rows``/
+    ``cols`` restrict the output to a static window."""
+    h, kw = Rr.shape
+    w = 2 * (kw - 1)
+    cx = w // 2
+    rr = int(np.ceil(radius))
+    psz = 2 * rr + 1
+    px = k_i + cx
+    sy = torch.clamp(py - rr, 0, h - psz)
+    sx = torch.clamp(px - rr, 0, w - psz)
+    ar = torch.arange(psz, device=Rr.device)
+    r_idx = sy + ar
+    kx = (sx - cx) + ar                       # window columns as kx (>= -rr)
+    pos = Rr.index_select(0, r_idx).index_select(1, torch.clamp(kx, min=0))
+    neg = torch.conj(Rr.index_select(0, torch.remainder(h - r_idx, h))
+                     .index_select(1, torch.clamp(-kx, min=0)))
+    P = torch.where((kx >= 0)[None, :], pos, neg)
+    return _bandpass_window_tail(P, sy, sx, px, py, h, w, radius, rows, cols, consts)

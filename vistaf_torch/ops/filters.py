@@ -1,11 +1,14 @@
 """Separable filters with OpenCV-compatible kernels and borders
 (JAX ``ops/filters.py``).
 
-The force path's blurs run in the banded-matmul association order
-(``conv_vpu=False`` in the JAX package): ``(B_y @ x) @ B_x^T`` with the
-REFLECT_101 border folded into dense band matrices.  That order is part of
-the accuracy contract (the JAX ``config.py`` ``conv_vpu``), and it is why
-the pipelines turn TF32 off: a TF32 matmul would change every blur.
+Two association orders, routed as the JAX package's ``_sep_conv2d`` routes
+them.  The default is the banded-matmul order ``(B_y @ x) @ B_x^T`` with
+the REFLECT_101 border folded into dense band matrices; that order is part
+of the force path's accuracy contract (the JAX ``config.py`` ``conv_vpu``),
+and it is why the pipelines turn TF32 off: a TF32 matmul would change every
+blur.  With ``vpu=True`` (the temperature deploy preset's ``conv_vpu``)
+kernels of at most 63 taps whose radius is below the plane's size run as
+padded shift-adds instead; longer kernels keep the matmul.
 """
 from __future__ import annotations
 
@@ -47,21 +50,59 @@ def _band(consts: DeviceConsts, n: int, k: np.ndarray) -> torch.Tensor:
     return consts.get(("band", n, key), lambda: band_matrix(n, key))
 
 
+# the JAX package's _SHIFT_ADD_MAX_TAPS (ops/filters.py:81)
+SHIFT_ADD_MAX_TAPS = 63
+
+
+def _shift_add_sep2d(x: torch.Tensor, ky: np.ndarray, kx: np.ndarray) -> torch.Tensor:
+    """Separable conv as padded shifts, REFLECT_101 border: the row taps
+    summed left to right, then the column taps top to bottom (the JAX
+    ``_shift_add_sep2d``)."""
+    h, w = x.shape[-2:]
+    ry, rx = (len(ky) - 1) // 2, (len(kx) - 1) // 2
+    xp = pad_last2(x, (rx, rx, 0, 0), "reflect")
+    row = None
+    for t, c in enumerate(kx):
+        term = float(c) * xp[..., :, t:t + w]
+        row = term if row is None else row + term
+    rp = pad_last2(row, (0, 0, ry, ry), "reflect")
+    out = None
+    for t, c in enumerate(ky):
+        term = float(c) * rp[..., t:t + h, :]
+        out = term if out is None else out + term
+    return out
+
+
 def sep_conv2d(x: torch.Tensor, ky: np.ndarray, kx: np.ndarray,
-               consts: DeviceConsts) -> torch.Tensor:
+               consts: DeviceConsts, vpu: bool = False) -> torch.Tensor:
     """Separable 2-D convolution of the trailing (H, W) planes of ``x``,
-    REFLECT_101 border, float32, banded-matmul order."""
+    REFLECT_101 border, float32: shift-adds when ``vpu`` and the kernels
+    have at most 63 taps with radius < size, else the banded matmuls."""
     x = x.float()
     h, w = x.shape[-2:]
+    if (vpu and max(len(ky), len(kx)) <= SHIFT_ADD_MAX_TAPS
+            and (len(ky) - 1) // 2 < h and (len(kx) - 1) // 2 < w):
+        return _shift_add_sep2d(x, ky, kx)
     out = torch.matmul(_band(consts, h, ky), x)
     return torch.matmul(out, _band(consts, w, kx).T)
 
 
-def gaussian_blur(x: torch.Tensor, sigma: float,
-                  consts: DeviceConsts) -> torch.Tensor:
-    """cv2.GaussianBlur(x, (0, 0), sigma) on float32, REFLECT_101 border."""
-    k = gaussian_kernel1d(sigma)
-    return sep_conv2d(x, k, k, consts)
+def gaussian_blur(x: torch.Tensor, sigma: float, consts: DeviceConsts,
+                  sigma_y: float = 0.0, ksize: int = 0, u8: bool = False,
+                  vpu: bool = False) -> torch.Tensor:
+    """cv2.GaussianBlur(x, (ksize, ksize), sigma, sigma_y) on float32,
+    REFLECT_101 border; ``sigma_y`` 0 means ``sigma``."""
+    kx = gaussian_kernel1d(sigma, ksize, u8=u8)
+    ky = gaussian_kernel1d(sigma_y if sigma_y > 0 else sigma, ksize, u8=u8)
+    return sep_conv2d(x, ky, kx, consts, vpu=vpu)
+
+
+def gaussian_blur_u8_round(x: torch.Tensor, ksize: int, consts: DeviceConsts,
+                           vpu: bool = False) -> torch.Tensor:
+    """cv2.GaussianBlur of a uint8 image with the sigma derived from
+    ``ksize``, rounded half to even and clipped to [0, 255]."""
+    out = gaussian_blur(x.float(), 0.0, consts, ksize=ksize, u8=True, vpu=vpu)
+    return torch.clamp(torch.round(out), 0.0, 255.0)
 
 
 def box_filter(x: torch.Tensor, ksize: int, consts: DeviceConsts) -> torch.Tensor:

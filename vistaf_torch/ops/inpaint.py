@@ -1,15 +1,19 @@
-"""Diffusion inpainting (JAX ``ops/inpaint.py::inpaint_diffusion``).
+"""Diffusion inpainting (JAX ``ops/inpaint.py``).
 
 The relaxation is the K3 kernel (``kernels/inpaint_kernel.py``) on a CUDA
-tensor and its plain PyTorch version on a CPU tensor; ``inpaint_float32``
-and ``inpaint_within_roi`` (the hole fill the deploy preset turns off) are
-not ported yet.
+tensor and its plain PyTorch version on a CPU tensor; ``inpaint_within_roi``
+is the temperature path's per-domain fill around it.  ``inpaint_float32``
+(the force path's hole fill, which the deploy preset turns off) is not
+ported yet.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from vistaf_torch.kernels.inpaint_kernel import inpaint_diffusion as _inpaint_kernel
+from vistaf_torch.ops.percentile import masked_max, masked_min
 
 
 def inpaint_diffusion(img: torch.Tensor, fill_mask: torch.Tensor,
@@ -18,3 +22,26 @@ def inpaint_diffusion(img: torch.Tensor, fill_mask: torch.Tensor,
     the rest: known pixels stay clamped, unknown ones relax to the masked
     3x3 neighbourhood average."""
     return _inpaint_kernel(img, fill_mask, iters)
+
+
+def inpaint_within_roi(z: torch.Tensor, roi: torch.Tensor, fill_mask: torch.Tensor,
+                       iters: int) -> torch.Tensor:
+    """Inpaint only inside ``roi``; NaN outside.  As the reference routes the
+    float map through a uint8 image, the known values are scaled to [0, 255]
+    over their range and rounded, filled, rounded and clipped again, and
+    unscaled; a degenerate range fills with its minimum."""
+    z = z.to(torch.float32)
+    known = roi & torch.isfinite(z) & ~fill_mask
+    missing = roi & fill_mask
+    vmin = masked_min(z, known)
+    vmax = masked_max(z, known)
+    span = vmax - vmin
+    scaled = torch.where(known, torch.clamp(
+        (z - vmin) / torch.clamp(span, min=1e-6) * 255.0, 0.0, 255.0), 0.0)
+    scaled = torch.round(scaled)
+    filled = inpaint_diffusion(torch.where(known, scaled, 0.0), ~known, iters=iters)
+    filled = torch.round(torch.clamp(filled, 0.0, 255.0))
+    restored = filled / 255.0 * span + vmin
+    out = torch.where(known, z, torch.where(missing, restored, math.nan))
+    out = torch.where(roi, out, math.nan)
+    return torch.where(missing & (span < 1e-6), vmin, out)

@@ -32,6 +32,11 @@ def ellipse_kernel(kh: int, kw: int) -> np.ndarray:
     return el
 
 
+def rect_kernel(kh: int, kw: int) -> np.ndarray:
+    """cv2 MORPH_RECT footprint of kh rows and kw columns."""
+    return np.ones((kh, kw), dtype=bool)
+
+
 def _row_segments(footprint: np.ndarray) -> Tuple[Tuple[int, int, int], ...]:
     """(dy, c0, c1) horizontal runs of the footprint, relative to its centre."""
     kh, kw = footprint.shape
@@ -73,8 +78,11 @@ def _morph(x: torch.Tensor, footprint: np.ndarray, is_max: bool) -> torch.Tensor
     fill = _NEG if is_max else _POS
     red = torch.maximum if is_max else torch.minimum
     out = torch.full_like(x, fill)
+    rows = {}      # one horizontal reduction per distinct run (a rect has one)
     for dy, c0, c1 in _row_segments(footprint):
-        out = red(out, _vshift(_hreduce(x, c0, c1, is_max), dy, fill))
+        if (c0, c1) not in rows:
+            rows[(c0, c1)] = _hreduce(x, c0, c1, is_max)
+        out = red(out, _vshift(rows[(c0, c1)], dy, fill))
     return out
 
 
@@ -96,6 +104,11 @@ def erode(mask: torch.Tensor, footprint: np.ndarray, iterations: int = 1) -> tor
 def close(mask: torch.Tensor, footprint: np.ndarray, iterations: int = 1) -> torch.Tensor:
     """cv2.morphologyEx(MORPH_CLOSE): dilate^n, then erode^n."""
     return erode(dilate(mask, footprint, iterations), footprint, iterations)
+
+
+def open_(mask: torch.Tensor, footprint: np.ndarray, iterations: int = 1) -> torch.Tensor:
+    """cv2.morphologyEx(MORPH_OPEN): erode^n, then dilate^n."""
+    return dilate(erode(mask, footprint, iterations), footprint, iterations)
 
 
 def _dilate3x3(mask: torch.Tensor) -> torch.Tensor:

@@ -34,23 +34,23 @@ def _valid(arr: torch.Tensor, mask: torch.Tensor):
     return x, mask & torch.isfinite(x)
 
 
-def masked_mean(arr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean over the finite ``mask`` pixels, 0 where there are none."""
+def masked_mean(arr: torch.Tensor, mask: torch.Tensor, fallback: float = 0.0) -> torch.Tensor:
+    """Mean over the finite ``mask`` pixels, ``fallback`` where there are none."""
     x, m = _valid(arr, mask)
     n = m.sum(dim=(-2, -1)).to(torch.float32)
     s = torch.where(m, x, 0.0).sum(dim=(-2, -1))
-    return torch.where(n > 0, s / torch.clamp(n, min=1.0), 0.0)
+    return torch.where(n > 0, s / torch.clamp(n, min=1.0), float(fallback))
 
 
-def masked_min(arr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Minimum over the finite ``mask`` pixels, 0 where there are none."""
+def masked_min(arr: torch.Tensor, mask: torch.Tensor, fallback: float = 0.0) -> torch.Tensor:
+    """Minimum over the finite ``mask`` pixels, ``fallback`` where there are none."""
     x, m = _valid(arr, mask)
     v = torch.where(m, x, _BIG).amin(dim=(-2, -1))
-    return torch.where(m.any(dim=-1).any(dim=-1), v, 0.0)
+    return torch.where(m.any(dim=-1).any(dim=-1), v, float(fallback))
 
 
-def masked_max(arr: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Maximum over the finite ``mask`` pixels, 0 where there are none."""
+def masked_max(arr: torch.Tensor, mask: torch.Tensor, fallback: float = 0.0) -> torch.Tensor:
+    """Maximum over the finite ``mask`` pixels, ``fallback`` where there are none."""
     x, m = _valid(arr, mask)
     v = torch.where(m, x, -_BIG).amax(dim=(-2, -1))
-    return torch.where(m.any(dim=-1).any(dim=-1), v, 0.0)
+    return torch.where(m.any(dim=-1).any(dim=-1), v, float(fallback))

@@ -1,8 +1,13 @@
-"""Gather-free warps: global translation and the two-pass shear warp
-(JAX ``ops/warp.py``: ``translate_bilinear``, ``shear_warp_stack``,
-``warp_affine_inverse_shear``)."""
+"""Gather-free warps (JAX ``ops/warp.py``): global translation, the
+two-pass shear warp and the Paeth three-shear rotation (``translate_bilinear``,
+``shear_warp_stack``, ``warp_affine_inverse_shear``, ``line_shift_frac``,
+``rotate_stack_shear``), and ``rotation_matrix``.  The bilinear gather
+sampler is not ported yet."""
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from vistaf_torch.ops.padding import pad_last2
@@ -89,3 +94,94 @@ def translate_bilinear(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
     top = a * (1.0 - fx) + b * fx
     bot = c * (1.0 - fx) + d * fx
     return top * (1.0 - fy) + bot * fy
+
+
+def _shift_zero(x: torch.Tensor, k: int, axis: int) -> torch.Tensor:
+    """out[i] = x[i - k] along ``axis`` (static k), zero fill."""
+    if k == 0:
+        return x
+    n = x.shape[axis]
+    zeros = torch.zeros_like(x.narrow(axis, 0, min(abs(k), n)))
+    if k > 0:
+        return torch.cat([zeros, x.narrow(axis, 0, n - k)], dim=axis)
+    return torch.cat([x.narrow(axis, -k, n + k), zeros], dim=axis)
+
+
+def line_shift_frac(stack: torch.Tensor, s: torch.Tensor, shift_axis: int,
+                    line_axis: int, bits: int) -> torch.Tensor:
+    """Per-line fractional shift, gather-free: line i (along ``line_axis``)
+    moves by s[i] along ``shift_axis``, out[..., j, ...] = in[..., j - s_i,
+    ...], zero border.  The fraction is a 2-tap blend over the array padded
+    by one zero at the high end, then the integer part (clamped to
+    +-(2^bits - 1)) is ``bits`` select passes of statically shifted copies,
+    as in the JAX package."""
+    assert shift_axis != line_axis
+    shape = [1] * stack.dim()
+    shape[line_axis] = stack.shape[line_axis]
+
+    def bc(v):
+        return v.reshape(shape)
+
+    lim = (1 << bits) - 1
+    k = torch.clamp(torch.floor(s), -lim, lim).to(torch.int32)
+    f = torch.clamp(s - k.to(torch.float32), 0.0, 1.0)
+    pos = k >= 0
+    m = torch.abs(k)
+    zero = torch.zeros_like(stack.narrow(shift_axis, 0, 1))
+    xp1 = torch.cat([stack, zero], dim=shift_axis)
+    x = bc(1.0 - f) * xp1 + bc(f) * _shift_zero(xp1, 1, shift_axis)
+    for b in range(bits):
+        bit = ((m >> b) & 1) == 1
+        xp = _shift_zero(x, 1 << b, shift_axis)
+        xn = _shift_zero(x, -(1 << b), shift_axis)
+        x = torch.where(bc(bit & pos), xp, torch.where(bc(bit & ~pos), xn, x))
+    return x.narrow(shift_axis, 0, stack.shape[shift_axis])
+
+
+def _shear_bits(max_shift: float) -> int:
+    return max(1, int(math.ceil(math.log2(max_shift + 2.0))))
+
+
+SHEAR_MAX_DEG = 50.0   # callers fold larger rotations by quarter turns
+
+
+def rotate_stack_shear(stack: torch.Tensor, angle_deg, center) -> torch.Tensor:
+    """Rotation of a channel-first (C, H, W) stack about ``center`` by the
+    Paeth three-shear decomposition of the inverse map, each shear a
+    ``line_shift_frac``: the JAX ``rotate_stack_shear`` (which takes
+    (H, W, C)), numerically the bilinear sampling through
+    ``rotation_matrix(center, angle_deg)`` with a zero border.  Valid for
+    |angle_deg| <= 50; ``angle_deg`` may be a 0-d device tensor."""
+    ry, rx = 1, 2
+    h, w = stack.shape[ry], stack.shape[rx]
+    cx, cy = float(center[0]), float(center[1])
+    A = torch.as_tensor(angle_deg, dtype=torch.float32, device=stack.device) \
+        * float(np.float32(np.pi / 180.0))
+    c_ = torch.cos(A)
+    S = -torch.sin(A)
+    small = torch.abs(S) < 1e-8
+    a = torch.where(small, 0.0, (1.0 - c_) / torch.where(small, 1.0, S))
+    b = -S
+    half_y = max(cy, (h - 1) - cy)
+    half_x = max(cx, (w - 1) - cx)
+    bits_x = _shear_bits(math.tan(math.radians(SHEAR_MAX_DEG) / 2) * half_y)
+    bits_y = _shear_bits(math.sin(math.radians(SHEAR_MAX_DEG)) * half_x)
+    rows = torch.arange(h, dtype=torch.float32, device=stack.device) - cy
+    cols = torch.arange(w, dtype=torch.float32, device=stack.device) - cx
+    sx = -a * rows
+    sy = -b * cols
+    out = line_shift_frac(stack, sx, shift_axis=rx, line_axis=ry, bits=bits_x)
+    out = line_shift_frac(out, sy, shift_axis=ry, line_axis=rx, bits=bits_y)
+    return line_shift_frac(out, sx, shift_axis=rx, line_axis=ry, bits=bits_x)
+
+
+def rotation_matrix(center, angle_deg, scale: float = 1.0) -> torch.Tensor:
+    """cv2.getRotationMatrix2D as a float32 (2, 3) tensor."""
+    a = torch.as_tensor(angle_deg, dtype=torch.float32) * float(np.float32(np.pi / 180.0))
+    alpha = scale * torch.cos(a)
+    beta = scale * torch.sin(a)
+    cx, cy = center
+    return torch.stack([
+        torch.stack([alpha, beta, (1.0 - alpha) * cx - beta * cy]),
+        torch.stack([-beta, alpha, beta * cx + (1.0 - alpha) * cy]),
+    ]).to(torch.float32)

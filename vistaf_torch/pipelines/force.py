@@ -44,12 +44,13 @@ def depth_map_to_volume_cm3(height_map_mm: torch.Tensor, roi_mask: torch.Tensor,
 
 class ForcePipeline:
     """frame pair -> {maps..., volume_cm3, contact_area_mm2, max_depth_mm,
-    force_N, mm_per_px} on one device (``device`` has no default)."""
+    force_N, mm_per_px} on one device, the card unless ``device`` names
+    another ("cpu" runs the kernels' plain versions)."""
 
     def __init__(self, ftp_cfg: FTPConfig, force_cfg: ForceConfig,
                  p2h_model: Dict[str, Any], force_model: Dict[str, Any],
                  use_negated_height: bool = True, debug_outputs: bool = False, *,
-                 device):
+                 device="cuda"):
         self.ftp = FTPPipeline(ftp_cfg, p2h_model, use_negated_height,
                                debug_outputs=debug_outputs, device=device)
         self.force_cfg = force_cfg

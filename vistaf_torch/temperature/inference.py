@@ -1,0 +1,296 @@
+"""Temperature inference: BGR frame -> fused per-pixel degC map and stats
+(JAX ``temperature/inference.py``).
+
+Stages in order: gray, stripe segmentation on the full frame (K1 for the
+median; ``segmentation.py``), then on the static compute bbox around the
+outer ROI: the 5x5 feature blur per channel, the colour-support gate, the
+fused per-pixel models (K8), the per-domain inpaints (K3), clamping, the
+per-pixel fusion, the stripe-oriented smoothing by the three-shear
+rotation, the ROI statistics, and the re-embed into the frame.
+
+It runs the JAX package's deploy preset (``TempConfig().deploy()``, and
+its scaled versions) as shipped; configurations the port does not run yet
+raise at construction: see ``TemperaturePipeline.check_config``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from vistaf_torch import use_full_fp32
+from vistaf_torch.calib.temp_weights import TempModelWeights
+from vistaf_torch.config import TempConfig
+from vistaf_torch.kernels.temp_kernel import make_fused_temperature_fn
+from vistaf_torch.ops import geometry
+from vistaf_torch.ops.color import bgr_to_gray
+from vistaf_torch.ops.consts import DeviceConsts
+from vistaf_torch.ops.filters import gaussian_blur, gaussian_blur_u8_round
+from vistaf_torch.ops.inpaint import inpaint_within_roi
+from vistaf_torch.ops.morphology import dilate, ellipse_kernel
+from vistaf_torch.ops.warp import rotate_stack_shear
+from vistaf_torch.temperature.segmentation import segment_stripes
+
+STATS = ("t_mean", "t_min", "t_max", "t_std", "valid_pixels", "stripe_angle_rad",
+         "stripe_period_px")
+
+
+def clamp_map(m: torch.Tensor, roi: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """Clip the finite ROI values to [lo, hi]; NaN outside the ROI."""
+    out = torch.where(roi & torch.isfinite(m), torch.clamp(m, lo, hi), m)
+    return torch.where(roi, out, math.nan)
+
+
+def fuse_maps_per_pixel(roi, wide_map, color_map, cfg: TempConfig):
+    """WIDE baseline, COLOR inside its validity band, a linear blend near the
+    top of the COLOR range, final clamp: (final, source, color_ok), source
+    0 (WIDE), 255 (COLOR) or 128 (blend)."""
+    wide_ok = roi & torch.isfinite(wide_map)
+    color_ok = (roi & torch.isfinite(color_map)
+                & (color_map >= cfg.color_t_min - cfg.color_guard_band)
+                & (color_map <= cfg.color_t_max + cfg.color_guard_band))
+    final = torch.where(color_ok, color_map, wide_map)
+    source = color_ok.to(torch.uint8) * 255
+
+    low_th = cfg.color_t_max - cfg.switch_margin_c
+    high_th = cfg.color_t_max + cfg.switch_margin_c
+    blend = wide_ok & color_ok & (wide_map > low_th) & (wide_map < high_th)
+    wgt = torch.clamp((high_th - wide_map) / (high_th - low_th), 0.0, 1.0)
+    final = torch.where(blend, wgt * color_map + (1.0 - wgt) * wide_map, final)
+    source = torch.where(blend, torch.full_like(source, 128), source)
+    final = clamp_map(final, roi, cfg.final_t_min, cfg.final_t_max)
+    return final.to(torch.float32), source, color_ok
+
+
+def oriented_gaussian_blur(map_f: torch.Tensor, roi: torch.Tensor, angle_rad: torch.Tensor,
+                           sigma_across: float, sigma_along: float,
+                           consts: DeviceConsts, vpu: bool = False) -> torch.Tensor:
+    """Rotate so the across-stripe direction lies along +x, blur with
+    (sigma_across, sigma_along), rotate back; NaN where the rotated ROI does
+    not return.  The JAX ``oriented_gaussian_blur`` with method 'shear':
+    angles are folded by quarter turns into the shear's range, and an odd
+    quarter turn swaps the two sigmas.  Both sigma orders are blurred and
+    one is selected on the device (the JAX ``lax.cond`` as a vmapped caller
+    gets it), so no host sync."""
+    if sigma_across <= 0 and sigma_along <= 0:
+        return torch.where(roi, map_f, math.nan)
+    h, w = map_f.shape
+    center = (w / 2.0, h / 2.0)
+    angle_deg = -angle_rad * 180.0 / math.pi
+    sa = float(max(sigma_across, 1e-6))
+    sl = float(max(sigma_along, 1e-6))
+
+    map0 = torch.where(torch.isfinite(map_f), map_f, 0.0)
+    stack0 = torch.stack([map0, roi.to(torch.float32)])
+    q = torch.round(angle_deg / 90.0)
+    ang = angle_deg - 90.0 * q
+    odd = torch.remainder(torch.abs(q.to(torch.int32)), 2) == 1
+
+    rot = rotate_stack_shear(stack0, ang, center)
+    blurred = torch.where(odd, gaussian_blur(rot[0], sl, consts, sigma_y=sa, vpu=vpu),
+                          gaussian_blur(rot[0], sa, consts, sigma_y=sl, vpu=vpu))
+    stack1 = torch.stack([blurred, (rot[1] > 0.5).to(torch.float32)])
+    back = rotate_stack_shear(stack1, -ang, center)
+    return torch.where(back[1] > 0.5, back[0], math.nan)
+
+
+class TemperaturePipeline:
+    """BGR frame -> temperature maps and stats on one device::
+
+        pipe = TemperaturePipeline(TempConfig().deploy(), color, wide)
+        out = pipe(frame_bgr_u8)      # dict of numpy arrays and scalars
+        st = pipe.stats(frame_bgr_u8)  # the scalar statistics only
+
+    ``device`` defaults to the card; pass ``device="cpu"`` for the plain
+    versions of the kernels.  The pipeline owns its static geometry (ROI
+    masks, the compute bbox), the blur and twiddle matrices and the packed
+    model tables on its device, built once."""
+
+    def __init__(self, cfg: TempConfig, color_model: TempModelWeights,
+                 wide_model: TempModelWeights, *, device="cuda"):
+        self.check_config(cfg)
+        self.cfg = cfg
+        self.color_model = color_model
+        self.wide_model = wide_model
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            use_full_fp32()
+        self.consts = DeviceConsts(self.device)
+
+        h, w = cfg.image_height, cfg.image_width
+        outer = geometry.circle_from_3_points_exact(
+            cfg.outer_circle_p1, cfg.outer_circle_p2, cfg.outer_circle_p3)
+        self._roi_outer = geometry.circular_mask(h, w, *outer)
+        if cfg.use_inner_circle:
+            inner = geometry.circle_from_3_points_exact(
+                cfg.inner_circle_p1, cfg.inner_circle_p2, cfg.inner_circle_p3)
+            self._roi_full = geometry.annulus_mask(h, w, inner, outer)
+        else:
+            self._roi_full = self._roi_outer
+        self._crop_bbox = (geometry.bbox_from_mask(self._roi_outer, pad=cfg.crop_pad_px)
+                           if cfg.crop_output_to_outer_roi else None)
+        self._compute_bbox = self.compute_bbox(cfg)
+        self.roi_full = torch.as_tensor(self._roi_full, device=self.device)
+        self.roi_outer = torch.as_tensor(self._roi_outer, device=self.device)
+        self._fused_fn = make_fused_temperature_fn(cfg.color_chroma_min, color_model,
+                                                   wide_model)
+
+    @staticmethod
+    def compute_bbox(cfg: TempConfig):
+        """The static (y0, y1, x0, x1) crop the per-pixel stages run on
+        (``crop_compute``), as the JAX pipeline builds it: the outer-ROI
+        bbox padded by the reach of every local op (the inpaint iterations,
+        and the first shear pass's overshoot of up to 0.1 * (R + 128)),
+        edges aligned to 8 rows and 128 columns; None without
+        ``crop_compute``."""
+        if not cfg.crop_compute:
+            return None
+        h, w = cfg.image_height, cfg.image_width
+        outer = geometry.circle_from_3_points_exact(
+            cfg.outer_circle_p1, cfg.outer_circle_p2, cfg.outer_circle_p3)
+        pad = max(64, cfg.wide_inpaint_iters + 8, cfg.color_inpaint_iters + 8,
+                  int(0.1 * (float(outer[2]) + 128.0)) + 8)
+        y0, y1, x0, x1 = geometry.bbox_from_mask(geometry.circular_mask(h, w, *outer),
+                                                 pad=pad)
+        return (max(0, (y0 // 8) * 8), min(h, -(-y1 // 8) * 8),
+                max(0, (x0 // 128) * 128), min(w, -(-x1 // 128) * 128))
+
+    @staticmethod
+    def check_config(cfg: TempConfig) -> None:
+        """Raise NotImplementedError for a configuration outside the ported
+        route: the deploy preset's knobs (fused K8 models, 'hist_pallas'
+        percentiles, shear rotation, cascade peak search, matmul bandpass
+        over the rfft2 half spectrum, even frame sides).  Still unported:
+        the gather rotation, the top-k peak search, the full-frame FFT
+        bandpass, the full fft2 spectrum, the sort and hist percentiles
+        and the unfused LAB + predict path."""
+        unported = {
+            "rotate_method": cfg.final_smooth_enable and cfg.rotate_method != "shear",
+            "seg_peak_method": cfg.seg_peak_method != "cascade",
+            "seg_bandpass": cfg.seg_bandpass != "matmul",
+            "seg_fft (or odd frame sides, which take fft2)": cfg.seg_fft != "rfft2"
+            or cfg.image_height % 2 or cfg.image_width % 2,
+            "seg_force_right_half_plane": not cfg.seg_force_right_half_plane,
+            "percentile_method": cfg.percentile_method != "hist_pallas",
+            "use_fused_kernel": not cfg.use_fused_kernel,
+        }
+        bad = [k for k, v in unported.items() if v]
+        if bad:
+            raise NotImplementedError(f"vistaf_torch does not port {bad} yet")
+
+    # ------------------------------------------------------------------
+    def upload(self, frame: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(frame), device=self.device)
+
+    def __call__(self, frame_bgr: np.ndarray) -> Dict[str, Any]:
+        out = self.forward(self.upload(frame_bgr))
+        res = {k: v.cpu().numpy() for k, v in out.items()}
+        res["roi_full"] = self._roi_full
+        res["roi_outer"] = self._roi_outer
+        res["crop_bbox"] = self._crop_bbox
+        return res
+
+    def stats(self, frame_bgr: np.ndarray) -> Dict[str, np.ndarray]:
+        """The scalar statistics of ``__call__`` only (one device-to-host
+        copy): t_mean/min/max/std, valid_pixels, stripe angle and period."""
+        out = self.forward(self.upload(frame_bgr), stats_only=True)
+        vals = torch.stack([out[k].to(torch.float64) for k in STATS]).cpu().numpy()
+        res = {k: np.float32(v) for k, v in zip(STATS, vals)}
+        res["valid_pixels"] = np.int32(vals[STATS.index("valid_pixels")])
+        return res
+
+    # ------------------------------------------------------------------
+    def forward(self, frame_bgr: torch.Tensor, stats_only: bool = False
+                ) -> Dict[str, torch.Tensor]:
+        cfg, consts = self.cfg, self.consts
+        roi_full, roi_outer = self.roi_full, self.roi_outer
+        full_hw = tuple(frame_bgr.shape[:2])
+
+        seg = segment_stripes(bgr_to_gray(frame_bgr), roi_full, cfg, consts,
+                              compute_bbox=self._compute_bbox)
+
+        cb = self._compute_bbox
+
+        def crop(a):
+            return a[cb[0]:cb[1], cb[2]:cb[3]] if cb is not None else a
+
+        def embed(a, fill):
+            if cb is None:
+                return a
+            full = torch.full(full_hw + tuple(a.shape[2:]), fill, dtype=a.dtype,
+                              device=a.device)
+            full[cb[0]:cb[1], cb[2]:cb[3]] = a
+            return full
+
+        frame_c = crop(frame_bgr)
+        roi_full_c = crop(roi_full)
+        roi_eff_c = crop(seg.roi_eff)
+
+        if cfg.blur_ksize > 1:
+            blurred = torch.stack(
+                [gaussian_blur_u8_round(frame_c[..., i].to(torch.float32), cfg.blur_ksize,
+                                        consts, vpu=cfg.conv_vpu) for i in range(3)],
+                dim=-1)
+        else:
+            blurred = frame_c.to(torch.float32)
+
+        k = cfg.color_support_dilate | 1
+        csup_pre = dilate(crop(seg.light), ellipse_kernel(k, k)) & roi_eff_c & ~crop(seg.sat)
+        wide_map_raw, color_map_raw, color_support = self._fused_fn(
+            blurred.contiguous(), roi_eff_c, csup_pre)
+
+        wide_map = inpaint_within_roi(wide_map_raw, roi_full_c,
+                                      ~torch.isfinite(wide_map_raw) & roi_full_c,
+                                      iters=cfg.wide_inpaint_iters)
+        wide_map = clamp_map(wide_map, roi_full_c, cfg.final_t_min, cfg.final_t_max)
+        color_map = inpaint_within_roi(color_map_raw, color_support,
+                                       ~torch.isfinite(color_map_raw) & color_support,
+                                       iters=cfg.color_inpaint_iters)
+        color_map = clamp_map(color_map, color_support,
+                              cfg.color_t_min - 5.0, cfg.color_t_max + 5.0)
+
+        final_fused, source_map, color_ok = fuse_maps_per_pixel(
+            roi_full_c, wide_map, color_map, cfg)
+        if cfg.final_smooth_enable:
+            final_map = oriented_gaussian_blur(final_fused, roi_full_c, seg.angle_rad,
+                                               cfg.final_smooth_sigma_across,
+                                               cfg.final_smooth_sigma_along,
+                                               consts, vpu=cfg.conv_vpu)
+            final_map = clamp_map(final_map, roi_full_c, cfg.final_t_min, cfg.final_t_max)
+        else:
+            final_map = final_fused
+
+        stats_roi = crop(roi_outer if cfg.crop_output_to_outer_roi else roi_full)
+        inside = stats_roi & torch.isfinite(final_map)
+        n = torch.clamp(inside.to(torch.float32).sum(), min=1.0)
+        t_mean = torch.where(inside, final_map, 0.0).sum() / n
+        stats = {
+            "t_mean": t_mean,
+            "t_min": torch.where(inside, final_map, math.inf).amin(),
+            "t_max": torch.where(inside, final_map, -math.inf).amax(),
+            "t_std": torch.sqrt(torch.where(inside, (final_map - t_mean) ** 2, 0.0).sum() / n),
+            "valid_pixels": inside.to(torch.int32).sum(dtype=torch.int32),
+            "stripe_angle_rad": seg.angle_rad,
+            "stripe_period_px": seg.period_px,
+        }
+        if stats_only:
+            return stats
+        return {
+            "temperature_map_fused": embed(final_fused, math.nan),
+            "temperature_map_final": embed(final_map, math.nan),
+            "wide_map": embed(wide_map, math.nan),
+            "color_map": embed(color_map, math.nan),
+            "wide_map_raw": embed(wide_map_raw, math.nan),
+            "color_map_raw": embed(color_map_raw, math.nan),
+            "source_map": embed(source_map, 0),
+            "mask_dark": seg.dark,
+            "mask_light": seg.light,
+            "mask_sat": seg.sat,
+            "mask_roi_eff": seg.roi_eff,
+            "mask_color_support": embed(color_support, False),
+            "mask_color_ok": embed(color_ok, False),
+            "seg_peak_xy": seg.peak_xy,
+            **stats,
+        }

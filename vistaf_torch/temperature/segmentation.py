@@ -1,0 +1,125 @@
+"""Periodic TLC-stripe segmentation by FFT carrier extraction (JAX
+``temperature/segmentation.py``), on the deploy route: the rfft2 half
+spectrum, the masked-argmax carrier cascade over it, the windowed
+two-matmul bandpass, and the post-FFT per-pixel stages on the compute bbox.
+
+The dark/light assignment (whichever sign bin is darker on average) and the
+global phase ``phi0`` are ``torch.where`` selects on device scalars: no host
+sync.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from vistaf_torch.config import TempConfig
+from vistaf_torch.ops import fftops
+from vistaf_torch.ops.consts import DeviceConsts
+from vistaf_torch.ops.filters import gaussian_blur
+from vistaf_torch.ops.morphology import close as morph_close
+from vistaf_torch.ops.morphology import dilate, ellipse_kernel, rect_kernel
+from vistaf_torch.ops.morphology import open_ as morph_open
+from vistaf_torch.ops.percentile import get_percentile_fn, masked_mean
+
+
+class SegmentationResult(NamedTuple):
+    dark: torch.Tensor          # black-TLC stripes (bool)
+    light: torch.Tensor         # colored-TLC stripes (bool)
+    roi_eff: torch.Tensor       # roi minus saturation
+    sat: torch.Tensor           # saturated/specular pixels
+    peak_xy: torch.Tensor       # (2,) int carrier peak
+    angle_rad: torch.Tensor     # stripe normal direction
+    period_px: torch.Tensor     # stripe period
+
+
+def saturation_mask(gray: torch.Tensor, roi: torch.Tensor, cfg: TempConfig) -> torch.Tensor:
+    """Specular-highlight mask: gray >= thresh inside the ROI, dilated by an
+    ellipse of ``sat_dilate_ksize | 1`` and cut to the ROI again."""
+    sat = (gray >= float(cfg.sat_thresh_gray)) & roi
+    k = cfg.sat_dilate_ksize | 1
+    if k > 1:
+        sat = dilate(sat, ellipse_kernel(k, k)) & roi
+    return sat
+
+
+def segment_stripes(image_gray: torch.Tensor, roi: torch.Tensor, cfg: TempConfig,
+                    consts: DeviceConsts, compute_bbox=None) -> SegmentationResult:
+    """Dark/light stripe masks, the carrier peak and the stripe angle and
+    period.  ``compute_bbox`` (static ``(y0, y1, x0, x1)``) restricts the
+    post-FFT per-pixel stages to that window, which holds the ROI with
+    margin, and re-embeds; the forward FFT and the carrier search stay
+    full-frame."""
+    h, w = image_gray.shape
+    gray = image_gray.to(torch.float32)
+
+    sat = saturation_mask(gray, roi, cfg)
+    roi_eff = roi & ~sat
+
+    med = get_percentile_fn(cfg.percentile_method)(gray, roi_eff, 50.0)
+    g = torch.where(roi, gray, med)
+
+    if cfg.seg_illum_sigma and cfg.seg_illum_sigma > 0:
+        blur = gaussian_blur(g, float(cfg.seg_illum_sigma), consts, vpu=cfg.conv_vpu)
+        blur = torch.where(blur < 1e-6, 1.0, blur)
+        norm = g / blur
+    else:
+        norm = g
+    mu = masked_mean(norm, roi_eff)
+    mu = torch.where(torch.abs(mu) > 1e-9, mu, 1.0)
+    i_norm = norm / mu
+
+    Rr = torch.roll(torch.fft.rfft2(i_norm), h // 2, dims=0)
+    k_i, py = fftops.carrier_peak_cascade_half(
+        torch.abs(Rr), cfg.seg_dc_exclusion,
+        prefer_near_center_row=cfg.seg_prefer_peak_near_center_row,
+        peak_max_dy_frac=cfg.seg_peak_max_dy_from_center)
+    px = k_i + w // 2
+
+    cb = compute_bbox
+    rows = slice(cb[0], cb[1]) if cb is not None else None
+    cols = slice(cb[2], cb[3]) if cb is not None else None
+
+    def crop(a):
+        return a[rows, cols] if cb is not None else a
+
+    def embed(mask_c):
+        if cb is None:
+            return mask_c
+        full = torch.zeros((h, w), dtype=mask_c.dtype, device=mask_c.device)
+        full[rows, cols] = mask_c
+        return full
+
+    z = fftops.ifft2_bandpass_dynamic_half(Rr, k_i, py, float(cfg.seg_band_radius),
+                                           consts, rows=rows, cols=cols)
+    roi_c = crop(roi)
+    roi_eff_c = crop(roi_eff)
+    gray_c = crop(gray)
+
+    # rotate so the real part aligns with the stripe modulation
+    m = crop(i_norm) - 1.0
+    c = torch.where(roi_eff_c, z * m, 0.0).sum()
+    phi0 = torch.where(torch.isfinite(torch.abs(c)), torch.angle(c), 0.0)
+    s = torch.real(z * torch.polar(torch.ones_like(phi0), -phi0)).to(torch.float32)
+
+    mask_a = (s >= 0) & roi_eff_c
+    mask_b = (s < 0) & roi_eff_c
+    mean_a = masked_mean(gray_c, mask_a, fallback=1e9)
+    mean_b = masked_mean(gray_c, mask_b, fallback=1e9)
+    dark = torch.where(mean_a <= mean_b, mask_a, mask_b)
+
+    # directional cleanup; cv2 Size(kx, ky) = (width, height)
+    k_close = rect_kernel(cfg.post_close_ky | 1, cfg.post_close_kx | 1)
+    k_open = rect_kernel(cfg.post_open_ky | 1, cfg.post_open_kx | 1)
+    dark = morph_open(morph_close(dark, k_close), k_open) & roi_c
+    dark_final = embed(dark & roi_eff_c)
+    light_final = roi_eff & ~dark_final
+
+    cy, cx = h // 2, w // 2
+    dx = px.to(torch.float32) - cx
+    dy = py.to(torch.float32) - cy
+    fmag = torch.hypot(dx / w, dy / h)
+    period = torch.where(fmag > 1e-9, 1.0 / fmag, torch.nan)
+    angle = torch.atan2(dy, dx)
+    return SegmentationResult(dark_final, light_final, roi_eff, sat,
+                              torch.stack([px, py]), angle, period)
