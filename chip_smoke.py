@@ -10,7 +10,9 @@ Phases, one line each, any failure raises and exits non-zero:
      K5, K6, K7; the 295x295 coarse ECC grid for K4; the 1182x1182 crop of
      the native-4K force path for K1, K2 and K3; the 2160x3840 gray plane
      for K1, and the 1608x1664 compute crop for K3 and K8, of the native-4K
-     temperature path), with CUDA-event median times of both, the bound
+     temperature path), with CUDA-event median times of both, the
+     kernel's device time under torch.profiler (its own kernels, without
+     the host's enqueue), the bound
      (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, whichever
      is longer) and, where one PyTorch call computes the same function
      (K1: torch.nanquantile), that call's time;
@@ -96,6 +98,24 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Milliseconds of kernel and copy time on the card per call of fn()
+    (``torch.profiler``, device-side events), without the host's enqueue:
+    beside ``cuda_ms`` it tells a kernel bound by its launches from one
+    bound by the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def kernel_cases(device):
@@ -389,11 +409,13 @@ def phase_kernels(device):
         nbytes, ops = work(name, args, got)
         bms, by = bound_ms(nbytes, ops)
         ms = cuda_ms(lambda: kern(*args))
+        dev_ms = device_ms(lambda: kern(*args))
         plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
         lib = library_call(name, args)
         lib_ms = cuda_ms(lib, reps=10, warmup=2) if lib is not None else None
         shape = list(args[0].shape)
-        one = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        one = {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms,
                "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops,
                "library_ms": lib_ms}
         say("kernel", name=name, **one)

@@ -70,11 +70,19 @@ def test_k1_pair_batch_bit_equal_to_pallas():
     np.testing.assert_array_equal(ours.numpy(), gold)
 
 
-@pytest.mark.parametrize("shape,iters", [((100, 150), 24), ((37, 41), 20)])
-def test_k3_inpaint_matches_pallas_and_xla(shape, iters):
+@pytest.mark.parametrize("shape,iters,hole", [((100, 150), 24, None), ((37, 41), 20, None),
+                                              ((64, 96), 6, (10, 54, 20, 80))],
+                         ids=["shape0-24", "shape1-20", "wide_hole"])
+def test_k3_inpaint_matches_pallas_and_xla(shape, iters, hole):
+    """``hole``: rows and columns of a block of unknown pixels wider than
+    2 * iters, whose centre keeps the initial mean (exact here: integer data
+    whose sums stay below 2**24)."""
     rng = np.random.default_rng(7)
     img = np.round(rng.random(shape) * 255).astype(np.float32)
     fill = rng.random(shape) < 0.08
+    if hole is not None:
+        r0, r1, c0, c1 = hole
+        fill[r0:r1, c0:c1] = True
     pallas = np.asarray(inpaint_diffusion_pallas(jnp.asarray(img), jnp.asarray(fill),
                                                  iters=iters, interpret=True))
     xla = np.asarray(inpaint_diffusion_xla(jnp.asarray(img), jnp.asarray(fill),
@@ -83,6 +91,10 @@ def test_k3_inpaint_matches_pallas_and_xla(shape, iters):
     np.testing.assert_allclose(ours, pallas, rtol=0, atol=1e-5)
     np.testing.assert_allclose(ours, xla, rtol=0, atol=1e-5)
     np.testing.assert_array_equal(ours[~fill], img[~fill])
+    if hole is not None:
+        centre = ours[r0 + iters + 1:r1 - iters - 1, c0 + iters + 1:c1 - iters - 1]
+        mean0 = img[~fill].sum(dtype=np.float64) / (~fill).sum()
+        np.testing.assert_allclose(centre, mean0, rtol=1e-6)
 
 
 def test_k3_pair_batch_is_per_plane():

@@ -66,6 +66,99 @@ def test_k3_matches_plain_on_card(dev, n):
     assert float((got - want).abs().max()) <= 1e-5
 
 
+# Shapes where the multi-CTA K1 can go wrong: (planes shape, mask density,
+# quantiles, levels).  The ladder takes 8 levels a pass; the CTAs split a
+# plane into chunks of a multiple of 4 elements, with 16-byte loads only
+# where the plane's length is a multiple of 4.
+K1_CASES = {
+    "row_1xn": ((1, 5003), 0.7, (25.0, 50.0, 98.0), k1.LEVELS),
+    "column_nx1": ((4097, 1), 0.7, (25.0, 50.0, 98.0), k1.LEVELS),
+    "ragged_length": ((301, 211), 0.8, (5.0, 92.0), k1.LEVELS),
+    "batch_of_3": ((3, 90, 130), 0.6, (50.0, 99.7), k1.LEVELS),
+    "levels_16": ((2, 236, 236), 0.9, (50.0,), k1.MAD_LEVELS),
+    "levels_7": ((2, 64, 96), 0.9, (10.0, 90.0), 7),
+    "levels_0": ((2, 64, 96), 0.9, (10.0, 90.0), 0),
+    "eight_quantiles": ((2, 300, 256), 0.9,
+                        (0.0, 1.0, 12.5, 25.0, 50.0, 75.0, 99.9, 100.0), k1.LEVELS),
+    "integer_ties": ((1, 1000, 1024), 0.95, (25.0, 50.0, 75.0), k1.LEVELS),
+    "zeros_and_denormals": ((2, 64, 96), 0.9, (1.0, 50.0, 99.0), k1.LEVELS),
+    "overflow_inside_tree": ((2, 64, 96), 1.0, (10.0, 50.0, 90.0), k1.LEVELS),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_k1_shapes_bit_equal_on_card(dev, case):
+    shape, density, qs, levels = K1_CASES[case]
+    rng = np.random.default_rng(10)
+    if case == "integer_ties":
+        x = rng.integers(0, 4, size=shape).astype(np.float32)
+    elif case == "zeros_and_denormals":
+        x = rng.choice(np.array([-0.0, 0.0, 1e-45, -1e-45, 3e-42, -7e-40, 1e-38],
+                                np.float32), size=shape)
+    elif case == "overflow_inside_tree":   # lo + hi fits, a child's sum overflows
+        x = rng.uniform(0.5e38, 2.3e38, size=shape).astype(np.float32)
+    else:
+        x = rng.normal(size=shape).astype(np.float32)
+        x[rng.random(shape) > 0.99] = np.nan
+    m = torch.as_tensor(rng.random(shape) < density, device=dev)
+    xt = torch.as_tensor(x, device=dev)
+    kernels.reset_launches()
+    got = k1.masked_quantiles(xt, m, qs, levels=levels)
+    assert kernels.LAUNCHES["masked_quantiles"] == 1
+    want = k1.masked_quantiles_plain(xt, m, qs, levels=levels)
+    assert got.shape == want.shape == (*shape[:-2], len(qs))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (got, want)
+
+
+# (planes shape, iterations, share of unknown pixels); K3 runs kHalo = 4
+# steps a launch on 32 x 64 tiles
+K3_CASES = {
+    "smaller_than_tile": ((2, 20, 30), 20, 0.1),
+    "ragged_sides": ((1, 130, 197), 6, 0.05),
+    "iters_0": ((1, 70, 150), 0, 0.1),
+    "iters_1": ((1, 70, 150), 1, 0.1),
+    "iters_3": ((1, 70, 150), 3, 0.1),
+    "iters_5": ((1, 70, 150), 5, 0.1),
+    "iters_20": ((2, 70, 150), 20, 0.3),
+    "no_known_pixel": ((1, 70, 150), 8, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_k3_shapes_match_plain_on_card(dev, case):
+    shape, iters, share = K3_CASES[case]
+    rng = np.random.default_rng(11)
+    img = torch.as_tensor(np.round(rng.random(shape) * 255).astype(np.float32), device=dev)
+    fill = torch.as_tensor(rng.random(shape) < share if share < 1.0
+                           else np.ones(shape, bool), device=dev)
+    kernels.reset_launches()
+    got = k3.inpaint_diffusion(img, fill, iters)
+    assert kernels.LAUNCHES["inpaint_diffusion"] == 1
+    want = k3.inpaint_diffusion_plain(img, fill, iters)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_k3_wide_hole_mean_on_card(dev):
+    """A hole wider than 2 * iters: its centre keeps the initial mean, whose
+    fixed-order sum may round differently from torch.sum's (relative 1e-6);
+    every pixel a step reaches stays within 1e-5."""
+    rng = np.random.default_rng(12)
+    h, w, iters = 600, 800, 20
+    img = torch.as_tensor((rng.random((h, w)) * 255).astype(np.float32), device=dev)
+    fill = np.zeros((h, w), bool)
+    fill[150:450, 200:600] = True
+    far = np.zeros((h, w), bool)
+    far[150 + iters:450 - iters, 200 + iters:600 - iters] = True
+    fill_t = torch.as_tensor(fill, device=dev)
+    far_t = torch.as_tensor(far, device=dev)
+    got = k3.inpaint_diffusion(img, fill_t, iters)
+    want = k3.inpaint_diffusion_plain(img, fill_t, iters)
+    mean0 = float(want[far_t][0])
+    assert torch.all(want[far_t] == mean0)
+    assert float((got[far_t] - mean0).abs().max()) <= 1e-6 * abs(mean0)
+    assert float((got[~far_t] - want[~far_t]).abs().max()) <= 1e-5
+
+
 def test_k5_matches_plain_on_card(dev):
     from vistaf_torch.ops.consts import DeviceConsts
     from vistaf_torch.ops.filters import gaussian_blur

@@ -3,10 +3,11 @@
 // Reductions over a plane use the fixed-order block reductions below (and,
 // in the multi-CTA kernels, per-CTA partials combined in a fixed order): a
 // warp butterfly (every lane ends with the same bits, since float addition
-// is commutative), then one warp over the per-warp partials in warp order.  No atomics, so a reduction
-// gives the same bits on every run; the ECC convergence test compares rho
-// at the level of one f32 ulp, where a run-to-run order change would change
-// trip counts.
+// is commutative), then one warp over the per-warp partials in warp order.
+// No float atomics (K1 adds its integer leaf counts with atomicAdd: integer
+// sums do not depend on the order), so a reduction gives the same bits on
+// every run; the ECC convergence test compares rho at the level of one f32
+// ulp, where a run-to-run order change would change trip counts.
 //
 // The sources are compiled with --fmad=false so that a*b + c rounds twice,
 // as the plain PyTorch versions and the JAX reference do.

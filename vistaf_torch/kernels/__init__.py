@@ -88,12 +88,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, mask, folded, out, batch, n, fractions (host), nq, levels, stream
+    # batch, n, nq, levels -> int32 words of the scratch
+    "vt_masked_quantiles_scratch": (_I, _I, _I, _I),
+    # x, mask, scratch, out, batch, n, fractions (host), nq, levels, stream
     "vt_masked_quantiles": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _P),
     # x, mask, folded, out, batch, n, levels, stream
     "vt_masked_median_mad": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # img, fill, out, scratch, batch, h, w, iters, stream
-    "vt_inpaint_diffusion": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # batch, h, w -> float elements of the scratch
+    "vt_inpaint_scratch": (_I, _I, _I),
+    # img, fill, out, fscratch, wscratch, batch, h, w, iters, stream
+    "vt_inpaint_diffusion": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # h, w -> CTAs of the partial-sum pass
     "vt_gn_moments_blocks": (_I, _I),
     # S, T, SM, coeffs, mid, partials, out, h, w, K, stream

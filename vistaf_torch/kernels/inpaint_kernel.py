@@ -5,19 +5,27 @@ Replaces the JAX package's ``pallas/inpaint_kernel.py::inpaint_diffusion_pallas`
 unknown pixels start at the mean of the known ones, then ``iters`` Jacobi
 steps of ``avg3(cur * w) / max(avg3(w), 1e-6)`` with an edge-replicate
 border in the order (left + centre) + right, then (up + mid) + down;
-``w <- min(w + [den > 1e-6], 1)``; known pixels stay clamped.  On integer
-0-255 data the initial mean is exact in any summation order, so kernel and
-plain version agree to the last bit.
+``w <- min(w + [den > 1e-6], 1)``; known pixels stay clamped.
 
-On the H100 one CTA per plane runs all steps, with a block barrier between
-steps and the (cur, w) planes ping-ponging through L2: the kernel is bound
-by one SM's L2 bandwidth and by barrier latency (20 steps at the slice).  A
-later PR could keep a tile plus halo per CTA in shared memory and run the
-steps across a cluster.
+On the H100 (``csrc/inpaint.cu``'s note has the details) the function must
+read the image and mask once and write the result, 24 MB at the 1608x1664
+temperature crop, but each step needs its neighbours' previous state.  K3
+tiles each plane into 32x64 outputs, one CTA each, stages
+the tile and a 4-pixel halo of the state in shared memory and runs 4 steps
+there before it writes the tile back, so a call is one launch of fixed-order
+mean partials and ceil(iters / 4) step launches, enqueued by one C call and
+counted as one launch.  Neighbour reads clamp to the plane, so every pixel
+computes what the plain version computes from the same state, in the same
+order: the kernel is bit-equal to it except in pixels that no step reaches,
+which hold the initial mean.  That mean is a fixed-order two-stage sum (the
+same bits on every run); it may differ from ``torch.sum``'s order by
+rounding, within a relative 1e-6, and is exact on integer 0-255 data whose
+sums stay below 2**24.
 """
 from __future__ import annotations
 
-import numpy as np
+import math
+
 import torch
 
 from vistaf_torch import kernels
@@ -72,10 +80,13 @@ def inpaint_diffusion(img: torch.Tensor, fill_mask: torch.Tensor,
     fill = fill_mask.to(torch.bool).expand(x.shape).contiguous()
     kernels.check_cuda("inpaint_diffusion", x, fill)
     h, w = x.shape[-2:]
-    batch = int(np.prod(x.shape[:-2])) if x.dim() > 2 else 1
+    batch = math.prod(x.shape[:-2])
     out = torch.empty_like(x)
-    scratch = torch.empty((batch, 3, h, w), dtype=torch.float32, device=x.device)
+    # one allocation: the f32 scratch (a state plane, the mean partials),
+    # then two byte planes of w
+    fbytes = 4 * kernels.library().vt_inpaint_scratch(batch, h, w)
+    buf = torch.empty(fbytes + 2 * batch * h * w, dtype=torch.uint8, device=x.device)
     kernels.launch("vt_inpaint_diffusion", "inpaint_diffusion", x.device,
-                   x.data_ptr(), fill.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                   batch, h, w, int(iters))
+                   x.data_ptr(), fill.data_ptr(), out.data_ptr(), buf.data_ptr(),
+                   buf[fbytes:].data_ptr(), batch, h, w, int(iters))
     return out

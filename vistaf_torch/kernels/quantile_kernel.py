@@ -20,17 +20,29 @@ pair whose MAD bracket is the range of |x - med| (``median_mad_above_budget``):
 two K1 launches of one quantile each at ``MAD_LEVELS``, so on the card no
 plain path stands beside a kernel that does the same work.
 
-On the H100, K1 runs one CTA per plane through every level (a 236x236 plane
-is 55,696 elements): each level is a count pass plus a block reduction, so it
-is bound by one SM's load bandwidth and the barrier latency of the levels.
-K2 runs at native-4K crops (1.4 M elements), so it splits each plane over a
+On the H100 (``csrc/quantile.cu``'s note has the details), K1 must read each
+value and mask byte once, 12 us of HBM time at the 8.3 M-element 4K gray; a
+bisection counts the plane once per level.  K1 spreads each plane over many
+CTAs (up to three per SM)
+and takes the levels 8 at a time: a range pass, then per 8 levels one pass
+in which every valid element descends the next 8 levels of the bisection
+tree to one of 256 leaves, counted into an integer histogram, then a finish
+launch.  Every CTA walks the histograms of the earlier passes to the same
+bracket.  The in-order midpoints of the tree never decrease, so the leaf
+sums are the bisection's exact counts and the walk takes its decisions, bit
+for bit (``tests/test_torch_quantile_ladder.py`` holds a numpy model of the
+ladder to the plain version).  One call reads the plane 1 + ceil(levels / 8)
+times whatever the number of quantiles, in 2 + ceil(levels / 8) launches
+that the C call enqueues and the launch count counts as one.  K2 runs at
+native-4K crops (1.4 M elements), so it splits each plane over a
 thread-block cluster of 8 CTAs that total their exact counts through
 distributed shared memory at every level; it uses 8 SMs per plane, with the
-same bisection device code.
+bisection device code that K7 shares.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -106,13 +118,15 @@ def masked_quantiles(arr: torch.Tensor, mask: Optional[torch.Tensor],
          else mask.to(torch.bool).expand(x.shape).contiguous())
     kernels.check_cuda("masked_quantiles", x, m)
     lead = x.shape[:-2]
-    batch = int(np.prod(lead)) if lead else 1
+    batch = math.prod(lead)
     n = x.shape[-2] * x.shape[-1]
-    folded = torch.empty_like(x)
-    out = torch.empty((batch, len(qs)), dtype=torch.float32, device=x.device)
+    words = kernels.library().vt_masked_quantiles_scratch(batch, n, len(qs), int(levels))
+    # one allocation: the kernel's int32 scratch, then the (batch, Q) result
+    buf = torch.empty(words + batch * len(qs), dtype=torch.int32, device=x.device)
+    out = buf[words:].view(torch.float32)
     fr = (ctypes.c_float * len(qs))(*_fractions(qs).tolist())
     kernels.launch("vt_masked_quantiles", "masked_quantiles", x.device,
-                   x.data_ptr(), m.data_ptr(), folded.data_ptr(), out.data_ptr(),
+                   x.data_ptr(), m.data_ptr(), buf.data_ptr(), out.data_ptr(),
                    batch, n, ctypes.cast(fr, ctypes.c_void_p), len(qs), int(levels))
     return out.reshape(*lead, len(qs))
 
