@@ -10,7 +10,8 @@ Phases, one line each, any failure raises and exits non-zero:
      K5, K6, K7; the 295x295 coarse ECC grid for K4; the 1182x1182 crop of
      the native-4K force path for K1, K2 and K3; the 2160x3840 gray plane
      for K1, and the 1608x1664 compute crop for K3 and K8, of the native-4K
-     temperature path), with CUDA-event median times of both, the
+     temperature path) and K7 also at the largest plane its budget admits
+     (584x512), with CUDA-event median times of both, the
      kernel's device time under torch.profiler (its own kernels, without
      the host's enqueue), the bound
      (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, whichever
@@ -295,12 +296,27 @@ def kernel_cases(device):
         assert float((a[2] != b[2]).float().mean()) < 2e-3
         return max(errs)
 
+    # K7 at the largest plane its budget admits (584x512 pads to 299,008 of
+    # 300,000 elements): the same kind of surface over a disk (drawn last,
+    # so that the other cases keep their inputs)
+    hb, wb = 584, 512
+    assert polyfit_kernel.fits((hb, wb))
+    yb, xb = np.mgrid[0:hb, 0:wb].astype(np.float32)
+    zb = (0.3 + 1e-3 * xb - 2e-3 * yb + 2e-5 * xb * xb - 1e-5 * xb * yb + 3e-5 * yb * yb
+          + rng.normal(scale=0.02, size=(hb, wb))).astype(np.float32)
+    zb[rng.random((hb, wb)) > 0.97] += 3.0
+    diskb = (yb - hb // 2) ** 2 + (xb - wb // 2) ** 2 <= (wb // 2 - 4) ** 2
+    k7_big_args = (t(zb), t(diskb), 2, cfg.polyfit_iters, 4.685, cfg.polyfit_resigma_iters)
+
     k1 = ("masked_quantiles", "vistaf_torch/csrc/quantile.cu",
           "vistaf_tpu/pallas/quantile_kernel.py:91",
           quantile_kernel.masked_quantiles, quantile_kernel.masked_quantiles_plain)
     k3 = ("inpaint_diffusion", "vistaf_torch/csrc/inpaint.cu",
           "vistaf_tpu/pallas/inpaint_kernel.py:94",
           inpaint_kernel.inpaint_diffusion, inpaint_kernel.inpaint_diffusion_plain)
+    k7 = ("robust_polyfit2d", "vistaf_torch/csrc/polyfit.cu",
+          "vistaf_tpu/pallas/polyfit_kernel.py:144",
+          polyfit_kernel.robust_polyfit2d_coef, polyfit_kernel.robust_polyfit2d_coef_plain)
     return [
         (*k1, k1_args, k1_check),
         (*k1, k1_4k_args, k1_check),
@@ -314,10 +330,8 @@ def kernel_cases(device):
          "vistaf_tpu/pallas/ecc_loop_kernel.py:161",
          ecc_loop_kernel.ecc_loop_euclidean, ecc_loop_kernel.ecc_loop_euclidean_plain,
          k5_args, k5_check),
-        ("robust_polyfit2d", "vistaf_torch/csrc/polyfit.cu",
-         "vistaf_tpu/pallas/polyfit_kernel.py:144",
-         polyfit_kernel.robust_polyfit2d_coef,
-         polyfit_kernel.robust_polyfit2d_coef_plain, k7_args, k7_check),
+        (*k7, k7_args, k7_check),
+        (*k7, k7_big_args, k7_check),
         ("masked_median_mad", "vistaf_torch/csrc/quantile.cu",
          "vistaf_tpu/pallas/quantile_kernel.py:133",
          quantile_kernel.masked_median_mad, quantile_kernel.masked_median_mad_plain,

@@ -186,18 +186,91 @@ def test_k5_matches_plain_on_card(dev):
         assert float((pa[1:] - pb[1:]).abs().max()) < 5e-3
 
 
+def _k7_close(got, want):
+    """Within 1e-4 of the largest coefficient: the kernel sums in another
+    order than the plain version (exact zeros stay exact)."""
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), (got, want)
+
+
+def _k7_plane(h, w, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32) / max(h, w)
+    z = (0.5 * xx - 0.3 * yy + 0.4 * xx * xx + 0.01 * rng.standard_normal((h, w))
+         ).astype(np.float32)
+    z[rng.random((h, w)) < 0.05] += 3.0
+    return z, rng
+
+
 @pytest.mark.parametrize("order", [1, 2])
 def test_k7_matches_plain_on_card(dev, order):
-    rng = np.random.default_rng(3)
-    yy, xx = np.mgrid[0:236, 0:236].astype(np.float32) / 236.0
-    z = (0.5 * xx - 0.3 * yy + 0.4 * xx * xx + 0.01 * rng.standard_normal((236, 236))
-         ).astype(np.float32)
-    z[rng.random((236, 236)) < 0.05] += 3.0
+    z, _ = _k7_plane(236, 236, 3)
     zt = torch.as_tensor(z, device=dev)
     m = torch.as_tensor(_disk(236, 236, 110), device=dev)
+    kernels.reset_launches()
     got = k7.robust_polyfit2d_coef(zt, m, order, 4, 4.685, 2)
-    want = k7.robust_polyfit2d_coef_plain(zt, m, order, 4, 4.685, 2)
-    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert kernels.LAUNCHES["robust_polyfit2d"] == 1
+    _k7_close(got, k7.robust_polyfit2d_coef_plain(zt, m, order, 4, 4.685, 2))
+
+
+# (plane shape, order, iters, resigma_iters, mask kind): the largest plane
+# the budget admits (584 x 512 pads to 299,008 of 300,000 elements, 146 KB
+# a CTA), a row length that is not a multiple of 4 (scalar loads), and the
+# edge cases of the fit
+K7_CASES = {
+    "largest_plane": ((584, 512), 2, 4, 2, "disk"),
+    "largest_plane_order_1": ((584, 512), 1, 4, 2, "disk"),
+    "ragged_row": ((201, 237), 2, 4, 2, "disk"),
+    "order_1_six_rounds": ((236, 236), 1, 6, 6, "disk"),
+    "iters_0": ((236, 236), 2, 0, 2, "disk"),
+    "iters_1_weights_1": ((236, 236), 2, 1, 1, "disk"),
+    "resigma_above_iters": ((236, 236), 2, 3, 6, "disk"),
+    "nan_inf_inside_mask": ((236, 236), 2, 4, 2, "nan_inf"),
+    "under_200_valid": ((236, 236), 2, 4, 2, "tiny"),
+    "empty_mask": ((236, 236), 2, 4, 2, "empty"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_k7_cases_match_plain_on_card(dev, case):
+    (h, w), order, iters, resigma, kind = K7_CASES[case]
+    z, rng = _k7_plane(h, w, 13)
+    m = _disk(h, w, min(h, w) // 2 - 8)
+    if kind == "nan_inf":
+        z[rng.random((h, w)) < 0.01] = np.nan
+        z[h // 2, w // 2 - 3:w // 2] = (np.inf, -np.inf, np.nan)
+    elif kind == "tiny":
+        m = _disk(h, w, 7)                  # 149 pixels
+        assert m.sum() < 200
+    elif kind == "empty":
+        m[:] = False
+    zt, mt = torch.as_tensor(z, device=dev), torch.as_tensor(m, device=dev)
+    assert k7.fits((h, w))
+    kernels.reset_launches()
+    got = k7.robust_polyfit2d_coef(zt, mt, order, iters, 4.685, resigma)
+    assert kernels.LAUNCHES["robust_polyfit2d"] == 1
+    want = k7.robust_polyfit2d_coef_plain(zt, mt, order, iters, 4.685, resigma)
+    _k7_close(got, want)
+    if kind in ("tiny", "empty") or iters == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_k7_same_bits_twice_on_card(dev):
+    z, _ = _k7_plane(584, 512, 14)
+    zt = torch.as_tensor(z, device=dev)
+    m = torch.as_tensor(_disk(584, 512, 250), device=dev)
+    a = k7.robust_polyfit2d_coef(zt, m, 2, 4, 4.685, 2)
+    b = k7.robust_polyfit2d_coef(zt, m, 2, 4, 4.685, 2)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_k7_raises_above_budget_on_card(dev):
+    z = torch.zeros((600, 512), device=dev)       # pads to 307,200 > 300,000
+    assert not k7.fits(z.shape)
+    kernels.reset_launches()
+    with pytest.raises(ValueError):
+        k7.robust_polyfit2d_coef(z, torch.ones_like(z, dtype=torch.bool), 2, 4, 4.685, 2)
+    assert kernels.LAUNCHES["robust_polyfit2d"] == 0
 
 
 def test_k2_bit_equal_on_card(dev):
@@ -209,6 +282,63 @@ def test_k2_bit_equal_on_card(dev):
     m = torch.as_tensor(_disk(300, 310, 140), device=dev)
     for a, b in zip(k1.masked_median_mad(xt, m), k1.masked_median_mad_plain(xt, m)):
         assert a.shape == (2,) and torch.equal(a, b)
+
+
+# Shapes where K2 on the ladder can go wrong: (planes shape, mask kind).
+# 1 x n and n x 1 planes, a length that is not a multiple of 4 (scalar
+# loads), planes of a batch with different masks, an empty mask, a single
+# valid pixel, and a MAD bracket whose top overflows to +inf
+K2_CASES = {
+    "row_1xn": ((1, 5003), "random"),
+    "column_nx1": ((4097, 1), "random"),
+    "ragged_length": ((301, 211), "random"),
+    "batch_of_2_masks": ((2, 300, 310), "per_plane"),
+    "native_4k_crop": ((1182, 1182), "random"),
+    "empty_mask": ((300, 310), "empty"),
+    "single_pixel": ((300, 310), "single"),
+    "span_overflow": ((300, 310), "random"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K2_CASES))
+def test_k2_shapes_bit_equal_on_card(dev, case):
+    shape, kind = K2_CASES[case]
+    rng = np.random.default_rng(15)
+    x = rng.normal(size=shape).astype(np.float32)
+    x[rng.random(shape) > 0.97] += 6.0
+    x[rng.random(shape) > 0.995] = np.nan
+    if case == "span_overflow":            # med near -3e38, x near +3e38
+        x = -rng.uniform(2.9e38, 3.4e38, size=shape).astype(np.float32)
+        x[rng.random(shape) > 0.8] *= -1.0
+    m = rng.random(shape) < 0.8
+    if kind == "per_plane":
+        m[1] = rng.random(shape[1:]) < 0.3
+    elif kind == "empty":
+        m[:] = False
+    elif kind == "single":
+        m[:] = False
+        m[7, 9] = True
+    xt, mt = torch.as_tensor(x, device=dev), torch.as_tensor(m, device=dev)
+    assert k1.fits(shape)
+    kernels.reset_launches()
+    got = k1.masked_median_mad(xt, mt)
+    assert kernels.LAUNCHES["masked_median_mad"] == 1
+    want = k1.masked_median_mad_plain(xt, mt)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape == shape[:-2]
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), (got, want)
+    if kind == "empty":
+        assert not torch.any(got[0]) and not torch.any(got[1])
+
+
+def test_k2_same_bits_twice_on_card(dev):
+    rng = np.random.default_rng(16)
+    xt = torch.as_tensor(rng.normal(size=(1182, 1182)).astype(np.float32), device=dev)
+    mt = torch.as_tensor(_disk(1182, 1182, 580), device=dev)
+    a = k1.masked_median_mad(xt, mt)
+    b = k1.masked_median_mad(xt, mt)
+    for u, v in zip(a, b):
+        assert torch.equal(u.view(torch.int32), v.view(torch.int32))
 
 
 def test_k2_above_budget_launches_k1_on_card(dev):

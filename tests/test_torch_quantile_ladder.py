@@ -1,22 +1,30 @@
-"""The bisection ladder of K1 (``vistaf_torch/csrc/quantile.cu``) as a numpy
-model, bit-equal to ``masked_quantiles_plain``.
+"""The bisection ladder of K1 and K2 (``vistaf_torch/csrc/ladder.cuh``) as a
+numpy model, bit-equal to ``masked_quantiles_plain`` and
+``masked_median_mad_plain``.
 
-K1 takes the bisection's levels ``bits`` at a time: it builds the midpoints
-of the next ``bits`` levels of the bisection tree (each ``0.5f * (lo + hi)``
-of its own sub-bracket), sends every valid element down that tree (left
-where ``x <= mid``) to a leaf, counts the leaves, and walks the tree with
-``count(x <= node)`` = the sum of the leaves left of the node's split.  The
-model below does the same in float32 on the CPU, so this test argues the
-equality the kernel relies on: ties, single elements, empty masks, NaN in
-the mask, signed zeros and denormals, and ranges where ``lo + hi``
-overflows to an infinity, at ladder widths 1, 4 and 8 and at 0, 7, 16 and
-23 levels (K1's ``LEVELS``), with 8 quantiles a call as on the card.
+The ladder takes the bisection's levels ``bits`` at a time: it builds the
+midpoints of the next ``bits`` levels of the bisection tree (each
+``0.5f * (lo + hi)`` of its own sub-bracket), sends every valid element down
+that tree (left where ``x <= mid``) to a leaf, counts the leaves, and walks
+the tree with ``count(x <= node)`` = the sum of the leaves left of the node's
+split.  Every pass first replays the walk of the earlier passes from their
+histograms, as every CTA does on the card; K2's MAD passes also replay the
+median's whole walk, then bin ``|x - med|`` over ``[0, max(hi - med, med -
+lo)]``.  The model does the same in float32 on the CPU, so these tests argue
+the equality the kernels rely on: ties, single elements, empty masks, NaN in
+the mask, signed zeros and denormals, ranges where ``lo + hi`` overflows to
+an infinity, and (K2) a MAD bracket whose top overflows to +inf, at ladder
+widths 1, 4 and 8 and at 0, 7, 16 and 23 levels (K1's ``LEVELS``), with 8
+quantiles a call as on the card.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
-from vistaf_torch.kernels.quantile_kernel import masked_quantiles_plain
+from vistaf_torch.kernels import quantile_kernel
+from vistaf_torch.kernels.quantile_kernel import masked_median_mad_plain, masked_quantiles_plain
 
 F = np.float32
 BIG = F(3.0e38)
@@ -34,8 +42,46 @@ def _node_midpoint(a, b, node):
     return F(0.5) * (a + b)
 
 
-def ladder_quantiles(x, m, qs, levels, bits):
-    """K1's ladder on one plane: (len(qs),) float32."""
+def _bin(v, a, b, bits):
+    """Leaf counts of the values ``v`` in the ``bits``-level tree over [a, b]."""
+    leaves = 1 << bits
+    tree = np.zeros(leaves, np.float32)
+    for node in range(1, leaves):
+        tree[node] = _node_midpoint(a, b, node)
+    node = np.ones(v.size, np.int64)
+    for _ in range(bits):
+        node = 2 * node + (v > tree[node])
+    return np.bincount(node - leaves, minlength=leaves)
+
+
+def _walk(hists, a, b, target):
+    """The bisection's decisions from the leaf counts of each pass."""
+    for hist in hists:
+        bits = hist.size.bit_length() - 1
+        below, first = 0, 0
+        for d in range(bits):
+            half = 1 << (bits - d - 1)
+            c = below + int(hist[first:first + half].sum())
+            mid = F(0.5) * (a + b)
+            if F(c) <= target:
+                a, below, first = mid, c, first + half
+            else:
+                b = mid
+    return a, b
+
+
+def _ladder(v, a, b, target, levels, bits):
+    """The histograms of a ladder over ``v`` from [a, b]; each pass walks the
+    earlier passes' histograms to its bracket."""
+    hists = []
+    for done in range(0, levels, bits):
+        pa, pb = _walk(hists, a, b, target)
+        hists.append(_bin(v, pa, pb, min(bits, levels - done)))
+    return hists
+
+
+def _valid(x, m):
+    """The valid values of a plane, their count and the bracket [lo, hi]."""
     x = x.astype(np.float32).ravel()
     valid = m.ravel() & np.isfinite(x)
     v = x[valid]
@@ -44,33 +90,41 @@ def ladder_quantiles(x, m, qs, levels, bits):
     hi = v.max() if n else F(-np.inf)
     if n < x.size:        # the plain version's where(valid, x, +-3e38) extremes
         lo, hi = min(lo, BIG), max(hi, -BIG)
+    return v, n, F(lo), F(hi)
+
+
+def ladder_quantiles(x, m, qs, levels, bits):
+    """K1's ladder on one plane: (len(qs),) float32."""
+    v, n, lo, hi = _valid(x, m)
     out = []
     for q in qs:
         target = F(q / 100.0) * max(F(n) - F(1.0), F(0.0))
-        a, b = F(lo), F(hi)
-        done = 0
-        while done < levels:
-            bb = min(bits, levels - done)
-            leaves = 1 << bb
-            tree = np.zeros(leaves, np.float32)
-            for node in range(1, leaves):
-                tree[node] = _node_midpoint(a, b, node)
-            node = np.ones(n, np.int64)
-            for _ in range(bb):
-                node = 2 * node + (v > tree[node])
-            hist = np.bincount(node - leaves, minlength=leaves)
-            below, first = 0, 0
-            for d in range(bb):
-                half = 1 << (bb - d - 1)
-                c = below + int(hist[first:first + half].sum())
-                mid = F(0.5) * (a + b)
-                if F(c) <= target:
-                    a, below, first = mid, c, first + half
-                else:
-                    b = mid
-            done += bb
+        a, b = _walk(_ladder(v, lo, hi, target, levels, bits), lo, hi, target)
         out.append(F(0.5) * (a + b) if n else F(0.0))
     return np.asarray(out, np.float32)
+
+
+def ladder_median_mad(x, m, levels, bits):
+    """K2's ladders on one plane: the median's, then the MAD's over
+    |x - med| in [0, max(hi - med, med - lo)], each MAD pass replaying the
+    median's walk first.  Returns (median, MAD) as float32."""
+    v, n, lo, hi = _valid(x, m)
+    target = F(0.5) * max(F(n) - F(1.0), F(0.0))
+    med_hists = _ladder(v, lo, hi, target, levels, bits)
+
+    def median_and_span():
+        a, b = _walk(med_hists, lo, hi, target)
+        med = F(0.5) * (a + b)
+        return med, np.maximum(hi - med, med - lo)
+
+    mad_hists = []
+    for done in range(0, levels, bits):
+        med, span = median_and_span()
+        a, b = _walk(mad_hists, F(0.0), span, target)
+        mad_hists.append(_bin(np.abs(v - med), a, b, min(bits, levels - done)))
+    med, span = median_and_span()
+    a, b = _walk(mad_hists, F(0.0), span, target)
+    return (med, F(0.5) * (a + b)) if n else (F(0.0), F(0.0))
 
 
 def _case(name):
@@ -102,6 +156,9 @@ def _case(name):
     elif name == "overflow_inside_tree":     # the root's sum fits, a child's overflows
         x = rng.uniform(0.5e38, 2.3e38, size=(h, w)).astype(np.float32)
         m[:] = True
+    elif name == "span_overflow":            # med near -3e38, x near +3e38: hi - med = +inf
+        x = -rng.uniform(2.9e38, 3.4e38, size=(h, w)).astype(np.float32)
+        x[rng.random((h, w)) > 0.8] *= -1.0
     return x, m
 
 
@@ -120,3 +177,30 @@ def test_ladder_bit_equal_to_plain(case, bits, levels):
     with np.errstate(over="ignore"):
         got = ladder_quantiles(x, m, QS8, levels, bits)
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("levels", [0, 7, 16])
+@pytest.mark.parametrize("bits", [1, 4, 8])
+@pytest.mark.parametrize("case", CASES + ["span_overflow"])
+def test_mad_ladder_bit_equal_to_plain(case, bits, levels, monkeypatch):
+    x, m = _case(case)
+    # the plain version at `levels` (it takes MAD_LEVELS, 16, from median_mad_rows)
+    monkeypatch.setattr(quantile_kernel, "median_mad_rows",
+                        functools.partial(quantile_kernel.median_mad_rows, levels=levels))
+    want = [t.numpy() for t in masked_median_mad_plain(torch.as_tensor(x), torch.as_tensor(m))]
+    with np.errstate(over="ignore"):
+        got = ladder_median_mad(x, m, levels, bits)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g, np.float32).view(np.int32),
+                                      np.asarray(w, np.float32).view(np.int32))
+
+
+def test_span_overflow_reaches_infinity():
+    """The case holds what it is named for: at 16 levels the median lies near
+    -3e38 and the MAD bracket's top, hi - med, overflows to +inf."""
+    x, m = _case("span_overflow")
+    hi = _valid(x, m)[3]
+    with np.errstate(over="ignore"):
+        med, _ = ladder_median_mad(x, m, 16, 8)
+        assert med < F(-1e38) and np.isinf(hi - med)
+

@@ -4,10 +4,11 @@
 // in the multi-CTA kernels, per-CTA partials combined in a fixed order): a
 // warp butterfly (every lane ends with the same bits, since float addition
 // is commutative), then one warp over the per-warp partials in warp order.
-// No float atomics (K1 adds its integer leaf counts with atomicAdd: integer
-// sums do not depend on the order), so a reduction gives the same bits on
-// every run; the ECC convergence test compares rho at the level of one f32
-// ulp, where a run-to-run order change would change trip counts.
+// No float atomics (the bisection ladder, ladder.cuh, adds integer leaf
+// counts with atomicAdd: integer sums do not depend on the order), so a
+// reduction gives the same bits on every run; the ECC convergence test
+// compares rho at the level of one f32 ulp, where a run-to-run order change
+// would change trip counts.
 //
 // The sources are compiled with --fmad=false so that a*b + c rounds twice,
 // as the plain PyTorch versions and the JAX reference do.
@@ -78,79 +79,6 @@ __device__ __forceinline__ int block_sum(int v, int (&red)[M]) {
   int a[1] = {v};
   block_reduce(a, red, SumOp(), 0);
   return a[0];
-}
-template <int M>
-__device__ __forceinline__ float block_min(float v, float (&red)[M]) {
-  float a[1] = {v};
-  block_reduce(a, red, MinOp(), kBig);
-  return a[0];
-}
-template <int M>
-__device__ __forceinline__ float block_max(float v, float (&red)[M]) {
-  float a[1] = {v};
-  block_reduce(a, red, MaxOp(), -kBig);
-  return a[0];
-}
-
-// Bisection of the masked quantile bracket [lo, hi] (the body of the TPU
-// kernel's level loop): `levels` passes, each one masked count over the
-// elements [begin, end) this CTA covers, totalled by `count` (the block's
-// sum, or the sum over the CTAs that share the plane).  `value(i, &v)`
-// returns false for pixels outside the mask.  Counts are exact integers,
-// so every thread of every CTA returns the same bracket midpoint.
-template <class ValueFn, class CountFn>
-__device__ float bisect_quantile(ValueFn value, int begin, int end, float target, float lo,
-                                 float hi, int levels, CountFn count) {
-  for (int lv = 0; lv < levels; ++lv) {
-    const float mid = 0.5f * (lo + hi);
-    int c = 0;
-    for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
-      float v;
-      if (value(i, &v) && v <= mid) ++c;
-    }
-    c = count(c);
-    if ((float)c <= target) lo = mid; else hi = mid;
-  }
-  return 0.5f * (lo + hi);
-}
-
-// `count` for a plane one CTA covers alone: the block's sum.
-template <int M>
-struct BlockCount {
-  int (&red)[M];
-  __device__ int operator()(int c) const { return block_sum(c, red); }
-};
-template <int M>
-__device__ __forceinline__ BlockCount<M> block_count(int (&red)[M]) {
-  return BlockCount<M>{red};
-}
-
-// |v - center| of the values `inner` yields: the MAD pass reads the data
-// as deviations from the median on the fly.
-template <class ValueFn>
-struct AbsDev {
-  ValueFn inner;
-  float center;
-  __device__ bool operator()(int i, float* v) const {
-    float x;
-    if (!inner(i, &x)) return false;
-    *v = fabsf(x - center);
-    return true;
-  }
-};
-
-// Masked median and MAD by bisection (the TPU kernels' fused pair, K2 and
-// the robust scale inside K7): the median over the value range [lo, hi],
-// then the median of |v - med| over [0, max(hi - med, med - lo)].
-// `nvalid` is the masked count.  Every thread returns the same pair.
-template <class ValueFn, class CountFn>
-__device__ void median_mad(ValueFn value, int begin, int end, float nvalid, float lo,
-                           float hi, int levels, CountFn count, float* med, float* mad) {
-  const float target = 0.5f * jmax(nvalid - 1.0f, 0.0f);
-  const float m = bisect_quantile(value, begin, end, target, lo, hi, levels, count);
-  *med = m;
-  *mad = bisect_quantile(AbsDev<ValueFn>{value, m}, begin, end, target, 0.0f,
-                         jmax(hi - m, m - lo), levels, count);
 }
 
 }  // namespace vt

@@ -92,7 +92,9 @@ _SIGNATURES = {
     "vt_masked_quantiles_scratch": (_I, _I, _I, _I),
     # x, mask, scratch, out, batch, n, fractions (host), nq, levels, stream
     "vt_masked_quantiles": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _P),
-    # x, mask, folded, out, batch, n, levels, stream
+    # batch, n, levels -> int32 words of the scratch
+    "vt_masked_median_mad_scratch": (_I, _I, _I),
+    # x, mask, scratch, out, batch, n, levels, stream
     "vt_masked_median_mad": (_P, _P, _P, _P, _I, _I, _I, _P),
     # batch, h, w -> float elements of the scratch
     "vt_inpaint_scratch": (_I, _I, _I),

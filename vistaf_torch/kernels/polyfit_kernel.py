@@ -8,11 +8,13 @@ the first ``resigma_iters`` rounds the bisection median/MAD (``LEVELS``,
 u = r / (c * 1.4826 * (mad + 1e-6)).  Zeros when the mask holds fewer than
 200 pixels.  Returns the coefficients; ``eval_poly2d`` runs outside.
 
-On the H100 the fit runs on one CTA: a round is one pass of 27 fused sums
-plus up to 32 bisection count passes, each ending in a block reduction, so
-the kernel is bound by one SM's load bandwidth and barrier latency.  A
-later PR could spread the plane over a cluster of CTAs.  The median/MAD
-device code is K2's (``csrc/common.cuh::median_mad``).
+On the H100 the fit runs on one thread-block cluster of 8 CTAs that holds
+the plane in shared memory for the whole fit (at most 150 KB a CTA inside
+``fits``): each plane-wide total (a round's 27 sums, the residual's range, 8
+bisection levels of leaf counts on the ladder of ``csrc/ladder.cuh``) is one
+exchange through distributed shared memory, combined in rank order so that
+every CTA holds the same bits.  One launch; the median/MAD are bit-equal to
+``median_mad_rows`` on the same residuals.
 """
 from __future__ import annotations
 
@@ -137,6 +139,9 @@ def robust_polyfit2d_coef(z: torch.Tensor, mask: torch.Tensor, order: int = 2,
     kernels.check_cuda("robust_polyfit2d", zz, m)
     if zz.dim() != 2 or m.shape != zz.shape:
         raise ValueError(f"robust_polyfit2d: shapes {tuple(zz.shape)}, {tuple(m.shape)}")
+    if not fits(zz.shape):
+        raise ValueError(f"robust_polyfit2d: plane {tuple(zz.shape)} is above the kernel's "
+                         f"budget of {_MAX_PADDED_ELEMS} padded elements")
     ncoef = 6 if order >= 2 else 3
     h, w = zz.shape
     out = torch.empty(ncoef, dtype=torch.float32, device=zz.device)

@@ -8,7 +8,7 @@ then ``LEVELS`` (23) bisection levels of ``cnt = count(x <= mid & mask)`` with
 midpoint, 0 for an empty mask.  K2 replaces its ``masked_median_mad_pallas``:
 the median by ``MAD_LEVELS`` (16, ``refine=1``) levels over [lo, hi], then
 the MAD as the median of |x - med| over [0, max(hi - med, med - lo)], both 0
-for an empty mask; its device code is also K7's robust scale.  The counts
+for an empty mask; K7 takes its robust scale on the same ladder.  The counts
 are exact, so kernels and plain versions agree bit for bit.
 
 Routing (``kernels/__init__.py``): ``fits`` copies the JAX package's VMEM
@@ -22,22 +22,20 @@ plain path stands beside a kernel that does the same work.
 
 On the H100 (``csrc/quantile.cu``'s note has the details), K1 must read each
 value and mask byte once, 12 us of HBM time at the 8.3 M-element 4K gray; a
-bisection counts the plane once per level.  K1 spreads each plane over many
-CTAs (up to three per SM)
-and takes the levels 8 at a time: a range pass, then per 8 levels one pass
-in which every valid element descends the next 8 levels of the bisection
-tree to one of 256 leaves, counted into an integer histogram, then a finish
-launch.  Every CTA walks the histograms of the earlier passes to the same
-bracket.  The in-order midpoints of the tree never decrease, so the leaf
+bisection counts the plane once per level.  K1 and K2 spread each plane over
+many CTAs (up to three per SM) and take the levels 8 at a time, on the
+bisection ladder of ``csrc/ladder.cuh``: a range pass, then per 8 levels one
+pass in which every valid element descends the next 8 levels of the
+bisection tree to one of 256 leaves, counted into an integer histogram, then
+a finish launch.  Every CTA walks the histograms of the earlier passes to the
+same bracket.  The in-order midpoints of the tree never decrease, so the leaf
 sums are the bisection's exact counts and the walk takes its decisions, bit
-for bit (``tests/test_torch_quantile_ladder.py`` holds a numpy model of the
-ladder to the plain version).  One call reads the plane 1 + ceil(levels / 8)
-times whatever the number of quantiles, in 2 + ceil(levels / 8) launches
-that the C call enqueues and the launch count counts as one.  K2 runs at
-native-4K crops (1.4 M elements), so it splits each plane over a
-thread-block cluster of 8 CTAs that total their exact counts through
-distributed shared memory at every level; it uses 8 SMs per plane, with the
-bisection device code that K7 shares.
+for bit (``tests/test_torch_quantile_ladder.py`` holds a numpy model of both
+ladders to the plain versions).  One K1 call reads the plane 1 + ceil(levels
+/ 8) times whatever the number of quantiles, in 2 + ceil(levels / 8)
+launches; K2 runs the median's passes and then as many over |x - med|, each
+CTA replaying the median's walk first: 6 launches at ``MAD_LEVELS``.  The C
+call enqueues them all, and the launch count counts it as one.
 """
 from __future__ import annotations
 
@@ -192,11 +190,13 @@ def masked_median_mad(arr: torch.Tensor, mask: Optional[torch.Tensor]):
          else mask.to(torch.bool).expand(x.shape).contiguous())
     kernels.check_cuda("masked_median_mad", x, m)
     lead = x.shape[:-2]
-    batch = int(np.prod(lead)) if lead else 1
+    batch = math.prod(lead)
     n = x.shape[-2] * x.shape[-1]
-    folded = torch.empty_like(x)
-    out = torch.empty((batch, 2), dtype=torch.float32, device=x.device)
+    words = kernels.library().vt_masked_median_mad_scratch(batch, n, MAD_LEVELS)
+    # one allocation: the kernel's int32 scratch, then the (batch, 2) result
+    buf = torch.empty(words + 2 * batch, dtype=torch.int32, device=x.device)
+    out = buf[words:].view(torch.float32).reshape(batch, 2)
     kernels.launch("vt_masked_median_mad", "masked_median_mad", x.device,
-                   x.data_ptr(), m.data_ptr(), folded.data_ptr(), out.data_ptr(),
+                   x.data_ptr(), m.data_ptr(), buf.data_ptr(), out.data_ptr(),
                    batch, n, MAD_LEVELS)
     return out[:, 0].reshape(lead), out[:, 1].reshape(lead)
