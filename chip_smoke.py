@@ -10,8 +10,9 @@ Phases, one line each, any failure raises and exits non-zero:
      K5, K6, K7; the 295x295 coarse ECC grid for K4; the 1182x1182 crop of
      the native-4K force path for K1, K2 and K3; the 2160x3840 gray plane
      for K1, and the 1608x1664 compute crop for K3 and K8, of the native-4K
-     temperature path) and K7 also at the largest plane its budget admits
-     (584x512), with CUDA-event median times of both, the
+     temperature path) and K7, K5 and K6 also at the largest plane their
+     budgets admit (584x512, 352x256, 448x384), with CUDA-event median
+     times of both, the
      kernel's device time under torch.profiler (its own kernels, without
      the host's enqueue), the bound
      (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, whichever
@@ -308,12 +309,40 @@ def kernel_cases(device):
     diskb = (yb - hb // 2) ** 2 + (xb - wb // 2) ** 2 <= (wb // 2 - 4) ** 2
     k7_big_args = (t(zb), t(diskb), 2, cfg.polyfit_iters, 4.685, cfg.polyfit_resigma_iters)
 
+    # K5 and K6 at the edge of their budgets: the ECC solve on a 352x256
+    # plane (pads to 90,112 of 90,416 elements) and the unwrap of a 448x384
+    # plane (already (8, 128)-aligned, 172,032 of 240,000 elements); the
+    # same kinds of scene as at the crop
+    he, we = 352, 256
+    assert ecc_loop_kernel.fits((he, we))
+    base_e = gaussian_blur(t(rng.random((he, we)).astype(np.float32)), 3.0, consts)
+    S_e, T_e = ecc_prepare(base_e, warp_affine_inverse_shear(base_e, M, K=4),
+                           t(geometry.circular_mask(he, we, we / 2, he / 2, we / 2 - 2)))
+    sm_e = torch.zeros((he, we), dtype=torch.float32, device=device)
+    sm_e[::2, ::2] = 1.0
+    k5_big_args = (S_e, T_e, sm_e, cfg.ecc_shear_k, cfg.ecc_iters, cfg.ecc_eps,
+                   cfg.ecc_stall_patience)
+    hu, wu = 448, 384
+    assert unwrap_kernel.fits((hu, wu))
+    yu, xu = np.mgrid[0:hu, 0:wu].astype(np.float32)
+    field_u = gaussian_blur(t(rng.standard_normal((hu, wu)).astype(np.float32)), 12.0,
+                            consts) * 60.0 + t((0.09 * xu + 0.05 * yu).astype(np.float32))
+    k6_big_args = (torch.atan2(torch.sin(field_u), torch.cos(field_u)),
+                   t(geometry.circular_mask(hu, wu, wu / 2, hu / 2, wu / 2 - 6)), consts,
+                   cfg.unwrap_cg_iters, cfg.unwrap_cg_tol)
+
     k1 = ("masked_quantiles", "vistaf_torch/csrc/quantile.cu",
           "vistaf_tpu/pallas/quantile_kernel.py:91",
           quantile_kernel.masked_quantiles, quantile_kernel.masked_quantiles_plain)
     k3 = ("inpaint_diffusion", "vistaf_torch/csrc/inpaint.cu",
           "vistaf_tpu/pallas/inpaint_kernel.py:94",
           inpaint_kernel.inpaint_diffusion, inpaint_kernel.inpaint_diffusion_plain)
+    k5 = ("ecc_loop_euclidean", "vistaf_torch/csrc/ecc_loop.cu",
+          "vistaf_tpu/pallas/ecc_loop_kernel.py:161",
+          ecc_loop_kernel.ecc_loop_euclidean, ecc_loop_kernel.ecc_loop_euclidean_plain)
+    k6 = ("unwrap_wls", "vistaf_torch/csrc/unwrap.cu",
+          "vistaf_tpu/pallas/unwrap_kernel.py:148",
+          unwrap_kernel.unwrap_wls, unwrap_kernel.unwrap_wls_plain)
     k7 = ("robust_polyfit2d", "vistaf_torch/csrc/polyfit.cu",
           "vistaf_tpu/pallas/polyfit_kernel.py:144",
           polyfit_kernel.robust_polyfit2d_coef, polyfit_kernel.robust_polyfit2d_coef_plain)
@@ -326,10 +355,7 @@ def kernel_cases(device):
         (*k3, k3_t_args, k3_check),
         ("fused_temperature", "vistaf_torch/csrc/temp.cu",
          "vistaf_tpu/pallas/temp_kernel.py:139", k8_fn, k8_plain, k8_args, k8_check),
-        ("ecc_loop_euclidean", "vistaf_torch/csrc/ecc_loop.cu",
-         "vistaf_tpu/pallas/ecc_loop_kernel.py:161",
-         ecc_loop_kernel.ecc_loop_euclidean, ecc_loop_kernel.ecc_loop_euclidean_plain,
-         k5_args, k5_check),
+        (*k5, k5_args, k5_check),
         (*k7, k7_args, k7_check),
         (*k7, k7_big_args, k7_check),
         ("masked_median_mad", "vistaf_torch/csrc/quantile.cu",
@@ -340,9 +366,9 @@ def kernel_cases(device):
          "vistaf_tpu/pallas/ecc_kernel.py:118",
          ecc_kernel.gn_moments_euclidean, ecc_kernel.gn_moments_euclidean_plain,
          k4_args, k4_check),
-        ("unwrap_wls", "vistaf_torch/csrc/unwrap.cu",
-         "vistaf_tpu/pallas/unwrap_kernel.py:148",
-         unwrap_kernel.unwrap_wls, unwrap_kernel.unwrap_wls_plain, k6_args, k6_check),
+        (*k6, k6_args, k6_check),
+        (*k5, k5_big_args, k5_check),
+        (*k6, k6_big_args, k6_check),
     ]
 
 

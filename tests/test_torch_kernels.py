@@ -22,6 +22,7 @@ from vistaf_tpu.pallas.quantile_kernel import masked_quantiles_pallas
 
 from vistaf_torch import kernels
 from vistaf_torch.kernels.ecc_loop_kernel import ecc_loop_euclidean
+from vistaf_torch.kernels.ecc_loop_kernel import fits as ecc_loop_kernel_fits
 from vistaf_torch.kernels.inpaint_kernel import inpaint_diffusion
 from vistaf_torch.kernels.polyfit_kernel import robust_polyfit2d_coef
 from vistaf_torch.kernels.quantile_kernel import masked_quantiles
@@ -136,6 +137,10 @@ ECC_CASES = {
     "converging": ((0.004, 0.9, -0.6), dict(max_iters=60, eps=1e-7)),
     "stall": ((0.002, 0.4, 0.3), dict(max_iters=200, eps=0.0, stall_patience=6)),
     "sts_no_conv": ((0.002, 0.3, -0.2), dict(max_iters=60, eps=1e-7, invert=True)),
+    # the edge of the whole-solve budget: 352 x 256 pads to 90,112 of 90,416
+    # elements, 360 x 256 (92,160) is above it
+    "converging_352x256": ((0.004, 0.9, -0.6), dict(max_iters=60, eps=1e-7,
+                                                    shape=(352, 256))),
 }
 
 
@@ -144,7 +149,11 @@ def test_k5_ecc_loop_matches_pallas(case):
     (th, tx, ty), kw = ECC_CASES[case]
     kw = dict(kw)
     invert = kw.pop("invert", False)
-    S, T = _ecc_inputs(np.random.default_rng(0), th, tx, ty, invert=invert)
+    shape = kw.pop("shape", (96, 130))
+    if shape != (96, 130):
+        assert ecc_loop_kernel_fits(shape)
+        assert not ecc_loop_kernel_fits((shape[0] + 8, shape[1]))
+    S, T = _ecc_inputs(np.random.default_rng(0), th, tx, ty, *shape, invert=invert)
     sm = np.ones_like(T)
     sm[1::2, :] = 0.0   # a stride grid, as the slice's ecc_stride=2 builds
     jp, jrho, jit, jfail = jax_ecc_loop(jnp.asarray(S), jnp.asarray(T), jnp.asarray(sm),

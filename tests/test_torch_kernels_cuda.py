@@ -159,31 +159,76 @@ def test_k3_wide_hole_mean_on_card(dev):
     assert float((got[~far_t] - want[~far_t]).abs().max()) <= 1e-5
 
 
-def test_k5_matches_plain_on_card(dev):
+def _k5_inputs(dev, h, w, invert=False):
+    """A smooth template and its shifted, rotated copy, prepared as
+    ``ecc_align`` prepares them, over a disk with a stride-2 statistics grid;
+    ``invert`` flips the image's contrast (StsNoConv)."""
     from vistaf_torch.ops.consts import DeviceConsts
     from vistaf_torch.ops.filters import gaussian_blur
     from vistaf_torch.ops.registration import ecc_prepare
     from vistaf_torch.ops.warp import warp_affine_inverse_shear
     rng = np.random.default_rng(2)
-    base = gaussian_blur(torch.as_tensor(rng.random((236, 236)).astype(np.float32),
-                                         device=dev), 3.0, DeviceConsts(dev))
+    base = gaussian_blur(torch.as_tensor(rng.random((h, w)).astype(np.float32), device=dev),
+                         3.0, DeviceConsts(dev))
     th, tx, ty = 0.002, -0.7, 0.5
     M = torch.tensor([[np.cos(th), -np.sin(th), tx], [np.sin(th), np.cos(th), ty]],
                      dtype=torch.float32, device=dev)
     moved = warp_affine_inverse_shear(base, M, K=4)
-    S, T = ecc_prepare(base, moved, torch.as_tensor(_disk(236, 236, 117), device=dev))
+    S, T = ecc_prepare(base, moved, torch.as_tensor(_disk(h, w, min(h, w) // 2 - 2),
+                                                    device=dev))
+    if invert:
+        S = S.clone()
+        S[:3] *= -1.0
     sm = torch.zeros_like(T)
     sm[::2, ::2] = 1.0
-    for image_sign, fails in ((1.0, False), (-1.0, True)):
-        S_in = S.clone()
-        S_in[:3] *= image_sign       # a contrast-inverted image: StsNoConv
-        pa, ra, _, fa = k5.ecc_loop_euclidean(S_in, T, sm, 4, 300, 1e-7, 25)
-        pb, rb, _, fb = k5.ecc_loop_euclidean_plain(S_in, T, sm, 4, 300, 1e-7, 25)
-        assert bool(fa) == bool(fb) == fails
-        if not fails:
-            assert abs(float(ra) - float(rb)) < 1e-4
-        assert float((pa[0] - pb[0]).abs()) < 5e-5
-        assert float((pa[1:] - pb[1:]).abs().max()) < 5e-3
+    return S, T, sm
+
+
+# (K, max_iters, eps, stall_patience, inverted image) of each case
+K5_CASES = {
+    "converging": (4, 300, 1e-7, 0, False),
+    "stall": (4, 200, 0.0, 6, False),
+    "sts_no_conv": (4, 300, 1e-7, 25, True),
+}
+
+
+# the 640 crop and two shapes at the edge of ecc_loop_kernel.fits
+@pytest.mark.parametrize("shape", [(236, 236), (352, 256), (232, 384)])
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_k5_matches_plain_on_card(dev, case, shape):
+    K, max_iters, eps, patience, invert = K5_CASES[case]
+    assert k5.fits(shape)
+    S, T, sm = _k5_inputs(dev, *shape, invert=invert)
+    kernels.reset_launches()
+    pa, ra, ia, fa = k5.ecc_loop_euclidean(S, T, sm, K, max_iters, eps, patience)
+    assert kernels.LAUNCHES["ecc_loop_euclidean"] == 1
+    pb, rb, ib, fb = k5.ecc_loop_euclidean_plain(S, T, sm, K, max_iters, eps, patience)
+    assert bool(fa) == bool(fb) == invert
+    if not invert:
+        assert abs(float(ra) - float(rb)) < 1e-4
+    assert float((pa[0] - pb[0]).abs()) < 5e-5
+    assert float((pa[1:] - pb[1:]).abs().max()) < 5e-3
+    assert 1 <= int(ia) <= max_iters
+    if case == "stall":
+        assert int(ia) < max_iters
+
+
+def test_k5_same_bits_twice_on_card(dev):
+    S, T, sm = _k5_inputs(dev, 352, 256)
+    a = k5.ecc_loop_euclidean(S, T, sm, 4, 300, 1e-7, 0)
+    b = k5.ecc_loop_euclidean(S, T, sm, 4, 300, 1e-7, 0)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y), (a, b)
+
+
+def test_k5_raises_above_budget_on_card(dev):
+    S, T, sm = (torch.zeros((4, 360, 256), device=dev), torch.zeros((360, 256), device=dev),
+                torch.ones((360, 256), device=dev))
+    assert not k5.fits(T.shape)
+    kernels.reset_launches()
+    with pytest.raises(ValueError):
+        k5.ecc_loop_euclidean(S, T, sm, 4, 300, 1e-7, 0)
+    assert kernels.LAUNCHES["ecc_loop_euclidean"] == 0
 
 
 def _k7_close(got, want):
@@ -374,19 +419,70 @@ def test_k4_matches_plain_on_card(dev):
     assert torch.equal(got, k4.gn_moments_euclidean(S, T, sm, co, K=4))   # fixed order
 
 
-def test_k6_matches_plain_on_card(dev):
-    rng = np.random.default_rng(6)
-    yy, xx = np.mgrid[0:236, 0:236].astype(np.float32)
-    field = 0.09 * xx + 0.05 * yy + 4.0 * np.sin(xx / 30.0) * np.cos(yy / 25.0)
-    wrapped = torch.as_tensor(np.angle(np.exp(1j * field)).astype(np.float32), device=dev)
-    mask = torch.as_tensor(_disk(236, 236, 112) & (rng.random((236, 236)) > 0.01), device=dev)
+def _phase_scene(h, w, holes, seed=6):
+    """Wrapped phase of a smooth random field with a ramp, over a disk
+    (with a round hole and a cut when ``holes``)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    k = np.exp(-0.5 * (np.arange(-36, 37) / 12.0) ** 2)
+    k /= k.sum()
+    smooth = np.apply_along_axis(lambda v: np.convolve(v, k, "same"), 0,
+                                 rng.standard_normal((h, w)))
+    smooth = np.apply_along_axis(lambda v: np.convolve(v, k, "same"), 1, smooth)
+    field = smooth / smooth.std() * 9.0 + 0.09 * xx + 0.05 * yy
+    mask = (yy - h / 2) ** 2 + (xx - w / 2) ** 2 <= (min(h, w) / 2 - 6) ** 2
+    if holes:
+        mask &= ~((yy - h / 3) ** 2 + (xx - w / 3) ** 2 <= 100)
+        mask &= ~((np.abs(yy - 0.6 * h) < 3) & (xx > 0.5 * w))
+    return np.angle(np.exp(1j * field)).astype(np.float32), mask
+
+
+# (shape, holes, cg_iters, tol): the 640 crop with holes, the largest plane
+# of unwrap_kernel.fits, and a loose tol under which `live` stops early
+K6_CASES = {
+    "crop_236_holes": ((236, 236), True, 16, 1e-8),
+    "largest_448x384": ((448, 384), True, 16, 1e-8),
+    "loose_tol": ((236, 236), True, 16, 1e-2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K6_CASES))
+def test_k6_matches_plain_on_card(dev, case):
+    shape, holes, iters, tol = K6_CASES[case]
+    assert k6.fits(shape)
+    wrapped, mask = _phase_scene(*shape, holes)
+    wrapped, mask = torch.as_tensor(wrapped, device=dev), torch.as_tensor(mask, device=dev)
     from vistaf_torch.ops.consts import DeviceConsts
     consts = DeviceConsts(dev)
-    got = k6.unwrap_wls(wrapped, mask, consts, 16, 1e-8)
-    want = k6.unwrap_wls_plain(wrapped, mask, consts, 16, 1e-8)
+    kernels.reset_launches()
+    got = k6.unwrap_wls(wrapped, mask, consts, iters, tol)
+    assert kernels.LAUNCHES["unwrap_wls"] == 1
+    want = k6.unwrap_wls_plain(wrapped, mask, consts, iters, tol)
     assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isnan(got), ~mask)
     same_k = (got[mask] - want[mask]).abs() < 1e-3
     assert float(same_k.float().mean()) >= 0.999
+
+
+def test_k6_same_bits_twice_on_card(dev):
+    wrapped, mask = _phase_scene(448, 384, True)
+    wrapped, mask = torch.as_tensor(wrapped, device=dev), torch.as_tensor(mask, device=dev)
+    from vistaf_torch.ops.consts import DeviceConsts
+    consts = DeviceConsts(dev)
+    a = k6.unwrap_wls(wrapped, mask, consts, 16, 1e-8)
+    b = k6.unwrap_wls(wrapped, mask, consts, 16, 1e-8)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_k6_raises_above_budget_on_card(dev):
+    wrapped = torch.zeros((600, 512), device=dev)     # pads to 307,200 > 240,000
+    assert not k6.fits(wrapped.shape)
+    from vistaf_torch.ops.consts import DeviceConsts
+    kernels.reset_launches()
+    with pytest.raises(ValueError):
+        k6.unwrap_wls(wrapped, torch.ones_like(wrapped, dtype=torch.bool),
+                      DeviceConsts(dev), 16, 1e-8)
+    assert kernels.LAUNCHES["unwrap_wls"] == 0
 
 
 def test_slice_on_card_launches_every_kernel(dev):

@@ -175,8 +175,10 @@ def _phase_scene(rng, h, w, amp=9.0, holes=False):
     ((150, 210), False, 30, 1e-8),
     ((236, 236), True, 16, 1e-8),
     ((97, 130), True, 16, 1e-2),       # loose tol: the live mask stops early
+    ((448, 384), True, 16, 1e-8),      # the largest plane of unwrap_kernel.fits
 ])
 def test_k6_unwrap_matches_pallas(shape, holes, iters, tol):
+    assert unwrap_kernel.fits(shape)
     wrapped, mask = _phase_scene(np.random.default_rng(5), *shape, holes=holes)
     gold = np.asarray(j_unwrap.unwrap_wls_pallas(jnp.asarray(wrapped), jnp.asarray(mask),
                                                  cg_iters=iters, tol=tol, interpret=True))

@@ -1,25 +1,56 @@
-// K5: the whole euclidean ECC Gauss-Newton solve, one CTA.
+// K5: the whole euclidean ECC Gauss-Newton solve, one launch of one
+// thread-block cluster of kCtas = 16 CTAs.
 //
 // Replaces the JAX package's pallas/ecc_loop_kernel.py::ecc_loop_euclidean.  Each
 // iteration of the device-side while loop:
-//   1. thread 0 turns the warp (theta, tx, ty) into the two shear passes'
-//      coefficients (the TPU kernel's scalars) and broadcasts them;
+//   1. every thread turns the warp (theta, tx, ty) into the two shear
+//      passes' coefficients (the TPU kernel's scalars);
 //   2. vertical shear pass of the 4 planes [I, gx, gy, mask] with 2K+1 hat
-//      taps and a zero border, into 4 scratch planes;
+//      taps and a zero border, the CTA's row band into shared memory;
 //   3. horizontal pass, mask threshold, steepest-descent rows and the 21
-//      moment sums, accumulated per thread and reduced in a fixed order
-//      (steps 1-3 are ecc_common.cuh, shared with K4);
-//   4. thread 0 runs the scalar tail (two adjugate 3x3 solves, the lambda
-//      step, rho, the StsNoConv failure rule, eps, stall bookkeeping) and
-//      broadcasts whether to go on.
+//      moment sums over the band, reduced in a fixed order (the warp and
+//      rows are ecc_common.cuh, shared with K4);
+//   4. one exchange: the CTAs' 21 sums through distributed shared memory,
+//      combined in rank order, so every CTA holds the same bits;
+//   5. every thread runs the scalar tail (two adjugate 3x3 solves, the
+//      lambda step, rho, the StsNoConv failure rule, eps, stall bookkeeping)
+//      on those bits, so all CTAs agree on whether to go on without a
+//      broadcast.
 // Output: [theta, tx, ty, rho, iters, failed]; identity/NaN handling on
 // failure stays with the caller.
+//
+// Bound and design.  A solve is a few dense stencil passes per iteration
+// (~4 M hat taps at 236^2) on a plane that never changes, and the
+// iterations are sequential: what costs is the chain of plane-wide sums and
+// the latency between them, not bytes (the inputs are 1.3 MB) nor
+// arithmetic (~1 us at the FP32 peak for a whole solve), so the plane is
+// spread over many SMs: it is split into row bands, one per CTA of a
+// 16-CTA cluster (non-portable size: the attribute is set before launch).
+// The vertical pass at (v, u) reads rows v-K..v+K of S from L1/L2; the
+// horizontal pass at (v, u) reads only row v of the vertically sheared
+// planes, so the band's `mid` lives in the CTA's shared memory (at most
+// ceil(h / 16) * w * 16 bytes: ~57 KB at 236^2, 90 KB at 352x256, 180 KB for
+// an 8-row plane at the budget's width) and never touches global memory.
+// A cluster rather than a cooperative grid: its barrier is the hardware's
+// and its exchange is 21 words of distributed shared memory, one per
+// iteration, with double-buffered slots (a slot is rewritten two exchanges
+// later, after every CTA has passed the barrier in between and so has read
+// it).  The sums keep one fixed order (per-thread pixel order, the block
+// reduction's, then rank order): rho's stop rule compares at one f32 ulp,
+// and the same input gives the same bits on every call.
+#include <cooperative_groups.h>
+
 #include "ecc_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kCtas = 16;
 constexpr int kMoments = vt::kEccMoments;
+// dynamic shared memory a CTA may take: the 227 KB opt-in less the static part
+constexpr int kMaxBandBytes = 232448 - 8192;
 
 struct Solver {
   float p0 = 0.f, p1 = 0.f, p2 = 0.f;
@@ -105,30 +136,32 @@ __device__ void gn_step(Solver& st, const float* mom) {
   st.failed = st.failed || now_failed;
 }
 
+// Rows per CTA of an h-row plane.
+int band_rows(int h) { return (h + kCtas - 1) / kCtas; }
+
+// One solve, one cluster; CTA `rank` owns rows [rank * band, (rank + 1) * band).
 __global__ void __launch_bounds__(kThreads)
 ecc_loop_kernel(const float* __restrict__ S, const float* __restrict__ T,
-                const float* __restrict__ SM, float* __restrict__ mid,
-                float* __restrict__ out, int h, int w, int K, int max_iters, float eps,
-                int stall_patience) {
+                const float* __restrict__ SM, float* __restrict__ out, int h, int w, int K,
+                int max_iters, float eps, int stall_patience, int band) {
+  extern __shared__ float4 mid[];  // the band's vertically sheared [I, gx, gy, mask]
   __shared__ float red[kMoments * 33];
-  __shared__ vt::ShearScalars sc_s;
-  __shared__ int go;
-  const int hw = h * w;
-  Solver st;  // meaningful in thread 0 only
+  __shared__ float slot[2][kMoments];
+  __shared__ float tot[kMoments];
 
-  if (threadIdx.x == 0) go = st.keep_going(max_iters, eps, stall_patience);
-  __syncthreads();
-  while (go) {
-    if (threadIdx.x == 0) sc_s = vt::shear_scalars(st.p0, st.p1, st.p2);
-    __syncthreads();
-    const vt::ShearScalars sc = sc_s;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int v0 = min(h, rank * band);
+  const int rows = min(h, v0 + band) - v0;
+  const int npix = rows * w;
+  Solver st;  // every thread of every CTA holds the same state
+  int par = 0;
 
-    // vertical pass of the 4 planes into `mid`
-    for (int idx = threadIdx.x; idx < 4 * hw; idx += blockDim.x) {
-      const int ch = idx / hw;
-      const int pix = idx - ch * hw;
-      const int v = pix / w, u = pix - v * w;
-      mid[idx] = vt::shear_vertical(S + (size_t)ch * hw, h, w, K, sc, v, u);
+  while (st.keep_going(max_iters, eps, stall_patience)) {
+    const vt::ShearScalars sc = vt::shear_scalars(st.p0, st.p1, st.p2);
+    for (int i = threadIdx.x; i < npix; i += kThreads) {
+      const int dv = i / w, u = i - dv * w;
+      mid[i] = vt::shear_vertical4(S, h, w, K, sc, v0 + dv, u);
     }
     __syncthreads();
 
@@ -136,27 +169,38 @@ ecc_loop_kernel(const float* __restrict__ S, const float* __restrict__ T,
     float mom[kMoments];
 #pragma unroll
     for (int q = 0; q < kMoments; ++q) mom[q] = 0.0f;
-    for (int pix = threadIdx.x; pix < hw; pix += blockDim.x) {
+    for (int i = threadIdx.x; i < npix; i += kThreads) {
+      const int dv = i / w, u = i - dv * w;
+      const int v = v0 + dv;
+      float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      vt::shear_horizontal([&](int uu) { return mid[dv * w + uu]; }, w, K, sc, v, u, a);
       float row[6];
-      vt::shear_moment_row(mid, T, SM, h, w, K, sc, pix, row);
+      vt::moment_row(a, T, SM, sc, v * w + u, v, u, row);
       vt::accumulate_moments(row, mom);
     }
+    // its barriers also keep `mid` from being rewritten while still read
     vt::block_reduce(mom, red, vt::SumOp(), 0.0f);
 
-    if (threadIdx.x == 0) {
-      gn_step(st, mom);
-      go = st.keep_going(max_iters, eps, stall_patience);
+    // the exchange: every CTA sums the 16 CTAs' slots in rank order
+    if (threadIdx.x < kMoments) slot[par][threadIdx.x] = mom[threadIdx.x];
+    cl.sync();
+    if (threadIdx.x < kMoments) {
+      float s = cl.map_shared_rank(&slot[par][0], 0)[threadIdx.x];
+      for (int r = 1; r < kCtas; ++r) s = s + cl.map_shared_rank(&slot[par][0], r)[threadIdx.x];
+      tot[threadIdx.x] = s;
     }
     __syncthreads();
+    par ^= 1;
+    gn_step(st, tot);  // every thread, the same bits
   }
 
-  if (threadIdx.x == 0) {
-    if (stall_patience > 0 && st.stall >= stall_patience) {
-      st.p0 = st.b0;
-      st.p1 = st.b1;
-      st.p2 = st.b2;
-      st.rho = st.best_rho;
-    }
+  if (stall_patience > 0 && st.stall >= stall_patience) {
+    st.p0 = st.b0;
+    st.p1 = st.b1;
+    st.p2 = st.b2;
+    st.rho = st.best_rho;
+  }
+  if (rank == 0 && threadIdx.x == 0) {
     out[0] = st.p0;
     out[1] = st.p1;
     out[2] = st.p2;
@@ -164,18 +208,41 @@ ecc_loop_kernel(const float* __restrict__ S, const float* __restrict__ T,
     out[4] = (float)st.it;
     out[5] = st.failed ? 1.0f : 0.0f;
   }
+  cl.sync();  // no CTA leaves while another may still read its slots
 }
 
 }  // namespace
 
-// S: (4, h, w) centred [I, gx, gy, mask01]; T, SM: (h, w); mid: (4, h, w)
-// scratch; out: (6,).
+// S: (4, h, w) centred [I, gx, gy, mask01]; T, SM: (h, w); out: (6,).  One
+// cluster launch on `stream`; a band that does not fit a CTA's shared memory
+// (wider than ecc_loop_kernel.fits admits) is refused.
 extern "C" int vt_ecc_loop_euclidean(const float* S, const float* T, const float* SM,
-                                     float* mid, float* out, int h, int w, int K,
-                                     int max_iters, float eps, int stall_patience,
-                                     void* stream) {
+                                     float* out, int h, int w, int K, int max_iters,
+                                     float eps, int stall_patience, void* stream) {
   if (h < 1 || w < 1 || K < 0 || max_iters < 0) return (int)cudaErrorInvalidValue;
-  ecc_loop_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(S, T, SM, mid, out, h, w, K,
-                                                           max_iters, eps, stall_patience);
+  const int band = band_rows(h);
+  const long long bytes = (long long)band * w * (long long)sizeof(float4);
+  if (bytes > kMaxBandBytes) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(ecc_loop_kernel,
+                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(ecc_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCtas, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCtas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ecc_loop_kernel, S, T, SM, out, h, w, K, max_iters, eps,
+                           stall_patience, band);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

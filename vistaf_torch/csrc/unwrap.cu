@@ -1,44 +1,88 @@
-// K6: the whole weighted-least-squares phase unwrap, multi-CTA.
+// K6: the whole weighted-least-squares phase unwrap, one persistent
+// cooperative launch.
 //
 // Replaces the JAX package's pallas/unwrap_kernel.py::unwrap_wls_pallas.  On the
 // tile-padded (Hp, Wp) domain (zero weights in the padding): binary edge
 // weights, wrapped gradients in the real form x - 2pi*round(x/2pi),
-// divergence, then a fixed trip of `cg_iters` PCG steps with the
-// DCT-Poisson preconditioner, each step applied only while
-// sum(r*r) > tol^2 * sum(r0*r0) (the TPU kernel's `live` mask), then the
+// divergence, then up to `cg_iters` PCG steps with the DCT-Poisson
+// preconditioner Dh^T ((Dh r Dw^T) * inv_denom) Dw, each step taken only
+// while sum(r*r) > tol^2 * sum(r0*r0) (the TPU kernel's `live` mask: once it
+// is false the state never changes again, so the loop ends there), then the
 // two-pass gauge on the masked mean and the congruence step
 // psi + 2pi*round((phi - psi)/2pi); NaN off the mask.
 //
-// Bound: the preconditioner is four dense DCT products per application
-// (Dh r, . Dw^T, Dh^T ., . Dw): ~122 MFLOP at 240 x 256, 17 applications
-// per solve, about 2.1 GFLOP.  One CTA would take milliseconds, so the
-// solve is a sequence of multi-CTA launches on one stream: a tiled FP32
-// FMA matrix product (32 x 32 tiles through shared memory, no tensor
-// cores, no TF32) for each product, stencil/update kernels over the plane,
-// and per-CTA partial sums reduced in a fixed order by one warp, which also
-// forms alpha, beta and the `live` flag in device memory.  The host
-// enqueues the whole solve in one call and never waits on it.  No atomics:
-// every sum has a fixed order, so the trip is reproducible.
+// Bound and design.  The preconditioner is four dense DCT products per
+// application, ~122 MFLOP at 240 x 256 and 17 applications a solve (about
+// 2.1 GFLOP, 31 us at the FP32 peak), on a state of 11 planes and the four
+// matrices (~4 MB at 240 x 256, ~11 MB at 448 x 384) that stays in L2.  Each
+// product is small (~15 M FMA), so what costs is the chain of dependent
+// phases and the gaps between them, not bandwidth.  One cooperative launch
+// of one 512-thread CTA per SM runs the
+// whole solve, its phases separated by grid barriers (cooperative groups;
+// the launch guarantees co-residency and fails with its CUDA error if the
+// grid cannot be resident).  A PCG step is five phases:
+//   a. t1 = Dh r', with r' = r - alpha Ap formed as the product's operand;
+//      the tile's owner also stores r' and phi += alpha p (alpha from the
+//      last phase's partials);
+//   b. t2 = (t1 Dw^T) * inv_denom;   c. t1 = Dh^T t2;
+//   d. z = t1 Dw, with the (r' z, r' r') partials;
+//   e. beta from them; p' = z + beta p; Ap = wlap(p') with p' formed at the
+//      stencil's neighbours; the (p' Ap) partials.
+// Products tile the (Hp, Wp) output in 16 x 32 tiles (120 tiles at
+// 240 x 256, 336 at 448 x 384), each staged whole-K in shared memory and
+// computed by eight split-K groups of 64 threads with 2 x 4 FP32 FMA
+// register tiles (explicit fmaf; no tensor cores, no TF32), the groups'
+// partials added in group order.  r and p are double-buffered so that a
+// phase never writes what another CTA of it still reads.  Every CTA forms
+// alpha, beta and `live` itself from the per-CTA partials summed in index
+// order: no atomics in any sum, so the result is the same bits every call.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRedBlocks = 120;  // CTAs of every reduction pass
-constexpr int kTile = 32;        // matrix-product tile (kTile x kTile outputs)
+constexpr int kThreads = 512;
+constexpr int kGroups = 8;              // split-K groups of a product tile
+constexpr int kTM = 16, kTN = 32;       // product tile: kTM * kTN == kThreads outputs
+constexpr int kApad = kTM + 2;          // row stride of the k-major A tile
+constexpr int kMaxGrid = 1024;          // per-CTA partial slots reserved in `work`
+constexpr int kPlanes = 11;
+constexpr int kBatch = 8;               // loads a thread keeps in flight while staging
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInvTwoPi = 0.15915494309189535f;
+static_assert(kTM * kTN == kThreads, "one combined output a thread");
+static_assert(kThreads / 32 == kTM, "one warp stages one A row");
 
-// scalar slots in device memory
-enum Slot { kRz = 0, kTol2R0, kAlpha, kBeta, kLive, kN, kS1, kS2, kSlots };
+struct Args {
+  const float *wrapped, *Dh, *DhT, *Dw, *DwT, *inv;
+  const uint8_t* mask;
+  float* out;
+  float* work;
+  int h, w, Hp, Wp, cg_iters;
+  float tol2;
+};
 
-// a[v + k] along columns (axis 1) / rows (axis 0), 0 beyond the edge
-__device__ __forceinline__ float at_or0(const float* __restrict__ a, int Hp, int Wp, int i,
-                                        int j) {
-  return (i >= 0 && i < Hp && j >= 0 && j < Wp) ? a[i * Wp + j] : 0.0f;
-}
+// The padded inputs at (i, j) of the (Hp, Wp) domain, 0 outside the
+// (h, w) plane: psi = where(mask, wrapped, 0) and m = mask as 0/1.
+struct Padded {
+  const float* wrapped;
+  const uint8_t* mask;
+  int h, w;
+  __device__ __forceinline__ bool inside(int i, int j) const {
+    return i < h && j < w && mask[i * w + j];
+  }
+  __device__ __forceinline__ float psi(int i, int j) const {
+    return inside(i, j) ? __ldg(wrapped + i * w + j) : 0.0f;
+  }
+  __device__ __forceinline__ float m(int i, int j) const { return inside(i, j) ? 1.0f : 0.0f; }
+};
 
 __device__ __forceinline__ float wrap(float x) { return x - kTwoPi * rintf(x * kInvTwoPi); }
+
+__device__ __forceinline__ float guard(float d) { return fabsf(d) < 1e-30f ? 1e-30f : d; }
 
 // divergence of edge fluxes at (i, j): (fx - fx[j-1]) + (fy - fy[i-1])
 template <class Fx, class Fy>
@@ -50,321 +94,321 @@ __device__ __forceinline__ float div2(Fx fx, Fy fy, int i, int j) {
   return (fx0 - fx1) + (fy0 - fy1);
 }
 
-// wx = m * m[., j+1], wy = m * m[i+1, .]; r = div2(wrap(dpsi) * w); phi = 0
-__global__ void __launch_bounds__(kThreads)
-setup_kernel(const float* __restrict__ psi, const float* __restrict__ m,
-             float* __restrict__ wx, float* __restrict__ wy, float* __restrict__ phi,
-             float* __restrict__ r, int Hp, int Wp) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= Hp * Wp) return;
-  const int i = idx / Wp, j = idx - i * Wp;
-  auto wxa = [&](int a, int b) { return m[a * Wp + b] * at_or0(m, Hp, Wp, a, b + 1); };
-  auto wya = [&](int a, int b) { return m[a * Wp + b] * at_or0(m, Hp, Wp, a + 1, b); };
-  auto dx = [&](int a, int b) {
-    return wrap(at_or0(psi, Hp, Wp, a, b + 1) - psi[a * Wp + b]) * wxa(a, b);
-  };
-  auto dy = [&](int a, int b) {
-    return wrap(at_or0(psi, Hp, Wp, a + 1, b) - psi[a * Wp + b]) * wya(a, b);
-  };
-  wx[idx] = wxa(i, j);
-  wy[idx] = wya(i, j);
-  r[idx] = div2(dx, dy, i, j);
-  phi[idx] = 0.0f;
-}
-
-// C = A (M x K) @ B (K x N), row-major; C *= S elementwise when S is given.
-// Skipped entirely while the solve is no longer live.
-__global__ void __launch_bounds__(kThreads)
-matmul_kernel(const float* __restrict__ A, const float* __restrict__ B,
-              const float* __restrict__ S, float* __restrict__ C, int M, int N, int K,
-              const float* __restrict__ live) {
-  if (live != nullptr && !(*live > 0.5f)) return;
-  __shared__ float As[kTile][kTile + 1];  // As[k][m]
-  __shared__ float Bs[kTile][kTile + 1];  // Bs[k][n]
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-  for (int k0 = 0; k0 < K; k0 += kTile) {
-    for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-      const int a = e / kTile, b = e - a * kTile;  // a: row of the tile, b: column
-      const int am = m0 + a, ak = k0 + b;
-      As[b][a] = (am < M && ak < K) ? A[(size_t)am * K + ak] : 0.0f;
-      const int bk = k0 + a, bn = n0 + b;
-      Bs[a][b] = (bk < K && bn < N) ? B[(size_t)bk * N + bn] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kTile; ++kk) {
-      const float a0 = As[kk][ty], a1 = As[kk][ty + 16];
-      const float b0 = Bs[kk][tx], b1 = Bs[kk][tx + 16];
-      acc[0][0] = fmaf(a0, b0, acc[0][0]);
-      acc[0][1] = fmaf(a0, b1, acc[0][1]);
-      acc[1][0] = fmaf(a1, b0, acc[1][0]);
-      acc[1][1] = fmaf(a1, b1, acc[1][1]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const int row = m0 + ty + 16 * a, col = n0 + tx + 16 * b;
-      if (row < M && col < N) {
-        const size_t o = (size_t)row * N + col;
-        C[o] = S != nullptr ? acc[a][b] * S[o] : acc[a][b];
-      }
-    }
-}
-
-// per-CTA partial sums of two products over the plane: part[b] = (sum x0*y0, sum x1*y1)
-template <class F>
-__device__ __forceinline__ void partial_pair(F term, int n, float* __restrict__ part) {
-  __shared__ float red[2 * 33];
-  float v[2] = {0.0f, 0.0f};
-  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += gridDim.x * blockDim.x)
-    term(idx, v);
+// This CTA's N partial sums into part[blockIdx.x * N + q], in the block
+// reduction's fixed order.
+template <int N>
+__device__ void publish(float (&v)[N], float* part) {
+  __shared__ float red[N * 33];
   vt::block_reduce(v, red, vt::SumOp(), 0.0f);
-  if (threadIdx.x == 0) {
-    part[2 * blockIdx.x] = v[0];
-    part[2 * blockIdx.x + 1] = v[1];
+  if (threadIdx.x < N) part[blockIdx.x * N + threadIdx.x] = v[threadIdx.x];
+}
+
+// The grid's totals of the N partial sums, after a grid barrier: warp 0
+// adds CTAs lane, lane + 32, ... in order, then a butterfly; every thread of
+// every CTA returns the same bits.
+template <int N>
+__device__ void grid_total(const float* part, float (&t)[N]) {
+  __shared__ float sh[N];
+  if (threadIdx.x < 32) {
+    const int nb = (int)gridDim.x;
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      float s = 0.0f;
+      for (int b0 = threadIdx.x; b0 < nb; b0 += 32 * kBatch) {
+        float v[kBatch];  // loads first, then the adds in CTA order
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int b = b0 + 32 * u;
+          v[u] = b < nb ? part[b * N + q] : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (b0 + 32 * u < nb) s = s + v[u];
+      }
+      s = vt::warp_reduce(s, vt::SumOp());
+      if (threadIdx.x == 0) sh[q] = s;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < N; ++q) t[q] = sh[q];
+  __syncthreads();
+}
+
+// C = A (M x Kd) @ B (Kd x N) over this CTA's share of the 16 x 32 output
+// tiles: a_at(i, k) and b_at(k, j) give the operands' elements, epi(i, j, c)
+// takes each output.  N is a multiple of 32 and Kd of 8.
+template <class AAt, class BAt, class Epi>
+__device__ void product(int M, int N, int Kd, AAt a_at, BAt b_at, Epi epi, float* smem) {
+  float* As = smem;                    // [Kd][kApad], k-major
+  float* Bs = As + Kd * kApad;         // [Kd][kTN]
+  float* Cs = Bs + Kd * kTN;           // [kGroups][kTM * kTN] split-K partials
+  const int tiles_n = N / kTN;
+  const int tiles = ((M + kTM - 1) / kTM) * tiles_n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = threadIdx.x >> 6, t = threadIdx.x & 63;
+  const int r0 = (t >> 3) * 2, c0 = (t & 7) * 4;
+  const int kc = Kd / kGroups;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int i0 = (tile / tiles_n) * kTM, j0 = (tile % tiles_n) * kTN;
+    // staging: kBatch loads in flight a thread, then their stores
+    const int i = i0 + warp;
+    for (int k0 = lane; k0 < Kd; k0 += 32 * kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int k = k0 + 32 * u;
+        v[u] = (k < Kd && i < M) ? a_at(i, k) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (k0 + 32 * u < Kd) As[(k0 + 32 * u) * kApad + warp] = v[u];
+    }
+    for (int e0 = threadIdx.x; e0 < Kd * kTN; e0 += kThreads * kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int e = e0 + kThreads * u;
+        v[u] = e < Kd * kTN ? b_at(e >> 5, j0 + (e & 31)) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (e0 + kThreads * u < Kd * kTN) Bs[e0 + kThreads * u] = v[u];
+    }
+    __syncthreads();
+    float acc[2][4];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
+    for (int k = g * kc; k < (g + 1) * kc; ++k) {
+      const float2 av = *reinterpret_cast<const float2*>(&As[k * kApad + r0]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[k * kTN + c0]);
+      acc[0][0] = fmaf(av.x, bv.x, acc[0][0]);
+      acc[0][1] = fmaf(av.x, bv.y, acc[0][1]);
+      acc[0][2] = fmaf(av.x, bv.z, acc[0][2]);
+      acc[0][3] = fmaf(av.x, bv.w, acc[0][3]);
+      acc[1][0] = fmaf(av.y, bv.x, acc[1][0]);
+      acc[1][1] = fmaf(av.y, bv.y, acc[1][1]);
+      acc[1][2] = fmaf(av.y, bv.z, acc[1][2]);
+      acc[1][3] = fmaf(av.y, bv.w, acc[1][3]);
+    }
+    float* Cg = Cs + g * (kTM * kTN);
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+      *reinterpret_cast<float4*>(&Cg[(r0 + a) * kTN + c0]) =
+          make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+    __syncthreads();
+    float s = Cs[threadIdx.x];
+#pragma unroll
+    for (int q = 1; q < kGroups; ++q) s = s + Cs[q * (kTM * kTN) + threadIdx.x];
+    const int io = i0 + (threadIdx.x >> 5);
+    if (io < M) epi(io, j0 + (threadIdx.x & 31), s);
+    __syncthreads();  // the next tile restages As, Bs and Cs
   }
 }
 
-// Total of one slot of the per-CTA partials, called by all 32 lanes of a
-// one-warp launch: lane l sums CTAs l, l + 32, ... in order, then a warp
-// butterfly (a fixed order; every lane returns the same bits).
-__device__ __forceinline__ float total(const float* __restrict__ part, int slot) {
-  float s = 0.0f;
-  for (int b = threadIdx.x; b < kRedBlocks; b += 32) s = s + part[2 * b + slot];
-  return vt::warp_reduce(s, vt::SumOp());
-}
+__global__ void __launch_bounds__(kThreads, 1) unwrap_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::grid_group grid = cg::this_grid();
+  const int Hp = a.Hp, Wp = a.Wp, n = Hp * Wp;
+  float* wx = a.work;
+  float* wy = wx + n;
+  float* phi = wy + n;
+  float* rb[2] = {phi + n, phi + 2 * n};
+  float* pb[2] = {phi + 3 * n, phi + 4 * n};
+  float* z = phi + 5 * n;
+  float* Ap = z + n;
+  float* t1 = Ap + n;
+  float* t2 = t1 + n;
+  float* partD = t2 + n;              // (r' z, r' r'), 2 a CTA
+  float* partE = partD + 2 * kMaxGrid;  // (p' Ap)
+  float* partG1 = partE + kMaxGrid;   // (m, (psi - phi) m)
+  float* partG2 = partG1 + 2 * kMaxGrid;  // ((psi - phi - s1) m)
+  const int tid = blockIdx.x * kThreads + threadIdx.x;
+  const int nthr = gridDim.x * kThreads;
+  const Padded in{a.wrapped, a.mask, a.h, a.w};
 
-// z = precond(r); p = z; partials of (r z, r r)
-__global__ void __launch_bounds__(kThreads)
-init_partials_kernel(const float* __restrict__ r, const float* __restrict__ z,
-                     float* __restrict__ p, float* __restrict__ part, int n) {
-  partial_pair(
-      [&](int idx, float* v) {
-        p[idx] = z[idx];
-        v[0] = v[0] + r[idx] * z[idx];
-        v[1] = v[1] + r[idx] * r[idx];
-      },
-      n, part);
-}
-
-__global__ void init_scalars_kernel(const float* __restrict__ part, float tol2,
-                                    float* __restrict__ sc) {
-  const float rz = total(part, 0);
-  const float r0n = total(part, 1);
-  if (threadIdx.x != 0) return;
-  sc[kRz] = rz;
-  sc[kTol2R0] = tol2 * r0n;
-  sc[kLive] = 1.0f;
-}
-
-// Ap = wlap(p); partials of (r r, p Ap)
-__global__ void __launch_bounds__(kThreads)
-wlap_partials_kernel(const float* __restrict__ p, const float* __restrict__ wx,
-                     const float* __restrict__ wy, const float* __restrict__ r,
-                     float* __restrict__ Ap, float* __restrict__ part, int Hp, int Wp) {
-  auto fx = [&](int a, int b) {
-    return wx[a * Wp + b] * (at_or0(p, Hp, Wp, a, b + 1) - p[a * Wp + b]);
-  };
-  auto fy = [&](int a, int b) {
-    return wy[a * Wp + b] * (at_or0(p, Hp, Wp, a + 1, b) - p[a * Wp + b]);
-  };
-  partial_pair(
-      [&](int idx, float* v) {
-        const int i = idx / Wp, j = idx - i * Wp;
-        const float ap = div2(fx, fy, i, j);
-        Ap[idx] = ap;
-        v[0] = v[0] + r[idx] * r[idx];
-        v[1] = v[1] + p[idx] * ap;
-      },
-      Hp * Wp, part);
-}
-
-// live = rr > tol^2 r0r0 (the loop entry condition); alpha = rz / pAp
-__global__ void alpha_kernel(const float* __restrict__ part, float* __restrict__ sc) {
-  const float rr = total(part, 0);
-  const float pAp = total(part, 1);
-  if (threadIdx.x != 0) return;
-  sc[kLive] = rr > sc[kTol2R0] ? 1.0f : 0.0f;
-  sc[kAlpha] = sc[kRz] / (fabsf(pAp) < 1e-30f ? 1e-30f : pAp);
-}
-
-// while live: phi += alpha p; r -= alpha Ap
-__global__ void __launch_bounds__(kThreads)
-update_kernel(float* __restrict__ phi, float* __restrict__ r, const float* __restrict__ p,
-              const float* __restrict__ Ap, const float* __restrict__ sc, int n) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n || !(sc[kLive] > 0.5f)) return;
-  const float alpha = sc[kAlpha];
-  phi[idx] = phi[idx] + alpha * p[idx];
-  r[idx] = r[idx] - alpha * Ap[idx];
-}
-
-// partials of (r z, 0)
-__global__ void __launch_bounds__(kThreads)
-rz_partials_kernel(const float* __restrict__ r, const float* __restrict__ z,
-                   const float* __restrict__ sc, float* __restrict__ part, int n) {
-  if (!(sc[kLive] > 0.5f)) return;
-  partial_pair([&](int idx, float* v) { v[0] = v[0] + r[idx] * z[idx]; }, n, part);
-}
-
-// beta = rz_new / rz; rz = rz_new (while live)
-__global__ void beta_kernel(const float* __restrict__ part, float* __restrict__ sc) {
-  if (!(sc[kLive] > 0.5f)) return;  // uniform over the warp
-  const float rz2 = total(part, 0);
-  if (threadIdx.x != 0) return;
-  const float rz = sc[kRz];
-  sc[kBeta] = rz2 / (fabsf(rz) < 1e-30f ? 1e-30f : rz);
-  sc[kRz] = rz2;
-}
-
-// while live: p = z + beta p
-__global__ void __launch_bounds__(kThreads)
-direction_kernel(float* __restrict__ p, const float* __restrict__ z,
-                 const float* __restrict__ sc, int n) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n || !(sc[kLive] > 0.5f)) return;
-  p[idx] = z[idx] + sc[kBeta] * p[idx];
-}
-
-// gauge, pass 1: partials of (m, (psi - phi) m)
-__global__ void __launch_bounds__(kThreads)
-gauge1_partials_kernel(const float* __restrict__ psi, const float* __restrict__ phi,
-                       const float* __restrict__ m, float* __restrict__ part, int n) {
-  partial_pair(
-      [&](int idx, float* v) {
-        v[0] = v[0] + m[idx];
-        v[1] = v[1] + (psi[idx] - phi[idx]) * m[idx];
-      },
-      n, part);
-}
-
-__global__ void gauge1_kernel(const float* __restrict__ part, float* __restrict__ sc) {
-  const float n = vt::jmax(total(part, 0), 1.0f);
-  const float dm = total(part, 1);
-  if (threadIdx.x != 0) return;
-  sc[kN] = n;
-  sc[kS1] = dm / n;
-}
-
-// gauge, pass 2: partials of ((psi - phi - s1) m, 0)
-__global__ void __launch_bounds__(kThreads)
-gauge2_partials_kernel(const float* __restrict__ psi, const float* __restrict__ phi,
-                       const float* __restrict__ m, const float* __restrict__ sc,
-                       float* __restrict__ part, int n) {
-  const float s1 = sc[kS1];
-  partial_pair(
-      [&](int idx, float* v) { v[0] = v[0] + ((psi[idx] - phi[idx]) - s1) * m[idx]; }, n,
-      part);
-}
-
-__global__ void gauge2_kernel(const float* __restrict__ part, float* __restrict__ sc) {
-  const float s = total(part, 0);
-  if (threadIdx.x != 0) return;
-  sc[kS2] = s / sc[kN];
-}
-
-// phi = (phi + s1) + s2, congruence, crop to (h, w), NaN off the mask
-__global__ void __launch_bounds__(kThreads)
-finish_kernel(const float* __restrict__ psi, const float* __restrict__ phi,
-              const uint8_t* __restrict__ mask, const float* __restrict__ sc,
-              float* __restrict__ out, int h, int w, int Wp) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= h * w) return;
-  const int i = idx / w, j = idx - i * w;
-  const int o = i * Wp + j;
-  const float g = (phi[o] + sc[kS1]) + sc[kS2];
-  const float k = rintf((g - psi[o]) * kInvTwoPi);
-  out[idx] = mask[idx] ? psi[o] + kTwoPi * k : __int_as_float(0x7fc00000);
-}
-
-struct Solve {
-  const float *Dh, *DhT, *Dw, *DwT, *inv_denom;
-  float *t1, *t2;
-  int Hp, Wp;
-  cudaStream_t st;
-
-  // z = Dh^T ((Dh r Dw^T) * inv_denom) Dw
-  cudaError_t precond(const float* r, float* z, const float* live) const {
-    const dim3 blk(kThreads);
-    const dim3 g_hw((Wp + kTile - 1) / kTile, (Hp + kTile - 1) / kTile);
-    matmul_kernel<<<g_hw, blk, 0, st>>>(Dh, r, nullptr, t1, Hp, Wp, Hp, live);
-    matmul_kernel<<<g_hw, blk, 0, st>>>(t1, DwT, inv_denom, t2, Hp, Wp, Wp, live);
-    matmul_kernel<<<g_hw, blk, 0, st>>>(DhT, t2, nullptr, t1, Hp, Wp, Hp, live);
-    matmul_kernel<<<g_hw, blk, 0, st>>>(t1, Dw, nullptr, z, Hp, Wp, Wp, live);
-    return cudaGetLastError();
+  // wx = m * m[., j+1], wy = m * m[i+1, .]; r = div2(wrap(dpsi) * w); phi = 0
+  for (int idx = tid; idx < n; idx += nthr) {
+    const int i = idx / Wp, j = idx - i * Wp;
+    auto wxa = [&](int u, int v) { return in.m(u, v) * in.m(u, v + 1); };
+    auto wya = [&](int u, int v) { return in.m(u, v) * in.m(u + 1, v); };
+    auto dx = [&](int u, int v) { return wrap(in.psi(u, v + 1) - in.psi(u, v)) * wxa(u, v); };
+    auto dy = [&](int u, int v) { return wrap(in.psi(u + 1, v) - in.psi(u, v)) * wya(u, v); };
+    wx[idx] = wxa(i, j);
+    wy[idx] = wya(i, j);
+    rb[0][idx] = div2(dx, dy, i, j);
+    phi[idx] = 0.0f;
   }
-};
+  grid.sync();
+
+  // phases b-d of a preconditioner application z = precond(r') once t1 =
+  // Dh r' is in place; the (r' z, r' r') partials
+  auto precond_tail = [&](const float* rn) {
+    product(Hp, Wp, Wp, [&](int i, int k) { return t1[i * Wp + k]; },
+            [&](int k, int j) { return __ldg(a.DwT + k * Wp + j); },
+            [&](int i, int j, float s) { t2[i * Wp + j] = s * __ldg(a.inv + i * Wp + j); },
+            smem);
+    grid.sync();
+    product(Hp, Wp, Hp, [&](int i, int k) { return __ldg(a.DhT + i * Hp + k); },
+            [&](int k, int j) { return t2[k * Wp + j]; },
+            [&](int i, int j, float s) { t1[i * Wp + j] = s; }, smem);
+    grid.sync();
+    float v[2] = {0.0f, 0.0f};
+    product(Hp, Wp, Wp, [&](int i, int k) { return t1[i * Wp + k]; },
+            [&](int k, int j) { return __ldg(a.Dw + k * Wp + j); },
+            [&](int i, int j, float s) {
+              const int o = i * Wp + j;
+              z[o] = s;
+              v[0] = v[0] + rn[o] * s;
+              v[1] = v[1] + rn[o] * rn[o];
+            },
+            smem);
+    publish(v, partD);
+    grid.sync();
+  };
+
+  // phase e: p' = z (first) or z + beta p; Ap = wlap(p'); the (p' Ap) partials
+  auto direction = [&](const float* pc, float* pn, float beta, bool first) {
+    auto pv = [&](int u, int v) {
+      if (u >= Hp || v >= Wp) return 0.0f;
+      const int o = u * Wp + v;
+      return first ? z[o] : z[o] + beta * pc[o];
+    };
+    auto fx = [&](int u, int v) { return wx[u * Wp + v] * (pv(u, v + 1) - pv(u, v)); };
+    auto fy = [&](int u, int v) { return wy[u * Wp + v] * (pv(u + 1, v) - pv(u, v)); };
+    float e[1] = {0.0f};
+    for (int idx = tid; idx < n; idx += nthr) {
+      const int i = idx / Wp, j = idx - i * Wp;
+      const float ap = div2(fx, fy, i, j);
+      const float p = pv(i, j);
+      pn[idx] = p;
+      Ap[idx] = ap;
+      e[0] = e[0] + p * ap;
+    }
+    publish(e, partE);
+    grid.sync();
+  };
+
+  float rz = 0.0f, rr = 0.0f, tol2r0 = 0.0f;
+  int rc = 0, pc = 0;
+  if (a.cg_iters > 0) {  // z = precond(r0); p = z; rz; tol^2 r0 r0
+    product(Hp, Wp, Hp, [&](int i, int k) { return __ldg(a.Dh + i * Hp + k); },
+            [&](int k, int j) { return rb[0][k * Wp + j]; },
+            [&](int i, int j, float s) { t1[i * Wp + j] = s; }, smem);
+    grid.sync();
+    precond_tail(rb[0]);
+    float t[2];
+    grid_total(partD, t);
+    rz = t[0];
+    rr = t[1];
+    tol2r0 = a.tol2 * rr;
+    direction(pb[0], pb[1], 0.0f, true);
+    pc = 1;
+  }
+  for (int it = 0; it < a.cg_iters; ++it) {
+    if (!(rr > tol2r0)) break;  // not live: no later step changes anything
+    float pap[1];
+    grid_total(partE, pap);
+    const float alpha = rz / guard(pap[0]);
+    const float* r = rb[rc];
+    float* rn = rb[rc ^ 1];
+    const float* p = pb[pc];
+    // phase a: t1 = Dh (r - alpha Ap); the tile's owner stores r' and phi
+    product(Hp, Wp, Hp, [&](int i, int k) { return __ldg(a.Dh + i * Hp + k); },
+            [&](int k, int j) {
+              const int o = k * Wp + j;
+              return r[o] - alpha * Ap[o];
+            },
+            [&](int i, int j, float s) {
+              const int o = i * Wp + j;
+              t1[o] = s;
+              rn[o] = r[o] - alpha * Ap[o];
+              phi[o] = phi[o] + alpha * p[o];
+            },
+            smem);
+    grid.sync();
+    precond_tail(rn);
+    float t[2];
+    grid_total(partD, t);
+    const float beta = t[0] / guard(rz);
+    rz = t[0];
+    rr = t[1];
+    direction(p, pb[pc ^ 1], beta, false);
+    rc ^= 1;
+    pc ^= 1;
+  }
+
+  // gauge: phi + s1 + s2 on the masked mean, in two passes
+  float g[2] = {0.0f, 0.0f};
+  for (int idx = tid; idx < n; idx += nthr) {
+    const int i = idx / Wp, j = idx - i * Wp;
+    g[0] = g[0] + in.m(i, j);
+    g[1] = g[1] + (in.psi(i, j) - phi[idx]) * in.m(i, j);
+  }
+  publish(g, partG1);
+  grid.sync();
+  grid_total(partG1, g);
+  const float nm = vt::jmax(g[0], 1.0f);
+  const float s1 = g[1] / nm;
+  float g2[1] = {0.0f};
+  for (int idx = tid; idx < n; idx += nthr) {
+    const int i = idx / Wp, j = idx - i * Wp;
+    g2[0] = g2[0] + ((in.psi(i, j) - phi[idx]) - s1) * in.m(i, j);
+  }
+  publish(g2, partG2);
+  grid.sync();
+  grid_total(partG2, g2);
+  const float s2 = g2[0] / nm;
+
+  // congruence, crop to (h, w), NaN off the mask
+  for (int idx = tid; idx < a.h * a.w; idx += nthr) {
+    const int i = idx / a.w, j = idx - i * a.w;
+    const float psi = in.psi(i, j);
+    const float gp = (phi[i * Wp + j] + s1) + s2;
+    const float k = rintf((gp - psi) * kInvTwoPi);
+    a.out[idx] = a.mask[idx] ? psi + kTwoPi * k : __int_as_float(0x7fc00000);
+  }
+}
 
 }  // namespace
 
 // Float elements of the scratch `work` for a padded (Hp, Wp) solve.
 extern "C" int vt_unwrap_work_elems(int Hp, int Wp) {
-  return 9 * Hp * Wp + 2 * kRedBlocks + kSlots;
+  return kPlanes * Hp * Wp + 6 * kMaxGrid;
 }
 
-// psi, m: (Hp, Wp) masked wrapped phase and 0/1 mask, zero-padded; Dh, DhT:
+// wrapped: (h, w) wrapped phase; mask: (h, w) bool; the solve runs on the
+// zero-padded (Hp, Wp) domain, Hp a multiple of 8 and Wp of 128; Dh, DhT:
 // (Hp, Hp) and Dw, DwT: (Wp, Wp) orthonormal DCT-II matrices and their
-// transposes; inv_denom: (Hp, Wp); mask: (h, w) bool; out: (h, w);
-// work: vt_unwrap_work_elems(Hp, Wp) floats; tol2 = tol * tol.
-extern "C" int vt_unwrap_wls(const float* psi, const float* m, const float* Dh,
+// transposes; inv_denom: (Hp, Wp); out: (h, w); work:
+// vt_unwrap_work_elems(Hp, Wp) floats; tol2 = tol * tol.  One cooperative
+// launch on `stream`.
+extern "C" int vt_unwrap_wls(const float* wrapped, const float* Dh,
                              const float* DhT, const float* Dw, const float* DwT,
                              const float* inv_denom, const uint8_t* mask, float* out,
                              float* work, int h, int w, int Hp, int Wp, int cg_iters,
                              float tol2, void* stream) {
-  if (h < 1 || w < 1 || Hp < h || Wp < w || cg_iters < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int n = Hp * Wp;
-  float* wx = work;
-  float* wy = wx + n;
-  float* phi = wy + n;
-  float* r = phi + n;
-  float* p = r + n;
-  float* z = p + n;
-  float* Ap = z + n;
-  float* t1 = Ap + n;
-  float* t2 = t1 + n;
-  float* part = t2 + n;
-  float* sc = part + 2 * kRedBlocks;
-  const int g_n = (n + kThreads - 1) / kThreads;
-  const Solve solve{Dh, DhT, Dw, DwT, inv_denom, t1, t2, Hp, Wp, st};
-  cudaError_t err;
-#define VT_CHECK()                                \
-  do {                                            \
-    err = cudaGetLastError();                     \
-    if (err != cudaSuccess) return (int)err;      \
-  } while (0)
-
-  setup_kernel<<<g_n, kThreads, 0, st>>>(psi, m, wx, wy, phi, r, Hp, Wp);
-  VT_CHECK();
-  if ((err = solve.precond(r, z, nullptr)) != cudaSuccess) return (int)err;
-  init_partials_kernel<<<kRedBlocks, kThreads, 0, st>>>(r, z, p, part, n);
-  init_scalars_kernel<<<1, 32, 0, st>>>(part, tol2, sc);
-  VT_CHECK();
-  const float* live = sc + kLive;
-  for (int it = 0; it < cg_iters; ++it) {
-    wlap_partials_kernel<<<kRedBlocks, kThreads, 0, st>>>(p, wx, wy, r, Ap, part, Hp, Wp);
-    alpha_kernel<<<1, 32, 0, st>>>(part, sc);
-    update_kernel<<<g_n, kThreads, 0, st>>>(phi, r, p, Ap, sc, n);
-    VT_CHECK();
-    if ((err = solve.precond(r, z, live)) != cudaSuccess) return (int)err;
-    rz_partials_kernel<<<kRedBlocks, kThreads, 0, st>>>(r, z, sc, part, n);
-    beta_kernel<<<1, 32, 0, st>>>(part, sc);
-    direction_kernel<<<g_n, kThreads, 0, st>>>(p, z, sc, n);
-    VT_CHECK();
-  }
-  gauge1_partials_kernel<<<kRedBlocks, kThreads, 0, st>>>(psi, phi, m, part, n);
-  gauge1_kernel<<<1, 32, 0, st>>>(part, sc);
-  gauge2_partials_kernel<<<kRedBlocks, kThreads, 0, st>>>(psi, phi, m, sc, part, n);
-  gauge2_kernel<<<1, 32, 0, st>>>(part, sc);
-  finish_kernel<<<(h * w + kThreads - 1) / kThreads, kThreads, 0, st>>>(psi, phi, mask, sc,
-                                                                      out, h, w, Wp);
-  VT_CHECK();
-#undef VT_CHECK
-  return 0;
+  if (h < 1 || w < 1 || Hp < h || Wp < w || Hp % 8 != 0 || Wp % 128 != 0 || cg_iters < 0)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int kmax = Hp > Wp ? Hp : Wp;
+  const int bytes = (kmax * (kApad + kTN) + kGroups * kTM * kTN) * (int)sizeof(float);
+  err = cudaFuncSetAttribute(unwrap_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, unwrap_kernel, kThreads, bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1 || sms > kMaxGrid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  Args args{wrapped, Dh, DhT, Dw, DwT, inv_denom, mask, out, work, h, w, Hp, Wp, cg_iters, tol2};
+  void* params[] = {&args};
+  err = cudaLaunchCooperativeKernel((const void*)unwrap_kernel, dim3(sms), dim3(kThreads),
+                                    params, (size_t)bytes, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

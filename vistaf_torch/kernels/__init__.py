@@ -104,13 +104,13 @@ _SIGNATURES = {
     "vt_gn_moments_blocks": (_I, _I),
     # S, T, SM, coeffs, mid, partials, out, h, w, K, stream
     "vt_gn_moments_euclidean": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # S, T, SM, mid, out, h, w, K, max_iters, eps, stall_patience, stream
-    "vt_ecc_loop_euclidean": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # S, T, SM, out, h, w, K, max_iters, eps, stall_patience, stream
+    "vt_ecc_loop_euclidean": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     # Hp, Wp -> float elements of the scratch
     "vt_unwrap_work_elems": (_I, _I),
-    # psi, m, Dh, DhT, Dw, DwT, inv_denom, mask, out, work, h, w, Hp, Wp,
+    # wrapped, Dh, DhT, Dw, DwT, inv_denom, mask, out, work, h, w, Hp, Wp,
     # cg_iters, tol2, stream
-    "vt_unwrap_wls": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "vt_unwrap_wls": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # z, mask, out, h, w, ncoef, iters, resigma_iters, c, levels, stream
     "vt_robust_polyfit2d": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     # bgr, roi_eff, csup_pre, wide_out, color_out, csup_out, n, params (host

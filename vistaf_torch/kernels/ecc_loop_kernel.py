@@ -14,11 +14,17 @@ whole-solver budget; above it, or with a seed, ``ops/registration.py``
 runs the per-iteration loop with K4.  The warp and moment rows are K4's
 (``ecc_kernel.moment_rows``, ``csrc/ecc_common.cuh``).
 
-On the H100 the solve runs on one CTA: each iteration is ~2 M hat taps and
-four barriers, and the iterations are sequential, so the kernel is bound by
-one SM's arithmetic and by barrier latency.  A later PR could split the
-plane over a thread-block cluster (the moment sums across its CTAs through
-distributed shared memory), keeping the loop on the device.
+On the H100 the solve is one launch of one 16-CTA thread-block cluster.
+Each CTA owns a band of rows: it samples the vertical shear pass of its
+band (reading K halo rows of the four planes from L1/L2) into its shared
+memory, runs the horizontal pass and the moment rows from there, and the
+21 sums meet in one exchange an iteration through distributed shared
+memory, combined in rank order; every thread then takes the same
+Gauss-Newton step on the same bits.  What bounds it is the chain of
+sequential plane-wide sums and their latency (barriers, L1/L2 loads), not
+bytes or arithmetic: the whole solve's bound is about a microsecond.  A
+shape above ``fits`` raises ``ValueError`` before any launch; a cluster the
+card cannot schedule raises its CUDA error.
 """
 from __future__ import annotations
 
@@ -146,10 +152,11 @@ def ecc_loop_euclidean(S_cf: torch.Tensor, T: torch.Tensor,
         raise ValueError(f"ecc_loop_euclidean: shapes {tuple(S.shape)}, "
                          f"{tuple(t.shape)}, {tuple(sm.shape)}")
     h, w = t.shape
-    mid = torch.empty_like(S)
+    if not fits((h, w)):
+        raise ValueError(f"ecc_loop_euclidean: {h}x{w} is above the whole-solve "
+                         f"budget (ecc_loop_kernel.fits)")
     out = torch.empty(6, dtype=torch.float32, device=S.device)
     kernels.launch("vt_ecc_loop_euclidean", "ecc_loop_euclidean", S.device,
-                   S.data_ptr(), t.data_ptr(), sm.data_ptr(), mid.data_ptr(),
-                   out.data_ptr(), h, w, int(K), int(max_iters), float(eps),
-                   int(stall_patience))
+                   S.data_ptr(), t.data_ptr(), sm.data_ptr(), out.data_ptr(), h, w,
+                   int(K), int(max_iters), float(eps), int(stall_patience))
     return out[:3], out[3], out[4].to(torch.int32), out[5] > 0.5

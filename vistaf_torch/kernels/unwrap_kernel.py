@@ -17,12 +17,17 @@ above it ``unwrap_method='wls_pallas'`` takes the plain PCG of
 ``ops/unwrap.py``.
 
 On the H100 the solve is ~2.1 GFLOP of dense DCT products at 240 x 256
-(four per preconditioner application, 17 applications), too much for one
-SM.  The kernel is a sequence of multi-CTA launches enqueued by one C call:
-tiled FP32 FMA matrix products, stencil and update passes, and per-CTA
-partial sums reduced in a fixed order by one warp that also forms alpha,
-beta and ``live`` on the device.  No host sync inside the solve, no
-atomics, no library matrix product.
+(four per preconditioner application, 17 applications) on a state that
+stays in L2; each product is small, so what bounds it is the chain of
+dependent phases, not bytes or arithmetic.  The kernel is one persistent
+cooperative launch, one 512-thread CTA per SM: five grid-barrier phases a
+PCG step, each product tiled 16 x 32 over the output with 2 x 4 FP32 FMA
+register tiles and a fixed-order split-K, the elementwise work fused into
+the products' operands and epilogues, and every CTA forming alpha, beta and
+``live`` from the per-CTA partials summed in index order.  No host sync,
+no atomics in any sum, no library matrix product.  A shape above ``fits``
+raises ``ValueError`` before any launch; a grid the card cannot hold
+resident raises its CUDA error.
 """
 from __future__ import annotations
 
@@ -159,16 +164,20 @@ def unwrap_wls(wrapped: torch.Tensor, mask: torch.Tensor, consts: DeviceConsts,
     if kernels.route(wrapped) == "cpu":
         return unwrap_wls_plain(wrapped, mask, consts, cg_iters, tol)
     h, w = wrapped.shape
+    if not fits((h, w)):
+        raise ValueError(f"unwrap_wls: {h}x{w} is above the kernel's budget "
+                         f"(unwrap_kernel.fits)")
     msk = mask.to(torch.bool).contiguous()
-    psi, m = _padded_inputs(wrapped, msk)
-    kernels.check_cuda("unwrap_wls", psi, m, msk)
-    Hp, Wp = psi.shape
+    wr = wrapped.to(torch.float32).contiguous()
+    if msk.shape != wr.shape:
+        raise ValueError(f"unwrap_wls: mask {tuple(msk.shape)} for phase {(h, w)}")
+    Hp, Wp = padded_shape((h, w))
     mats = _matrices(Hp, Wp, consts)
-    out = torch.empty((h, w), dtype=torch.float32, device=psi.device)
+    kernels.check_cuda("unwrap_wls", wr, msk, *mats)
+    out = torch.empty((h, w), dtype=torch.float32, device=wr.device)
     work = torch.empty(int(kernels.library().vt_unwrap_work_elems(Hp, Wp)),
-                       dtype=torch.float32, device=psi.device)
-    kernels.launch("vt_unwrap_wls", "unwrap_wls", psi.device,
-                   psi.data_ptr(), m.data_ptr(), *(a.data_ptr() for a in mats),
-                   msk.data_ptr(), out.data_ptr(), work.data_ptr(), h, w, Hp, Wp,
-                   int(cg_iters), float(tol * tol))
+                       dtype=torch.float32, device=wr.device)
+    kernels.launch("vt_unwrap_wls", "unwrap_wls", wr.device, wr.data_ptr(),
+                   *(a.data_ptr() for a in mats), msk.data_ptr(), out.data_ptr(),
+                   work.data_ptr(), h, w, Hp, Wp, int(cg_iters), float(tol * tol))
     return out
