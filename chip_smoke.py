@@ -7,17 +7,19 @@ Phases, one line each, any failure raises and exits non-zero:
   2. build: compiles the Hopper kernels from vistaf_torch/csrc;
   3. kernels: each of the eight kernels against its plain PyTorch version on
      the card at the shapes its paths give it (236x236 planes for K1, K3,
-     K5, K6, K7; the 295x295 coarse ECC grid for K4; the 1182x1182 crop of
-     the native-4K force path for K1, K2 and K3; the 2160x3840 gray plane
-     for K1, and the 1608x1664 compute crop for K3 and K8, of the native-4K
+     K5, K6, K7; the 295x295 coarse ECC grid for K4, its whole loop unseeded
+     under the native-4K preset's iterations, eps and stall patience, the
+     loop seeded, and one iteration's matrix; the 1182x1182 crop of the
+     native-4K force path for K1, K2 and K3; the 2160x3840 gray plane for
+     K1, and the 1608x1664 compute crop for K3 and K8, of the native-4K
      temperature path) and K7, K5 and K6 also at the largest plane their
      budgets admit (584x512, 352x256, 448x384), with CUDA-event median
-     times of both, the
-     kernel's device time under torch.profiler (its own kernels, without
-     the host's enqueue), the bound
-     (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, whichever
-     is longer) and, where one PyTorch call computes the same function
-     (K1: torch.nanquantile), that call's time;
+     times of both, the kernel's device time under torch.profiler (its own
+     kernels, without the host's enqueue), the bound (bytes over 3.35 TB/s
+     or float32 operations over 67 TFLOP/s, whichever is longer) and, where
+     one PyTorch call computes the same function (K1: torch.nanquantile),
+     that call's time; K8 also with models of no term and no calibrator
+     (LAB, gray and chroma only);
   4. end to end at 640x480: ForcePipeline under the deploy preset as
      shipped, K1, K3, K5, K6 and K7 must launch, force within 1% of the
      same port run on the CPU;
@@ -196,7 +198,9 @@ def kernel_cases(device):
     gray4 = np.round(rng.uniform(60, 200, size=(2, h4, w4))).astype(np.float32)
     k3_4k_args = (t(gray4), t(rng.random((2, h4, w4)) > 0.995), cfg4.inpaint_iters)
 
-    # K4: one GN iteration on the 295x295 coarse grid of the 4K preset, K = 4
+    # K4 on the 295x295 coarse grid of the 4K preset, K = 4: the whole loop
+    # unseeded under the preset's iterations, eps and stall patience, the
+    # loop seeded near the warp, and one GN iteration's matrix
     n_c = 295
     base_c = gaussian_blur(t(rng.random((n_c, n_c)).astype(np.float32)), 2.0, consts)
     moved_c = warp_affine_inverse_shear(base_c, M, K=4)
@@ -207,6 +211,10 @@ def kernel_cases(device):
     sm_c[::2, ::2] = 1.0
     co = ecc_kernel.shear_coeffs(t(np.array([0.002, 0.3, -0.2], np.float32)))
     k4_args = (S_c, T_c, sm_c, co, 4)
+    loop4 = (cfg4.ecc_iters, cfg4.ecc_eps, cfg4.ecc_stall_patience)
+    k4_loop_args = (S_c, T_c, sm_c, torch.zeros(3, dtype=torch.float32, device=device), 4,
+                    *loop4)
+    k4_seeded_args = (S_c, T_c, sm_c, t(np.array([0.002, 0.5, -0.3], np.float32)), 4, *loop4)
 
     # K6: wrapped phase of a smooth field with a ramp, over the crop's disk
     field = gaussian_blur(t(rng.standard_normal((h, w)).astype(np.float32)), 12.0,
@@ -231,6 +239,12 @@ def kernel_cases(device):
         d = (pa - pb).abs()
         assert float(d[0]) < 5e-5 and float(d[1:].max()) < 5e-3, (pa, pb)
         return float(d.max())
+
+    def k4_loop_check(a, b):
+        say("kernel_check", name="gn_loop_euclidean", iters=int(a[2]), iters_plain=int(b[2]),
+            p=a[0].tolist(), p_plain=b[0].tolist())
+        assert 1 <= int(a[2]), a
+        return k5_check(a, b)
 
     def k7_check(a, b):
         err = float((a - b).abs().max())
@@ -340,6 +354,8 @@ def kernel_cases(device):
     k5 = ("ecc_loop_euclidean", "vistaf_torch/csrc/ecc_loop.cu",
           "vistaf_tpu/pallas/ecc_loop_kernel.py:161",
           ecc_loop_kernel.ecc_loop_euclidean, ecc_loop_kernel.ecc_loop_euclidean_plain)
+    k4 = ("gn_moments_euclidean", "vistaf_torch/csrc/ecc_gn_loop.cu",
+          "vistaf_tpu/pallas/ecc_kernel.py:118")
     k6 = ("unwrap_wls", "vistaf_torch/csrc/unwrap.cu",
           "vistaf_tpu/pallas/unwrap_kernel.py:148",
           unwrap_kernel.unwrap_wls, unwrap_kernel.unwrap_wls_plain)
@@ -362,9 +378,11 @@ def kernel_cases(device):
          "vistaf_tpu/pallas/quantile_kernel.py:133",
          quantile_kernel.masked_median_mad, quantile_kernel.masked_median_mad_plain,
          k2_args, k2_check),
-        ("gn_moments_euclidean", "vistaf_torch/csrc/ecc_moments.cu",
-         "vistaf_tpu/pallas/ecc_kernel.py:118",
-         ecc_kernel.gn_moments_euclidean, ecc_kernel.gn_moments_euclidean_plain,
+        (*k4, ecc_kernel.gn_loop_euclidean, ecc_kernel.gn_loop_euclidean_plain, k4_loop_args,
+         k4_loop_check),
+        (*k4, ecc_kernel.gn_loop_euclidean, ecc_kernel.gn_loop_euclidean_plain, k4_seeded_args,
+         k4_loop_check),
+        (*k4, ecc_kernel.gn_moments_euclidean, ecc_kernel.gn_moments_euclidean_plain,
          k4_args, k4_check),
         (*k6, k6_args, k6_check),
         (*k5, k5_big_args, k5_check),
@@ -399,6 +417,8 @@ def work(name: str, args, out):
     hw = args[1].numel()
     taps = 2 * int(args[3] if name == "ecc_loop_euclidean" else args[4]) + 1
     per_iter = hw * (2 * taps * (4 + 4 * 2) + 60)   # two hat passes, moment rows
+    if name == "gn_moments_euclidean" and isinstance(out, tuple):   # K4's loop
+        return 4 * (6 * hw + 3 + 6), per_iter * max(1, int(out[2]))
     if name == "gn_moments_euclidean":
         return 4 * (6 * hw + 8 + 36), per_iter
     if name == "ecc_loop_euclidean":
@@ -414,6 +434,18 @@ def work(name: str, args, out):
         return 5 * n + 4 * ncoef, n * (int(args[3]) * (54 + 2 * ncoef + 6)
                                        + int(args[5]) * (4 * levels + 2))
     raise KeyError(name)
+
+
+def k8_lab_only():
+    """K8 with the deploy models stripped of every term and calibrator: the
+    kernel then runs LAB, gray and chroma only, so its time is theirs."""
+    import dataclasses
+    from vistaf_torch.config import TempConfig
+    from vistaf_torch.kernels.temp_kernel import make_fused_temperature_fn
+    from vistaf_torch.utils.synthetic import synthetic_deploy_temp_weights
+    bare = [dataclasses.replace(m, coef=np.zeros_like(m.coef), iso_x=None, iso_y=None)
+            for m in synthetic_deploy_temp_weights(SEED)]
+    return make_fused_temperature_fn(TempConfig().deploy().color_chroma_min, *bare)
 
 
 def library_call(name: str, args):
@@ -458,6 +490,12 @@ def phase_kernels(device):
                "plain_ms": plain_ms,
                "bound_ms": bms, "bound_by": by, "bytes": nbytes, "ops": ops,
                "library_ms": lib_ms}
+        if name == "fused_temperature":
+            lab = k8_lab_only()
+            one["lab_only_ms"] = cuda_ms(lambda: lab(*args))
+            one["lab_only_device_ms"] = device_ms(lambda: lab(*args))
+        if name == "gn_moments_euclidean" and isinstance(got, tuple):   # K4's loop
+            one["iters"] = int(got[2])
         say("kernel", name=name, **one)
         row = rows.setdefault(name, {"name": name, "route": "cuda", "source": source,
                                      "replaces": replaces, "launches": 0,
@@ -465,6 +503,8 @@ def phase_kernels(device):
                                      "bound_ms": bms, "bound_by": by,
                                      "library_ms": lib_ms, "shapes": []})
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        if "lab_only_ms" in one and "lab_only_ms" not in row:
+            row["lab_only_ms"] = one["lab_only_ms"]
         row["shapes"].append(one)
     return list(rows.values())
 
@@ -628,11 +668,20 @@ def phase_profile(path, fn, frames: int):
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / frames
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel")
+    # cooperative and cluster launches (K4, K5, K6) are counted apart
+    special = sum(e.count for e in averages
+                  if e.key in ("cudaLaunchCooperativeKernel", "cudaLaunchKernelExC"))
+    # the hand-written kernels (csrc/*.cu keeps each in an anonymous namespace)
+    ours = [[e.key.split("(")[1].split("::")[-1] if e.key.startswith("(anon") else e.key[:60],
+             e.self_device_time_total / 1e3 / frames, e.count / frames]
+            for e in events if e.key.startswith("(anonymous namespace)")]
     say("profile", path=path, frames=frames, wall_ms_per_frame=wall_ms,
         device_busy_ms_per_frame=busy_ms, device_busy_share=busy_ms / wall_ms,
         cuda_launches_per_frame=launches / frames,
+        cooperative_or_cluster_launches_per_frame=special / frames,
         top=[[e.key[:60], e.self_device_time_total / 1e3 / frames, e.count / frames]
-             for e in top])
+             for e in top],
+        hand_written=ours)
 
 
 def main() -> int:

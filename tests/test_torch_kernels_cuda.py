@@ -419,6 +419,71 @@ def test_k4_matches_plain_on_card(dev):
     assert torch.equal(got, k4.gn_moments_euclidean(S, T, sm, co, K=4))   # fixed order
 
 
+# (shape, seed) of K4's loop: the native-4K coarse grid unseeded and seeded
+# near the warp, and a wide plane at the edge of ecc_kernel.fits (97 x 1920
+# pads to 199,680 of 200,000 elements: tiles split its columns)
+K4_LOOP_CASES = {
+    "coarse_295": ((295, 295), None),
+    "coarse_295_seeded": ((295, 295), (0.0015, -0.5, 0.4)),
+    "wide_97x1920": ((97, 1920), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K4_LOOP_CASES))
+def test_k4_loop_matches_plain_on_card(dev, case):
+    shape, seed = K4_LOOP_CASES[case]
+    assert k4.fits(shape)
+    S, T, sm = _k5_inputs(dev, *shape)
+    p0 = torch.tensor(seed or (0.0, 0.0, 0.0), dtype=torch.float32, device=dev)
+    kernels.reset_launches()
+    pa, ra, ia, fa = k4.gn_loop_euclidean(S, T, sm, p0, 4, 300, 1e-7, 25)
+    assert kernels.LAUNCHES["gn_moments_euclidean"] == 1
+    pb, rb, ib, fb = k4.gn_loop_euclidean_plain(S, T, sm, p0, 4, 300, 1e-7, 25)
+    assert not bool(fa) and not bool(fb)
+    assert abs(float(ra) - float(rb)) < 1e-4
+    assert float((pa[0] - pb[0]).abs()) < 5e-5
+    assert float((pa[1:] - pb[1:]).abs().max()) < 5e-3
+    assert 1 <= int(ia) <= 300
+
+
+def test_k4_loop_same_bits_twice_on_card(dev):
+    S, T, sm = _k5_inputs(dev, 295, 295)
+    for seed in ((0.0, 0.0, 0.0), (0.0015, -0.5, 0.4)):
+        p0 = torch.tensor(seed, dtype=torch.float32, device=dev)
+        a = k4.gn_loop_euclidean(S, T, sm, p0, 4, 300, 1e-7, 25)
+        b = k4.gn_loop_euclidean(S, T, sm, p0, 4, 300, 1e-7, 25)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), (a, b)
+
+
+def test_k4_loop_sts_no_conv_on_card(dev):
+    """An inverted image fails (StsNoConv) on both sides."""
+    S, T, sm = _k5_inputs(dev, 295, 295, invert=True)
+    p0 = torch.zeros(3, device=dev)
+    a = k4.gn_loop_euclidean(S, T, sm, p0, 4, 300, 1e-7, 25)
+    b = k4.gn_loop_euclidean_plain(S, T, sm, p0, 4, 300, 1e-7, 25)
+    assert bool(a[3]) and bool(b[3])
+    assert torch.equal(a[0], b[0])                  # the seed, unchanged
+
+
+def test_k4_tile_layout_agrees_on_card(dev):
+    """The C launcher's shared-memory size of a tiling is the planner's."""
+    lib = kernels.library()
+    for h, w, K in ((295, 295, 4), (97, 1920, 4), (8, 24960, 4), (300, 600, 6), (1, 1, 0)):
+        nr, nc = k4.tile_plan(h, w, K, torch.cuda.get_device_properties(dev).multi_processor_count)
+        assert lib.vt_gn_loop_smem_bytes(h, w, K, nr, nc) == k4.tile_bytes(h, w, K, nr, nc)
+
+
+def test_k4_raises_above_budget_on_card(dev):
+    S, T, sm = (torch.zeros((4, 420, 470), device=dev), torch.zeros((420, 470), device=dev),
+                torch.ones((420, 470), device=dev))
+    assert not k4.fits(T.shape)
+    kernels.reset_launches()
+    with pytest.raises(ValueError):
+        k4.gn_loop_euclidean(S, T, sm, torch.zeros(3, device=dev), 4, 300, 1e-7, 0)
+    assert kernels.LAUNCHES["gn_moments_euclidean"] == 0
+
+
 def _phase_scene(h, w, holes, seed=6):
     """Wrapped phase of a smooth random field with a ramp, over a disk
     (with a round hole and a cut when ``holes``)."""
@@ -515,6 +580,47 @@ def test_k8_matches_plain_on_card(dev, kind):
                    else synthetic_deploy_temp_weights(seed=5))
     rng = np.random.default_rng(8)
     h, w = 200, 333
+    bgr = torch.as_tensor(np.round(rng.random((h, w, 3)) * 255).astype(np.float32),
+                          device=dev)
+    roi = torch.as_tensor(rng.random((h, w)) > 0.2, device=dev)
+    cpre = roi & torch.as_tensor(rng.random((h, w)) > 0.5, device=dev)
+    kernels.reset_launches()
+    got = k8.fused_temperature_maps(bgr, roi, cpre, 10.0, color, wide)
+    assert kernels.LAUNCHES["fused_temperature"] == 1
+    want = k8.fused_temperature_maps_plain(bgr, roi, cpre, 10.0, color, wide)
+    for a, b in zip(got[:2], want[:2]):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        both = np.isfinite(a) & np.isfinite(b)
+        assert (np.isfinite(a) != np.isfinite(b)).mean() < 2e-3
+        d = np.abs(a[both] - b[both])
+        assert (d > 1e-2).mean() < 2e-3 and np.percentile(d, 99.5) < 0.5
+    assert (got[2] != want[2]).float().mean() < 2e-3
+
+
+# (crop shape, calibrator order) of K8: the native-4K compute crop, a pixel
+# count that is not a multiple of 4 (the scalar tail), and a calibrator
+# whose kept x0 are out of order (the backward scan)
+K8_CASES = {
+    "crop_1608x1664": ((1608, 1664), "sorted"),
+    "ragged_201x333": ((201, 333), "sorted"),
+    "unsorted_calibrator": ((201, 333), "unsorted"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K8_CASES))
+def test_k8_shapes_match_plain_on_card(dev, case):
+    import dataclasses
+    from vistaf_torch.kernels.temp_kernel import segments_sorted
+    from vistaf_torch.utils.synthetic import synthetic_deploy_temp_weights
+    (h, w), order = K8_CASES[case]
+    color, wide = synthetic_deploy_temp_weights(seed=5)
+    if order == "unsorted":
+        half = color.iso_x.size // 2
+        color = dataclasses.replace(
+            color, iso_x=np.concatenate([color.iso_x[half:], color.iso_x[:half]]),
+            iso_y=np.concatenate([color.iso_y[half:], color.iso_y[:half]]))
+    assert segments_sorted(color.tables.iso_seg) == (order == "sorted")
+    rng = np.random.default_rng(9)
     bgr = torch.as_tensor(np.round(rng.random((h, w, 3)) * 255).astype(np.float32),
                           device=dev)
     roi = torch.as_tensor(rng.random((h, w)) > 0.2, device=dev)

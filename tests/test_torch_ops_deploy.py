@@ -62,8 +62,9 @@ def test_per_iteration_ecc_matches_jax(shape, seed):
 
 
 def test_ecc_routes_by_shape(monkeypatch):
-    """K5 for an unseeded solve inside both budgets, K4 for a seeded one or
-    with ``loop_kernel=False``, the plain moments above K4's budget."""
+    """K5 for an unseeded solve inside both budgets, K4's loop (one call a
+    solve) for a seeded one or with ``loop_kernel=False``, the plain moments
+    above K4's budget."""
     calls = {"k4": 0, "k5": 0, "plain": 0}
 
     def counted(name, fn):
@@ -73,8 +74,8 @@ def test_ecc_routes_by_shape(monkeypatch):
         return f
 
     monkeypatch.setattr(treg, "ecc_loop_euclidean", counted("k5", treg.ecc_loop_euclidean))
-    monkeypatch.setattr(ecc_kernel, "gn_moments_euclidean",
-                        counted("k4", ecc_kernel.gn_moments_euclidean))
+    monkeypatch.setattr(ecc_kernel, "gn_loop_euclidean",
+                        counted("k4", ecc_kernel.gn_loop_euclidean))
     monkeypatch.setattr(treg, "_plain_moments", counted("plain", treg._plain_moments))
     rng = np.random.default_rng(22)
     kw = dict(max_iters=3, stride=2, shear_k=4, stall_patience=25)
@@ -84,9 +85,9 @@ def test_ecc_routes_by_shape(monkeypatch):
     assert calls == {"k4": 0, "k5": 1, "plain": 0}
     treg.ecc_align(*small, p_init=torch.zeros(3), **kw)
     treg.ecc_align(*small, loop_kernel=False, **kw)
-    assert calls["k5"] == 1 and calls["k4"] == 6 and calls["plain"] == 0
+    assert calls["k5"] == 1 and calls["k4"] == 2 and calls["plain"] == 0
     treg.ecc_align(*big, **kw)
-    assert calls["k5"] == 1 and calls["k4"] == 6 and calls["plain"] == 3
+    assert calls["k5"] == 1 and calls["k4"] == 2 and calls["plain"] == 3
 
 
 def test_pooled_unwrap_matches_jax():

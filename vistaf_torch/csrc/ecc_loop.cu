@@ -52,23 +52,10 @@ constexpr int kMoments = vt::kEccMoments;
 // dynamic shared memory a CTA may take: the 227 KB opt-in less the static part
 constexpr int kMaxBandBytes = 232448 - 8192;
 
-struct Solver {
-  float p0 = 0.f, p1 = 0.f, p2 = 0.f;
-  float last_rho = -2.f, rho = -1.f;
-  float best_rho = -2.f, b0 = 0.f, b1 = 0.f, b2 = 0.f;
-  int it = 0, stall = 0;
-  bool failed = false;
-
-  __device__ bool keep_going(int max_iters, float eps, int stall_patience) const {
-    bool go = (it < max_iters) && (fabsf(rho - last_rho) >= eps) && !failed;
-    if (stall_patience > 0) go = go && (stall < stall_patience);
-    return go;
-  }
-};
-
 // x = H^-1 b for the symmetric (regularized) 3x3 H, by the adjugate
-__device__ void solve3_adjugate(float h00, float h01, float h02, float h11, float h12,
-                                float h22, float b0, float b1, float b2, float* x) {
+__device__ void solve3_adjugate(const float (&H)[3][3], const float (&b)[3], float (&x)[3]) {
+  const float h00 = H[0][0], h01 = H[0][1], h02 = H[0][2];
+  const float h11 = H[1][1], h12 = H[1][2], h22 = H[2][2];
   const float A00 = h11 * h22 - h12 * h12;
   const float A01 = h02 * h12 - h01 * h22;
   const float A02 = h01 * h12 - h02 * h11;
@@ -77,64 +64,19 @@ __device__ void solve3_adjugate(float h00, float h01, float h02, float h11, floa
   const float A22 = h00 * h11 - h01 * h01;
   float det = h00 * A00 + h01 * A01 + h02 * A02;
   det = fabsf(det) < 1e-30f ? 1e-30f : det;
-  x[0] = (A00 * b0 + A01 * b1 + A02 * b2) / det;
-  x[1] = (A01 * b0 + A11 * b1 + A12 * b2) / det;
-  x[2] = (A02 * b0 + A12 * b1 + A22 * b2) / det;
+  x[0] = (A00 * b[0] + A01 * b[1] + A02 * b[2]) / det;
+  x[1] = (A01 * b[0] + A11 * b[1] + A12 * b[2]) / det;
+  x[2] = (A02 * b[0] + A12 * b[1] + A22 * b[2]) / det;
 }
 
-// One GN update from the 21 upper-triangle moments M[(i, j)], i <= j < 6.
-__device__ void gn_step(Solver& st, const float* mom) {
-  float M[6][6];
-  int k = 0;
-  for (int i = 0; i < 6; ++i)
-    for (int j = i; j < 6; ++j) M[i][j] = mom[k++];
-
-  const float n = vt::jmax(M[0][0], 1.0f);
-  const float stt = M[0][1], si = M[0][2];
-  const float sg[3] = {M[0][3], M[0][4], M[0][5]};
-  const float corr = M[1][2] - stt * si / n;
-  const float tnorm2 = M[1][1] - stt * stt / n;
-  const float inorm2 = M[2][2] - si * si / n;
-  float Gt[3], Gi[3];
-  for (int q = 0; q < 3; ++q) {
-    Gt[q] = M[1][3 + q] - (stt / n) * sg[q];
-    Gi[q] = M[2][3 + q] - (si / n) * sg[q];
+// The TPU loop kernel's tail: two adjugate solves
+struct AdjugateSolve {
+  __device__ void operator()(const float (&H)[3][3], const float (&Gt)[3],
+                             const float (&Gi)[3], float (&u)[3], float (&v)[3]) const {
+    solve3_adjugate(H, Gt, u);
+    solve3_adjugate(H, Gi, v);
   }
-  const float reg = 1e-12f;
-  const float h00 = M[3][3] + reg, h11 = M[4][4] + reg, h22 = M[5][5] + reg;
-  const float h01 = M[3][4], h02 = M[3][5], h12 = M[4][5];
-  float u[3], v[3];
-  solve3_adjugate(h00, h01, h02, h11, h12, h22, Gt[0], Gt[1], Gt[2], u);
-  solve3_adjugate(h00, h01, h02, h11, h12, h22, Gi[0], Gi[1], Gi[2], v);
-  const float lam_num = inorm2 - (Gi[0] * v[0] + Gi[1] * v[1] + Gi[2] * v[2]);
-  const float lam_den = corr - (Gt[0] * v[0] + Gt[1] * v[1] + Gt[2] * v[2]);
-  const float lam = lam_num / (fabsf(lam_den) < 1e-12f ? 1e-12f : lam_den);
-  const float dp0 = lam * u[0] - v[0];
-  const float dp1 = lam * u[1] - v[1];
-  const float dp2 = lam * u[2] - v[2];
-
-  const float new_rho =
-      corr / vt::jmax(sqrtf(vt::jmax(tnorm2, 0.0f) * vt::jmax(inorm2, 0.0f)), 1e-12f);
-  const bool now_failed = (lam_den <= 0.0f) || isnan(new_rho);
-  const float q0 = now_failed ? st.p0 : st.p0 + dp0;
-  const float q1 = now_failed ? st.p1 : st.p1 + dp1;
-  const float q2 = now_failed ? st.p2 : st.p2 + dp2;
-  const bool improved = new_rho > st.best_rho;
-  if (improved) {
-    st.best_rho = new_rho;
-    st.b0 = st.p0;
-    st.b1 = st.p1;
-    st.b2 = st.p2;
-  }
-  st.stall = improved ? 0 : st.stall + 1;
-  st.p0 = q0;
-  st.p1 = q1;
-  st.p2 = q2;
-  st.last_rho = st.rho;
-  st.rho = new_rho;
-  st.it += 1;
-  st.failed = st.failed || now_failed;
-}
+};
 
 // Rows per CTA of an h-row plane.
 int band_rows(int h) { return (h + kCtas - 1) / kCtas; }
@@ -154,7 +96,7 @@ ecc_loop_kernel(const float* __restrict__ S, const float* __restrict__ T,
   const int v0 = min(h, rank * band);
   const int rows = min(h, v0 + band) - v0;
   const int npix = rows * w;
-  Solver st;  // every thread of every CTA holds the same state
+  vt::GnState st;  // every thread of every CTA holds the same state
   int par = 0;
 
   while (st.keep_going(max_iters, eps, stall_patience)) {
@@ -191,15 +133,10 @@ ecc_loop_kernel(const float* __restrict__ S, const float* __restrict__ T,
     }
     __syncthreads();
     par ^= 1;
-    gn_step(st, tot);  // every thread, the same bits
+    vt::gn_step(st, tot, AdjugateSolve());  // every thread, the same bits
   }
 
-  if (stall_patience > 0 && st.stall >= stall_patience) {
-    st.p0 = st.b0;
-    st.p1 = st.b1;
-    st.p2 = st.b2;
-    st.rho = st.best_rho;
-  }
+  st.finish(stall_patience);
   if (rank == 0 && threadIdx.x == 0) {
     out[0] = st.p0;
     out[1] = st.p1;

@@ -2,8 +2,8 @@
 
 One module per kernel, each replacing one Pallas kernel of the JAX
 package's ``pallas/``: ``quantile_kernel`` (K1 masked quantiles, K2 the
-fused median/MAD), ``inpaint_kernel`` (K3), ``ecc_kernel`` (K4, one ECC
-Gauss-Newton iteration's moments), ``ecc_loop_kernel`` (K5, the whole ECC
+fused median/MAD), ``inpaint_kernel`` (K3), ``ecc_kernel`` (K4, the
+per-iteration ECC Gauss-Newton loop), ``ecc_loop_kernel`` (K5, the whole ECC
 solve), ``unwrap_kernel`` (K6, the whole WLS-PCG unwrap) and
 ``polyfit_kernel`` (K7, the whole IRLS fit) and ``temp_kernel`` (K8, the
 fused per-pixel temperature models).  The CUDA sources live in
@@ -26,8 +26,8 @@ never on the device, so a CPU run walks the same route as the card.
 - Where the JAX package's above-budget route is a different algorithm, the
   port follows it by shape: the ECC takes K5 (whole loop) while
   ``ecc_loop_kernel.fits`` and ``ecc_kernel.fits`` hold and no seed is
-  given, else the per-iteration loop with K4 while ``ecc_kernel.fits``
-  holds, else the plain moments; the polyfit takes K7 while
+  given, else the per-iteration loop of K4 while ``ecc_kernel.fits``
+  holds, else that loop on the host with the plain moments; the polyfit takes K7 while
   ``polyfit_kernel.fits`` holds, else the IRLS with K2 (whose own
   above-budget route is the bisection pair with the |x - med| range as the
   MAD bracket, two K1 launches); ``unwrap_method='wls_pallas'`` takes K6 while
@@ -100,10 +100,11 @@ _SIGNATURES = {
     "vt_inpaint_scratch": (_I, _I, _I),
     # img, fill, out, fscratch, wscratch, batch, h, w, iters, stream
     "vt_inpaint_diffusion": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # h, w -> CTAs of the partial-sum pass
-    "vt_gn_moments_blocks": (_I, _I),
-    # S, T, SM, coeffs, mid, partials, out, h, w, K, stream
-    "vt_gn_moments_euclidean": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # h, w, K, nr, nc -> bytes of dynamic shared memory a CTA
+    "vt_gn_loop_smem_bytes": (_I, _I, _I, _I, _I),
+    # S, T, SM, p0, coeffs, out, part, h, w, K, nr, nc, max_iters, eps,
+    # stall_patience, stream
+    "vt_gn_loop_euclidean": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # S, T, SM, out, h, w, K, max_iters, eps, stall_patience, stream
     "vt_ecc_loop_euclidean": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     # Hp, Wp -> float elements of the scratch
@@ -114,8 +115,8 @@ _SIGNATURES = {
     # z, mask, out, h, w, ncoef, iters, resigma_iters, c, levels, stream
     "vt_robust_polyfit2d": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     # bgr, roi_eff, csup_pre, wide_out, color_out, csup_out, n, params (host
-    # struct), wide_seg, color_seg, stream
-    "vt_fused_temperature": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P),
+    # struct), tables (node programs and segments), stream
+    "vt_fused_temperature": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P),
     # -> sizeof(TempParams)
     "vt_temp_params_size": (),
 }

@@ -1,29 +1,39 @@
-"""K4: one ECC Gauss-Newton iteration's moment matrix (``csrc/ecc_moments.cu``).
+"""K4: the per-iteration ECC Gauss-Newton loop (``csrc/ecc_gn_loop.cu``).
 
-Replaces the JAX package's ``pallas/ecc_kernel.py::gn_moments_euclidean``: the
-two-pass shear warp of the [I, gx, gy, mask] stack (2K + 1 hat taps, zero
-border) at the warp given by its 8 shear-pass scalars
-[cy_u, cy_v, cy_c, cx_u, cx_v, cx_c, cos, sin], the mask threshold, the six
-moment rows [m, T m, I m, G_theta, gx m, gy m] and their (6, 6) products.
-The warp and moment rows are shared with K5 (``moment_rows`` here,
+Replaces the JAX package's ``pallas/ecc_kernel.py::gn_moments_euclidean`` with the
+``jax.lax.while_loop`` that calls it once an iteration
+(``ops/registration.py:281-331``): each iteration the two-pass shear warp
+of the [I, gx, gy, mask] stack (2K + 1 hat taps, zero border) at the warp
+given by its 8 shear-pass scalars [cy_u, cy_v, cy_c, cx_u, cx_v, cx_c, cos,
+sin], the mask threshold, the six moment rows [m, T m, I m, G_theta, gx m,
+gy m] and their (6, 6) products, then ``linalg.solve`` of H + 1e-12 I for
+both right-hand sides, the lambda step, cv2's StsNoConv failure rule, the
+eps test and ``stall_patience`` with the best-rho iterate.  The warp and
+moment rows are shared with K5 (``moment_rows`` here,
 ``csrc/ecc_common.cuh`` on the card), as the JAX package shares
 ``warp_moment_rows``.
 
 Routing (``kernels/__init__.py``): ``fits`` copies the JAX package's budget
-(``ecc_kernel.py:28,35``).  The per-iteration ECC loop
-(``ops/registration.py``) takes this kernel while it holds, else the plain
-moments.
+(``ecc_kernel.py:28,35``).  ``ops/registration.py`` takes
+``gn_loop_euclidean`` for a seeded solve or with ``loop_kernel=False``
+while ``fits`` holds; above it, the same loop (``gn_loop``) with the plain
+moments, as the JAX package takes plain XLA there.
 
-On the H100 one iteration is three launches: the vertical pass over
-(4, H, W), the horizontal pass and moment rows with per-CTA partial sums
-(a fixed partition, no atomics), and one CTA that adds the partials in CTA
-order.  At the native-4K coarse grid (295 x 295) that is a few microseconds
-of work: the kernel is launch- and latency-bound, and the loop around it
-costs one host sync per iteration for its stopping rule.
+On the H100 a solve is one cooperative launch with the loop on the card: one
+CTA per tile of an nr x nc tiling (``tile_plan``, at most one CTA per SM),
+each holding its tile's inputs, copied once with bulk asynchronous copies,
+and its vertically sheared rows in shared memory; the 21 sums meet once an
+iteration through global memory and one grid barrier, and every thread
+takes the same Gauss-Newton step (LU with partial pivoting, LAPACK's order)
+on the same bits.  ``gn_moments_euclidean`` is the same kernel run for one
+iteration from given shear scalars, writing the summed matrix.
+``LAUNCHES["gn_moments_euclidean"]`` counts one per solve or matrix.  A
+shape above ``fits`` raises ``ValueError`` before any launch.
 """
 from __future__ import annotations
 
-from typing import List
+import functools
+from typing import Callable, List
 
 import torch
 
@@ -32,6 +42,10 @@ from vistaf_torch.ops.warp import hat_resample_axis
 
 # the JAX package's _MAX_ELEMS (pallas/ecc_kernel.py:28)
 _MAX_ELEMS = 200_000
+# kThreads and kMaxSmem in csrc/ecc_gn_loop.cu
+THREADS = 512
+MAX_SMEM_BYTES = 232448 - 8192
+MOMENTS = 21
 
 
 def fits(shape) -> bool:
@@ -71,9 +85,148 @@ def moment_rows(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor, co,
 
 def gn_moments_euclidean_plain(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor,
                                coeffs: torch.Tensor, K: int = 4) -> torch.Tensor:
-    """Plain PyTorch version of K4: the (6, 6) moment matrix."""
+    """Plain PyTorch version of one iteration's (6, 6) moment matrix."""
     rows = moment_rows(S_cf, T, sm, [coeffs[i] for i in range(8)], K)
     return rows @ rows.T
+
+
+def gn_loop(moments: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tensor,
+            max_iters: int, eps: float, stall_patience: int):
+    """The Gauss-Newton while loop of the JAX ``ecc_align`` on the host,
+    ``moments(p)`` giving each iteration's (6, 6) matrix: ``linalg.solve``
+    of H + 1e-12 I for both right-hand sides, the lambda step, cv2's
+    StsNoConv failure rule and, with ``stall_patience``, the best-rho
+    iterate on a stall.  The loop condition costs one host sync per
+    iteration.  Returns (p, rho, n_iters, failed) as tensors."""
+    dev = p0.device
+    eye = 1e-12 * torch.eye(3, dtype=torch.float32, device=dev)
+    p = p0
+    last_rho = torch.tensor(-2.0, device=dev)
+    rho = torch.tensor(-1.0, device=dev)
+    failed = torch.tensor(False, device=dev)
+    best_rho = torch.tensor(-2.0, device=dev)
+    best_p = p0
+    stall = torch.tensor(0, dtype=torch.int32, device=dev)
+    it = 0
+
+    def going() -> bool:
+        go = (torch.abs(rho - last_rho) >= eps) & ~failed
+        if stall_patience > 0:
+            go = go & (stall < stall_patience)
+        return bool(go)
+
+    while it < max_iters and going():
+        M = moments(p)
+        n = torch.clamp(M[0, 0], min=1.0)
+        st, si = M[0, 1], M[0, 2]
+        sg = M[0, 3:]
+        corr = M[1, 2] - st * si / n
+        tnorm2 = M[1, 1] - st * st / n
+        inorm2 = M[2, 2] - si * si / n
+        Gt = M[1, 3:] - (st / n) * sg
+        Gi = M[2, 3:] - (si / n) * sg
+        UV = torch.linalg.solve_ex(M[3:, 3:] + eye, torch.stack([Gt, Gi], dim=1))[0]
+        u, v1 = UV[:, 0], UV[:, 1]
+        lam_num = inorm2 - Gi @ v1
+        lam_den = corr - Gt @ v1
+        lam = lam_num / torch.where(torch.abs(lam_den) < 1e-12, 1e-12, lam_den)
+        p_new = p + (lam * u - v1)
+        new_rho = corr / torch.clamp(torch.sqrt(torch.clamp(tnorm2, min=0.0)
+                                                * torch.clamp(inorm2, min=0.0)), min=1e-12)
+        now_failed = (lam_den <= 0.0) | torch.isnan(new_rho)
+        p_new = torch.where(now_failed, p, p_new)
+        improved = new_rho > best_rho
+        best_rho = torch.where(improved, new_rho, best_rho)
+        best_p = torch.where(improved, p, best_p)
+        stall = torch.where(improved, 0, stall + 1)
+        p, last_rho, rho = p_new, rho, new_rho
+        failed = failed | now_failed
+        it += 1
+    if stall_patience > 0:
+        stalled = stall >= stall_patience
+        p = torch.where(stalled, best_p, p)
+        rho = torch.where(stalled, best_rho, rho)
+    return p, rho, torch.tensor(it, dtype=torch.int32, device=dev), failed
+
+
+def gn_loop_euclidean_plain(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor,
+                            p0: torch.Tensor, K: int = 4, max_iters: int = 300,
+                            eps: float = 1e-7, stall_patience: int = 0):
+    """Plain version of K4: ``gn_loop`` over the plain moments."""
+    return gn_loop(lambda q: gn_moments_euclidean_plain(S_cf, T, sm, shear_coeffs(q), K),
+                   p0.to(torch.float32).reshape(3), max_iters, eps, stall_patience)
+
+
+def tile_bytes(h: int, w: int, K: int, nr: int, nc: int) -> int:
+    """Dynamic shared memory of the nr x nc tiling of an (h, w) plane: the
+    largest tile's ``mid`` (float4), its window of the four planes and its
+    template and statistics rows, each row padded to start at its global
+    address' 16-byte phase (``Layout`` in ``csrc/ecc_gn_loop.cu``)."""
+    rh, cw = -(-h // nr), -(-w // nc)
+    wr, wc = min(h, rh + 2 * K), min(w, cw + 2 * K)
+    ld_s, ld_t = (wc + 6) // 4 * 4, (cw + 6) // 4 * 4
+    return 4 * (4 * rh * wc + 4 * wr * ld_s + 2 * rh * ld_t)
+
+
+@functools.lru_cache(maxsize=64)
+def tile_plan(h: int, w: int, K: int, ctas: int):
+    """(nr, nc): the tiling of an (h, w) plane over at most ``ctas`` CTAs of
+    ``THREADS`` threads whose largest tile fits ``MAX_SMEM_BYTES`` and needs
+    the fewest thread rounds of hat taps (vertical pass over the tile's rows
+    and window columns, horizontal pass and moment rows over its pixels);
+    then the fewest CTAs (a cheaper exchange), then the least memory."""
+    taps = 2 * K + 1
+    best = None
+    for nc in range(1, min(w, ctas) + 1):
+        for nr in range(1, min(h, ctas // nc) + 1):
+            nbytes = tile_bytes(h, w, K, nr, nc)
+            if nbytes > MAX_SMEM_BYTES:
+                continue
+            rh, cw = -(-h // nr), -(-w // nc)
+            wc = min(w, cw + 2 * K)
+            cost = (-(-rh * wc // THREADS) * 4 * taps
+                    + -(-rh * cw // THREADS) * (4 * taps + 30))
+            key = (cost, nr * nc, nbytes)
+            if best is None or key < best[0]:
+                best = (key, nr, nc)
+    if best is None:
+        raise ValueError(f"gn_loop_euclidean: no tiling of {h}x{w} (K = {K}) fits a CTA's "
+                         "shared memory")
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(name: str, S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor, K: int,
+            p0=None, coeffs=None, max_iters: int = 0, eps: float = 0.0,
+            stall_patience: int = 0) -> torch.Tensor:
+    """One launch of the K4 kernel: the loop from ``p0``, or one iteration
+    at ``coeffs``.  Returns its output vector (6 or 36 floats)."""
+    S = S_cf.to(torch.float32).contiguous()
+    t = T.to(torch.float32).contiguous()
+    m = sm.to(torch.float32).contiguous()
+    seed = (p0 if coeffs is None else coeffs).to(torch.float32).contiguous()
+    kernels.check_cuda(name, S, t, m, seed)
+    if S.shape[0] != 4 or S.shape[1:] != t.shape or m.shape != t.shape \
+            or seed.shape != ((3,) if coeffs is None else (8,)):
+        raise ValueError(f"{name}: shapes {tuple(S.shape)}, {tuple(t.shape)}, "
+                         f"{tuple(m.shape)}, {tuple(seed.shape)}")
+    h, w = t.shape
+    if not fits((h, w)):
+        raise ValueError(f"{name}: {h}x{w} is above K4's budget (ecc_kernel.fits)")
+    nr, nc = tile_plan(h, w, int(K), _sm_count(S.device.index or 0))
+    n_out = 6 if coeffs is None else 36
+    work = torch.empty(n_out + 2 * nr * nc * MOMENTS, dtype=torch.float32, device=S.device)
+    kernels.launch("vt_gn_loop_euclidean", "gn_moments_euclidean", S.device,
+                   S.data_ptr(), t.data_ptr(), m.data_ptr(),
+                   seed.data_ptr() if coeffs is None else None,
+                   seed.data_ptr() if coeffs is not None else None,
+                   work.data_ptr(), work.data_ptr() + 4 * n_out, h, w, int(K), nr, nc,
+                   int(max_iters), float(eps), int(stall_patience))
+    return work[:n_out]
 
 
 def gn_moments_euclidean(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor,
@@ -83,20 +236,18 @@ def gn_moments_euclidean(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor,
     ``sm`` and the warp's 8 shear scalars ``coeffs`` (``shear_coeffs``)."""
     if kernels.route(S_cf) == "cpu":
         return gn_moments_euclidean_plain(S_cf, T, sm, coeffs, K)
-    S = S_cf.to(torch.float32).contiguous()
-    t = T.to(torch.float32).contiguous()
-    m = sm.to(torch.float32).contiguous()
-    co = coeffs.to(torch.float32).contiguous()
-    kernels.check_cuda("gn_moments_euclidean", S, t, m, co)
-    if S.shape[0] != 4 or S.shape[1:] != t.shape or m.shape != t.shape or co.shape != (8,):
-        raise ValueError(f"gn_moments_euclidean: shapes {tuple(S.shape)}, "
-                         f"{tuple(t.shape)}, {tuple(m.shape)}, {tuple(co.shape)}")
-    h, w = t.shape
-    nblk = kernels.library().vt_gn_moments_blocks(h, w)
-    mid = torch.empty_like(S)
-    partials = torch.empty((nblk, 21), dtype=torch.float32, device=S.device)
-    out = torch.empty((6, 6), dtype=torch.float32, device=S.device)
-    kernels.launch("vt_gn_moments_euclidean", "gn_moments_euclidean", S.device,
-                   S.data_ptr(), t.data_ptr(), m.data_ptr(), co.data_ptr(), mid.data_ptr(),
-                   partials.data_ptr(), out.data_ptr(), h, w, int(K))
-    return out
+    return _launch("gn_moments_euclidean", S_cf, T, sm, K, coeffs=coeffs).reshape(6, 6)
+
+
+def gn_loop_euclidean(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor,
+                      p0: torch.Tensor, K: int = 4, max_iters: int = 300,
+                      eps: float = 1e-7, stall_patience: int = 0):
+    """The whole per-iteration ECC loop from the seed ``p0`` = (theta, tx,
+    ty): ``S_cf``, ``T`` and ``sm`` as for ``gn_moments_euclidean``.
+    Returns device tensors (p (3,), rho, n_iters, failed); failure handling
+    (identity warp, NaN rho) stays with the caller."""
+    if kernels.route(S_cf) == "cpu":
+        return gn_loop_euclidean_plain(S_cf, T, sm, p0, K, max_iters, eps, stall_patience)
+    out = _launch("gn_loop_euclidean", S_cf, T, sm, K, p0=p0.reshape(3), max_iters=max_iters,
+                  eps=eps, stall_patience=stall_patience)
+    return out[:3], out[3], out[4].to(torch.int32), out[5] > 0.5

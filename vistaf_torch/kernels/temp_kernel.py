@@ -18,14 +18,18 @@ isotonic map takes the last segment with ``pred >= x0`` (so a NaN prediction
 gives ``y[0]``, unlike ``interp``).  The kernel computes the same
 operations in the same order in float32, with ``--fmad=false``.
 
-On the H100 one thread handles one pixel over the flattened crop
-(grid-stride).  Both models' scaler constants, exponent tables and
-coefficients travel in one struct passed by value; the isotonic segments
-sit in a small device table with a count.  Each input byte is read once and
-each output written once, 23 bytes a pixel, so the kernel is bound by
-memory bandwidth (about 18 us at 1608x1664 on 3.35 TB/s); its arithmetic,
-about 100 to 300 float32 operations a pixel with the deploy models, sits
-below that line.
+On the H100 each thread takes 4 consecutive pixels of the flattened crop
+(grid-stride; vector loads and stores, the last n % 4 pixels by scalar
+accesses).  The models run as node programs built here (``node_program``):
+each term's monomial is one multiply from its parent's, the term without its
+last factor, with the nodes that later terms reuse in shared memory; the
+calibrator's segment is found by binary search when the kept x0 never
+decrease (``segments_sorted``), else by the backward scan.  The scaler
+constants and the programs' offsets travel in one struct passed by value;
+the programs and segments sit in one small device table.  Each input byte is
+read once and each output written once, 23 bytes a pixel (about 18 us at
+1608x1664 on 3.35 TB/s); the kernel spends its time on arithmetic, mostly
+the LAB transcendentals.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ from vistaf_torch import kernels
 from vistaf_torch.calib.temp_weights import PolyTables, TempModelWeights
 from vistaf_torch.ops.color import chroma_ab
 
-MAX_TERMS = 64          # kMaxTerms in csrc/temp.cu
+MAX_TERMS = 64          # the kernel's term limit (node_program: at most 64 slots)
 MAX_FEATURES = 4        # kMaxFeatures
 
 
@@ -145,42 +149,147 @@ def fused_temperature_maps_plain(blurred_bgr: torch.Tensor, roi_eff: torch.Tenso
 
 
 # ---------------------------------------------------------------------------
-class _PolyModel(ctypes.Structure):
-    """``PolyModel`` of csrc/temp.cu, field for field."""
+# node program step codes (csrc/temp.cu): src | dst << 8 | feat << 16 | term << 20
+_SRC_PREV, _SRC_SLOT = 1, 2
+_TERM = 1 << 20
+
+
+def _factors(row) -> tuple:
+    """A term's factors in fold order: feature f repeated by its exponent."""
+    return tuple(f for f, e in enumerate(row) for _ in range(int(e)))
+
+
+def _common_prefix(a: tuple, b: tuple) -> int:
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
+
+
+def node_program(powers: np.ndarray, coef: np.ndarray) -> Tuple[np.ndarray, int]:
+    """The kernel's node program of one model: (steps (N, 2) int32 of [code,
+    coefficient bits], node slots).
+
+    Each term's monomial is the left fold of its factors in feature order,
+    which equals its parent's fold (the term without its last factor) times
+    one factor.  Terms are taken in table order (``out`` adds them in that
+    order); a term's chain starts from the deepest of its prefixes held in a
+    slot (or from its first factor), and each further node is one multiply
+    from the previous one, kept in registers.  A node is stored in a slot
+    when a later term can start from it and has no deeper stored prefix;
+    after each store the slots that are no later term's deepest stored
+    prefix are freed, so at most one more slot than later terms is live
+    (at most 64 for the kernel's 64 terms)."""
+    terms = [_factors(row) for row in powers]
+    coef = np.asarray(coef, np.float32)
+    cache = {}                       # prefix -> slot
+    free: list = []
+    n_slots = 0
+    steps = []
+
+    def deepest(fac: tuple) -> int:
+        for n in range(len(fac), 0, -1):
+            if fac[:n] in cache:
+                return n
+        return 0
+
+    def prune(later) -> None:
+        keep = {fac[:deepest(fac)] for fac in later}
+        for key in [k for k in cache if k not in keep]:
+            free.append(cache.pop(key))
+        free.sort(reverse=True)
+
+    def step(src: int, dst: int, feat: int, term: bool, c=0.0) -> None:
+        code = src | dst << 8 | feat << 16 | (_TERM if term else 0)
+        steps.append((code, int(np.float32(c).view(np.int32))))
+
+    for p, fac in enumerate(terms):
+        later = terms[p + 1:]
+        n0 = deepest(fac)
+        if not fac:
+            step(0, 0, 0, True, coef[p])                  # constant term
+        elif n0 == len(fac):
+            step(_SRC_SLOT + cache[fac], 0, 0, True, coef[p])
+        else:
+            src = _SRC_SLOT + cache[fac[:n0]] if n0 else 0
+            for n in range(n0 + 1, len(fac) + 1):
+                dst = 0
+                if any(_common_prefix(fac, q) == n and deepest(q) < n for q in later):
+                    slot = free.pop() if free else n_slots
+                    n_slots = max(n_slots, slot + 1)
+                    cache[fac[:n]] = slot
+                    dst = slot + 1
+                step(src, dst, fac[n - 1] + 1, n == len(fac), coef[p] if n == len(fac) else 0.0)
+                if dst:
+                    prune(later)
+                src = _SRC_PREV
+        prune(later)
+    return np.asarray(steps, np.int32).reshape(-1, 2), n_slots
+
+
+def segments_sorted(seg: np.ndarray) -> bool:
+    """True when the kept segments' x0 never decrease (NaN-free), so the
+    kernel's binary search finds the backward scan's segment."""
+    x0 = np.asarray(seg, np.float32)[:, 0]
+    return bool(np.all(x0[1:] >= x0[:-1]) and not np.isnan(x0).any())
+
+
+class _ModelHdr(ctypes.Structure):
+    """``ModelHdr`` of csrc/temp.cu, field for field."""
     _fields_ = [("mean", ctypes.c_float * MAX_FEATURES),
                 ("scale", ctypes.c_float * MAX_FEATURES),
-                ("coef", ctypes.c_float * MAX_TERMS),
                 ("intercept", ctypes.c_float),
-                ("n_terms", ctypes.c_int),
-                ("n_feat", ctypes.c_int),
-                ("n_seg", ctypes.c_int),
-                ("has_iso", ctypes.c_int),
                 ("iso_y0", ctypes.c_float),
-                ("powers", (ctypes.c_uint8 * MAX_FEATURES) * MAX_TERMS)]
+                ("n_feat", ctypes.c_int),
+                ("n_steps", ctypes.c_int),
+                ("steps_off", ctypes.c_int),
+                ("n_seg", ctypes.c_int),
+                ("seg_off", ctypes.c_int),
+                ("has_iso", ctypes.c_int),
+                ("seg_sorted", ctypes.c_int)]
 
 
 class _TempParams(ctypes.Structure):
-    _fields_ = [("wide", _PolyModel), ("color", _PolyModel),
-                ("chroma_min", ctypes.c_float)]
+    _fields_ = [("wide", _ModelHdr), ("color", _ModelHdr),
+                ("chroma_min", ctypes.c_float), ("n_slots", ctypes.c_int)]
 
 
-def _pack(t: PolyTables, n_feat: int, name: str) -> _PolyModel:
-    if t.mean.size != n_feat:
-        raise ValueError(f"{name} model needs {n_feat} features, has {t.mean.size}")
-    if t.coef.size > MAX_TERMS:
-        raise ValueError(f"{name} model has {t.coef.size} terms; the kernel "
-                         f"takes at most {MAX_TERMS}")
-    m = _PolyModel()
-    m.mean[:n_feat] = t.mean.tolist()
-    m.scale[:n_feat] = t.scale.tolist()
-    m.coef[:t.coef.size] = t.coef.tolist()
-    m.intercept = float(t.intercept)
-    m.n_terms, m.n_feat, m.n_seg = t.coef.size, n_feat, t.iso_seg.shape[0]
-    m.has_iso = int(t.iso_y0 is not None)
-    m.iso_y0 = float(t.iso_y0) if t.iso_y0 is not None else 0.0
-    for i, row in enumerate(t.powers):
-        m.powers[i][:n_feat] = [int(e) for e in row]
-    return m
+def _pad16(a: np.ndarray) -> np.ndarray:
+    """``a`` as int32 words, zero-padded to a multiple of 4 (16 bytes)."""
+    w = np.ascontiguousarray(a).view(np.int32).ravel()
+    return np.concatenate([w, np.zeros(-w.size % 4, np.int32)])
+
+
+def pack_models(wide: PolyTables, color: PolyTables, chroma_min: float):
+    """(params, tables, n_slots): the kernel's header struct and the int32
+    device table of both models' node programs and segments."""
+    parts, hdrs, n_slots, off = [], [], 0, 0
+    for t, n_feat, name in ((wide, 4, "WIDE"), (color, 3, "COLOR")):
+        if t.mean.size != n_feat:
+            raise ValueError(f"{name} model needs {n_feat} features, has {t.mean.size}")
+        if t.coef.size > MAX_TERMS:
+            raise ValueError(f"{name} model has {t.coef.size} terms; the kernel "
+                             f"takes at most {MAX_TERMS}")
+        steps, slots = node_program(t.powers, t.coef)
+        n_slots = max(n_slots, slots)
+        m = _ModelHdr()
+        m.mean[:n_feat] = t.mean.tolist()
+        m.scale[:n_feat] = t.scale.tolist()
+        m.intercept = float(t.intercept)
+        m.iso_y0 = float(t.iso_y0) if t.iso_y0 is not None else 0.0
+        m.n_feat, m.n_steps, m.n_seg = n_feat, steps.shape[0], t.iso_seg.shape[0]
+        m.has_iso = int(t.iso_y0 is not None)
+        m.seg_sorted = int(segments_sorted(t.iso_seg))
+        m.steps_off = off
+        parts.append(_pad16(steps))
+        off += parts[-1].size
+        m.seg_off = off
+        parts.append(_pad16(t.iso_seg.astype(np.float32)))
+        off += parts[-1].size
+        hdrs.append(m)
+    params = _TempParams(hdrs[0], hdrs[1], _f32(chroma_min), n_slots)
+    tables = np.concatenate(parts + [np.zeros(4, np.int32)])
+    return params, tables, n_slots
 
 
 def op_count(wide: TempModelWeights, color: TempModelWeights, n_px: int,
@@ -199,6 +308,12 @@ def op_count(wide: TempModelWeights, color: TempModelWeights, n_px: int,
     return 75 * n_px + model(wide.tables) * n_wide + model(color.tables) * n_color
 
 
+def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """``t``, or a copy of it when its storage is not ``nbytes``-aligned (the
+    kernel's vector accesses need it; a fresh allocation always is)."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
 def make_fused_temperature_fn(chroma_min: float, color: TempModelWeights,
                               wide: TempModelWeights):
     """``fn(blurred_bgr, roi_eff, color_support_pre) -> (wide_map,
@@ -206,9 +321,8 @@ def make_fused_temperature_fn(chroma_min: float, color: TempModelWeights,
     package's ``make_fused_temperature_fn``.  A CUDA input launches K8 (the
     packed tables go to the device once per device); a CPU input runs the
     plain version."""
-    params = _TempParams(_pack(wide.tables, 4, "WIDE"), _pack(color.tables, 3, "COLOR"),
-                         _f32(chroma_min))
-    segs = {}
+    params, tables, _ = pack_models(wide.tables, color.tables, chroma_min)
+    tables_on = {}
 
     def fn(blurred_bgr: torch.Tensor, roi_eff: torch.Tensor,
            color_support_pre: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -224,24 +338,19 @@ def make_fused_temperature_fn(chroma_min: float, color: TempModelWeights,
         if kernels.library().vt_temp_params_size() != ctypes.sizeof(params):
             raise RuntimeError("TempParams in csrc/temp.cu and its ctypes mirror differ")
         dev = blurred_bgr.device
-        bgr = blurred_bgr.to(torch.float32).contiguous()
-        roi = roi_eff.to(torch.bool).contiguous()
-        cpre = color_support_pre.to(torch.bool).contiguous()
+        bgr = _aligned(blurred_bgr.to(torch.float32).contiguous(), 16)
+        roi = _aligned(roi_eff.to(torch.bool).contiguous(), 4)
+        cpre = _aligned(color_support_pre.to(torch.bool).contiguous(), 4)
         kernels.check_cuda("fused_temperature_maps", bgr, roi, cpre)
-        if dev not in segs:
-            segs[dev] = tuple(
-                torch.as_tensor(np.ascontiguousarray(t.iso_seg).reshape(-1, 4),
-                                device=dev) if t.iso_seg.size else
-                torch.zeros((1, 4), dtype=torch.float32, device=dev)
-                for t in (wide.tables, color.tables))
-        wseg, cseg = segs[dev]
+        if dev not in tables_on:
+            tables_on[dev] = torch.as_tensor(tables, device=dev)
         wide_map = torch.empty((h, w), dtype=torch.float32, device=dev)
         color_map = torch.empty((h, w), dtype=torch.float32, device=dev)
         csup = torch.empty((h, w), dtype=torch.bool, device=dev)
         kernels.launch("vt_fused_temperature", "fused_temperature", dev,
                        bgr.data_ptr(), roi.data_ptr(), cpre.data_ptr(),
                        wide_map.data_ptr(), color_map.data_ptr(), csup.data_ptr(),
-                       h * w, ctypes.addressof(params), wseg.data_ptr(), cseg.data_ptr())
+                       h * w, ctypes.addressof(params), tables_on[dev].data_ptr())
         return wide_map, color_map, csup
 
     return fn

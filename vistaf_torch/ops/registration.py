@@ -1,8 +1,9 @@
 """Image registration (JAX ``ops/registration.py``): cv2-style phase
 correlation and the ECC alignment in euclidean mode with the shear sampler,
 routed by shape as the JAX package routes it on a TPU: the whole-solve K5
-kernel (``kernels/ecc_loop_kernel.py``), else the per-iteration loop with
-the K4 moments (``kernels/ecc_kernel.py``), else with the plain moments.
+kernel (``kernels/ecc_loop_kernel.py``), else the per-iteration loop of K4
+(``kernels/ecc_kernel.py``, the loop on the card), else the same loop on
+the host with the plain moments.
 The translation and affine modes and the bilinear-gather sampler are not
 ported yet."""
 from __future__ import annotations
@@ -82,64 +83,6 @@ def _plain_moments(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor, p: tor
     return A @ A.T
 
 
-def _gn_loop(moments, p0: torch.Tensor, max_iters: int, eps: float,
-             stall_patience: int):
-    """The Gauss-Newton while loop of the JAX ``ecc_align`` on device
-    tensors: ``linalg.solve`` of H + 1e-12 I for both right-hand sides, the
-    lambda step, cv2's StsNoConv failure rule and, with
-    ``stall_patience``, the best-rho iterate on a stall.  The loop condition
-    costs one host sync per iteration."""
-    dev = p0.device
-    eye = 1e-12 * torch.eye(3, dtype=torch.float32, device=dev)
-    p = p0
-    last_rho = torch.tensor(-2.0, device=dev)
-    rho = torch.tensor(-1.0, device=dev)
-    failed = torch.tensor(False, device=dev)
-    best_rho = torch.tensor(-2.0, device=dev)
-    best_p = p0
-    stall = torch.tensor(0, dtype=torch.int32, device=dev)
-    it = 0
-
-    def going() -> bool:
-        go = (torch.abs(rho - last_rho) >= eps) & ~failed
-        if stall_patience > 0:
-            go = go & (stall < stall_patience)
-        return bool(go)
-
-    while it < max_iters and going():
-        M = moments(p)
-        n = torch.clamp(M[0, 0], min=1.0)
-        st, si = M[0, 1], M[0, 2]
-        sg = M[0, 3:]
-        corr = M[1, 2] - st * si / n
-        tnorm2 = M[1, 1] - st * st / n
-        inorm2 = M[2, 2] - si * si / n
-        Gt = M[1, 3:] - (st / n) * sg
-        Gi = M[2, 3:] - (si / n) * sg
-        UV = torch.linalg.solve_ex(M[3:, 3:] + eye, torch.stack([Gt, Gi], dim=1))[0]
-        u, v1 = UV[:, 0], UV[:, 1]
-        lam_num = inorm2 - Gi @ v1
-        lam_den = corr - Gt @ v1
-        lam = lam_num / torch.where(torch.abs(lam_den) < 1e-12, 1e-12, lam_den)
-        p_new = p + (lam * u - v1)
-        new_rho = corr / torch.clamp(torch.sqrt(torch.clamp(tnorm2, min=0.0)
-                                                * torch.clamp(inorm2, min=0.0)), min=1e-12)
-        now_failed = (lam_den <= 0.0) | torch.isnan(new_rho)
-        p_new = torch.where(now_failed, p, p_new)
-        improved = new_rho > best_rho
-        best_rho = torch.where(improved, new_rho, best_rho)
-        best_p = torch.where(improved, p, best_p)
-        stall = torch.where(improved, 0, stall + 1)
-        p, last_rho, rho = p_new, rho, new_rho
-        failed = failed | now_failed
-        it += 1
-    if stall_patience > 0:
-        stalled = stall >= stall_patience
-        p = torch.where(stalled, best_p, p)
-        rho = torch.where(stalled, best_rho, rho)
-    return p, rho, torch.tensor(it, dtype=torch.int32, device=dev), failed
-
-
 def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
               mode: str = "euclidean", max_iters: int = 300, eps: float = 1e-7,
               stride: int = 1, sampler: str = "shear", shear_k: int = 4,
@@ -158,21 +101,20 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
     smask = torch.zeros_like(T)
     smask[::stride, ::stride] = 1.0
     fused = ecc_kernel.fits(T.shape)
+    p0 = (torch.zeros(3, dtype=torch.float32, device=T.device) if p_init is None
+          else p_init.to(torch.float32).reshape(3))
     if fused and loop_kernel and p_init is None and ecc_loop_kernel.fits(T.shape):
         p, rho, it, failed = ecc_loop_euclidean(S_cf, T, smask, K=shear_k,
                                                 max_iters=max_iters, eps=eps,
                                                 stall_patience=stall_patience)
+    elif fused:
+        p, rho, it, failed = ecc_kernel.gn_loop_euclidean(
+            S_cf, T, smask, p0, K=shear_k, max_iters=max_iters, eps=eps,
+            stall_patience=stall_patience)
     else:
-        if fused:
-            def moments(q):
-                return ecc_kernel.gn_moments_euclidean(S_cf, T, smask,
-                                                       ecc_kernel.shear_coeffs(q), K=shear_k)
-        else:
-            def moments(q):
-                return _plain_moments(S_cf, T, smask, q, shear_k)
-        p0 = (torch.zeros(3, dtype=torch.float32, device=T.device) if p_init is None
-              else p_init.to(torch.float32).reshape(3))
-        p, rho, it, failed = _gn_loop(moments, p0, max_iters, eps, stall_patience)
+        p, rho, it, failed = ecc_kernel.gn_loop(
+            lambda q: _plain_moments(S_cf, T, smask, q, shear_k), p0, max_iters, eps,
+            stall_patience)
     identity = warp_matrix_euclidean(torch.zeros_like(p))
     warp = torch.where(failed, identity, warp_matrix_euclidean(p))
     rho = torch.where(failed, float("nan"), rho)
