@@ -31,10 +31,24 @@ Phases, one line each, any failure raises and exits non-zero:
      K3 and K8 must launch, against the port's CPU run: equal carrier bin,
      t_mean within 0.1 degC, t_min and t_max within 0.75 degC, valid pixels
      within 0.5%, and COLOR on at least 1% of the ROI;
-  7. timing: steady-state p50/p90, fps and the host syncs one frame makes,
+  7. multimodal at 2160x3840: MultimodalPipeline over the 4K force and
+     temperature pipelines, on a frame pair that carries the grating and the
+     thermochromic colours (``compose_multimodal_frame``); K1, K2, K3, K4
+     and K8 must launch; ``__call__`` bit-equal to the two pipelines alone,
+     ``step_fused(maps)`` and ``(scalars)`` within the gates of
+     tests/test_multimodal_fused.py, the scalar fetch one device-to-host
+     copy of the scalars; against the port's CPU run: force within 1%,
+     t_mean within 0.1 degC, t_min and t_max within 0.75 degC, valid pixels
+     within 0.5%, COLOR on at least 1% of the ROI;
+  8. streams at 640x480: StreamingForce over BatchedForce, 4 streams, window
+     8, EMA 0.2, 6 batches through run_overlapped; K1, K3, K5, K6 and K7 must
+     launch; bit-equal to the serialized calls, each stream to _single and
+     the smoothing to the port's CPU update; p50 per batch and fps;
+  9. timing: steady-state p50/p90, fps and the host syncs one frame makes,
      for each path (fewer frames at 4K; the temperature path both through
-     __call__, which fetches every map, and through stats());
-  8. profile: device busy share and the heaviest kernels of a few frames of
+     __call__, which fetches every map, and through stats(); multimodal
+     through __call__ and step_fused(scalars));
+  10. profile: device busy share and the heaviest kernels of a few frames of
      each path under torch.profiler.
 Then the card line, one JSON line with the kernel table and, last, the
 device line.
@@ -73,7 +87,18 @@ PATH_KERNELS = {
     "4k": ("masked_quantiles", "masked_median_mad", "inpaint_diffusion",
            "gn_moments_euclidean"),
     "temp4k": ("masked_quantiles", "inpaint_diffusion", "fused_temperature"),
+    "mm4k": ("masked_quantiles", "masked_median_mad", "inpaint_diffusion",
+             "gn_moments_euclidean", "fused_temperature"),
+    "streams640": ("masked_quantiles", "inpaint_diffusion", "ecc_loop_euclidean",
+                   "unwrap_wls", "robust_polyfit2d"),
 }
+# the multimodal gates of tests/test_multimodal_fused.py: step_fused(maps)
+# against __call__, step_fused(scalars) against step_fused(maps)
+MM_HEIGHT_RTOL, MM_HEIGHT_ATOL, MM_SCALAR_REL = 1e-5, 1e-6, 1e-4
+MM_TMAP_ATOL, MM_STATS_ATOL, MM_FETCH_REL = 1e-4, 1e-3, 1e-6
+# BASELINE config 4 (scripts/bench_streams.py): 4 streams, window 8, EMA 0.2
+STREAMS, WINDOW, EMA_ALPHA, BATCHES = 4, 8, 0.2, 6
+DENTS_RAD = (0.8, 0.0, 0.5, 0.3, 0.7, 0.1)
 
 
 def say(phase: str, **kw) -> None:
@@ -509,9 +534,14 @@ def phase_kernels(device):
     return list(rows.values())
 
 
-def record_launches(path: str, rows, launches) -> None:
+def record_launches(path: str, rows, launches, frames: int = 1) -> None:
+    """Add one path's launch counts to the kernel rows (and, over a run of
+    several frames, the count a frame); fail if a kernel of the path did not
+    launch."""
     for row in rows:
         row[f"launches_{path}"] = launches[row["name"]]
+        if frames > 1:
+            row[f"launches_per_frame_{path}"] = launches[row["name"]] / frames
         row["launches"] += launches[row["name"]]
     for name in PATH_KERNELS[path]:
         assert launches[name] > 0, f"{name} was not launched on the {path} path"
@@ -557,7 +587,7 @@ def run_path(path: str, device, rows, cfg, h: int, w: int):
     assert gap <= FORCE_RTOL, (force, res_cpu["force_N"])
     assert warp_gap < ECC_ATOL_PX, warp_gap
     fast = ForcePipeline(*args, device=device)
-    return lambda: fast(ref, de)
+    return fast, lambda: fast(ref, de)
 
 
 def run_temperature(device, rows):
@@ -614,6 +644,223 @@ def run_temperature(device, rows):
     assert valid_gap <= VALID_RTOL, valid_gap
     assert color_share >= COLOR_MIN_SHARE, color_share
     return gpu, frame
+
+
+def compose_multimodal_frame(grating_bgr, tlc_bgr):
+    """A frame of a skin that carries both patterns (neither
+    ``synthetic_pair`` nor ``synthetic_tlc_frame`` draws both): the
+    thermochromic frame's colour, each pixel's BGR minus its gray, over the
+    grating frame's gray, rounded and clipped to uint8.  FTP locks on the
+    grating carrier; the temperature path segments that grating as its
+    stripes and reads the thermochromic colours on them."""
+    t = tlc_bgr.astype(np.float32)
+    lum = 0.114 * t[..., 0] + 0.587 * t[..., 1] + 0.299 * t[..., 2]
+    g = grating_bgr[..., 0].astype(np.float32)
+    return np.clip(np.round(t + (g - lum)[..., None]), 0, 255).astype(np.uint8)
+
+
+def d2h_copies(fn):
+    """(count, bytes) of the device-to-host copies one call of fn() makes,
+    from torch.profiler's memcpy events (the trace's ``bytes``)."""
+    import os
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    return len(copies), [int(e["args"]["bytes"]) for e in copies]
+
+
+def run_multimodal(device, rows, force, temp):
+    """Drive MultimodalPipeline at 2160x3840 on the card over the 4K force
+    and temperature pipelines built above, on a frame pair that carries the
+    grating and the thermochromic colours: ``__call__`` (launches counted
+    from 0 over that frame), then ``step_fused`` with both fetches, each
+    held to its gates; the device-to-host copies of the scalar fetch; the
+    port's CPU run of the same frames.  Returns (pipeline, ref, def)."""
+    import torch
+    from vistaf_torch import kernels
+    from vistaf_torch.config import ForceConfig, FTPConfig, TempConfig
+    from vistaf_torch.pipelines.force import ForcePipeline
+    from vistaf_torch.pipelines.multimodal import MultimodalPipeline, temperature_stats
+    from vistaf_torch.temperature.inference import TemperaturePipeline
+    from vistaf_torch.utils.synthetic import (synthetic_deploy_temp_weights, synthetic_pair,
+                                              synthetic_tlc_frame)
+
+    fcfg, tcfg = FTPConfig().deploy(), TempConfig().deploy()
+    ref_g, de_g = synthetic_pair(H4K, W4K, fcfg, seed=SEED)
+    tlc = synthetic_tlc_frame(H4K, W4K, tcfg, SEED)
+    ref, de = compose_multimodal_frame(ref_g, tlc), compose_multimodal_frame(de_g, tlc)
+    del ref_g, de_g, tlc
+    mm = MultimodalPipeline(force, temp)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    seq = mm(ref, de)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    record_launches("mm4k", rows, launches)
+
+    # the sequential path is the two pipelines alone, bit for bit
+    de_t = mm.ingest(de)
+    for k, v in force(ref, de_t, roi_from_finite=True).items():
+        np.testing.assert_array_equal(seq["force"][k], v, err_msg=k)
+    alone = temp(de_t)
+    for k, v in alone.items():
+        np.testing.assert_array_equal(seq["temperature"][k], v, err_msg=k)
+    assert temperature_stats(alone, tcfg.crop_output_to_outer_roi) == seq["temperature_stats"]
+
+    maps = mm.step_fused(ref, de_t, fetch="maps")
+    kernels.reset_launches()
+    sc = mm.step_fused(ref, de, fetch="scalars")
+    torch.cuda.synchronize()
+    launches_fused = dict(kernels.LAUNCHES)
+    fs, ff = seq["force"], maps["force"]
+    np.testing.assert_allclose(ff["height_map_mm_crop"], fs["height_map_mm_crop"],
+                               rtol=MM_HEIGHT_RTOL, atol=MM_HEIGHT_ATOL, equal_nan=True)
+    for k in ("volume_cm3", "contact_area_mm2", "max_depth_mm", "force_N", "mm_per_px",
+              "estimated_grating_period_px"):
+        assert abs(ff[k] - fs[k]) <= MM_SCALAR_REL * abs(fs[k]) + 1e-7, (k, ff[k], fs[k])
+        assert abs(sc[k] - ff[k]) <= MM_FETCH_REL * abs(ff[k]) + 1e-9, (k, sc[k], ff[k])
+    np.testing.assert_allclose(maps["temperature"]["temperature_map_final"],
+                               seq["temperature"]["temperature_map_final"], rtol=1e-5,
+                               atol=MM_TMAP_ATOL, equal_nan=True)
+    st = maps["temperature_stats"]
+    assert st["valid_pixels"] == seq["temperature_stats"]["valid_pixels"], st
+    for k in ("mean_C", "median_C", "std_C", "min_C", "max_C"):
+        assert abs(st[k] - seq["temperature_stats"][k]) <= MM_STATS_ATOL, (k, st)
+    assert all(type(v) in (int, float) for v in sc.values()), sc
+    assert sc["valid_pixels"] == st["valid_pixels"] > 0, (sc, st)
+    for k in ("mean", "min", "max"):
+        assert abs(sc[f"t_{k}_C"] - st[f"{k}_C"]) <= MM_STATS_ATOL, (k, sc, st)
+
+    # the scalar fetch's own device-to-host traffic: one copy of the scalars
+    ref_t = mm.ingest(ref)
+    base_n, base_b = d2h_copies(lambda: mm.fused_forward(ref_t, de_t, stats_only=True))
+    fetch_n, fetch_b = d2h_copies(lambda: mm.step_fused(ref_t, de_t, fetch="scalars"))
+    extra_n, extra_b = fetch_n - base_n, sum(fetch_b) - sum(base_b)
+    assert base_n > 0 and extra_n == 1 and extra_b == 8 * len(sc), (base_n, fetch_n, fetch_b)
+    assert max(fetch_b) <= 8 * len(sc), fetch_b
+
+    tres = seq["temperature"]
+    color_share = float(np.mean(tres["source_map"][tres["roi_outer"]] == 255))
+    t0 = time.perf_counter()
+    color, wide = synthetic_deploy_temp_weights(SEED)
+    cpu = MultimodalPipeline(
+        ForcePipeline(fcfg, ForceConfig(), P2H_MODEL, FORCE_MODEL, device="cpu"),
+        TemperaturePipeline(tcfg, color, wide, device="cpu"))(ref, de)
+    cpu_s = time.perf_counter() - t0
+    cs, ts = cpu["temperature_stats"], seq["temperature_stats"]
+    gaps = {"force": abs(fs["force_N"] - cpu["force"]["force_N"]) / abs(cpu["force"]["force_N"]),
+            "t_mean": abs(ts["mean_C"] - cs["mean_C"]), "t_min": abs(ts["min_C"] - cs["min_C"]),
+            "t_max": abs(ts["max_C"] - cs["max_C"]),
+            "valid": abs(ts["valid_pixels"] - cs["valid_pixels"]) / cs["valid_pixels"]}
+    say("end_to_end", path="mm4k", force_N=fs["force_N"], force_N_cpu=cpu["force"]["force_N"],
+        ecc_warp=fs["dbg_ecc_warp"].tolist() if "dbg_ecc_warp" in fs else None,
+        temperature_stats=ts, temperature_stats_cpu=cs, gaps=gaps,
+        color_share_of_roi=color_share, scalars=sc, cpu_seconds=cpu_s,
+        d2h_copies_forward=base_n, d2h_copies_scalars=fetch_n,
+        d2h_bytes_scalars_fetch=extra_b, d2h_bytes_scalars_step=sum(fetch_b),
+        launches=launches, launches_fused_scalars=launches_fused)
+    assert np.isfinite(fs["force_N"]) and fs["force_N"] > 0.0, fs["force_N"]
+    assert gaps["force"] <= FORCE_RTOL, gaps
+    assert gaps["t_mean"] <= T_MEAN_ATOL, gaps
+    assert gaps["t_min"] <= T_EXTREME_ATOL and gaps["t_max"] <= T_EXTREME_ATOL, gaps
+    assert gaps["valid"] <= VALID_RTOL, gaps
+    assert ts["valid_pixels"] > 0 and color_share >= COLOR_MIN_SHARE, (ts, color_share)
+    for name in PATH_KERNELS["mm4k"]:
+        assert launches_fused[name] > 0, f"{name} was not launched by step_fused"
+    return mm, ref, de
+
+
+def run_streams(device, rows, card):
+    """Drive StreamingForce over BatchedForce at 640x480 on the card: four
+    streams, window 8, EMA 0.2, a sequence of BATCHES batches through
+    ``run_overlapped`` (launches counted from 0 over it), held bit for bit
+    to the serialized calls, each stream to ``_single`` and the smoothing
+    to the port's CPU ``update``; then timed."""
+    import torch
+    from vistaf_torch import kernels
+    from vistaf_torch.config import slice_ftp_config
+    from vistaf_torch.ftp.pipeline import FTPPipeline
+    from vistaf_torch.parallel.mesh import BatchedForce
+    from vistaf_torch.pipelines.streaming import StreamingForce, init_state, update
+    from vistaf_torch.utils.synthetic import synthetic_pair
+
+    cfg = slice_ftp_config(H, W)
+    refs = np.stack([synthetic_pair(H, W, cfg, seed=SEED + s)[0] for s in range(STREAMS)])
+    seq = [np.stack([synthetic_pair(H, W, cfg, seed=SEED + s,
+                                    dent_depth_rad=DENTS_RAD[(s + t) % len(DENTS_RAD)])[1]
+                     for s in range(STREAMS)]) for t in range(BATCHES)]
+    bf = BatchedForce(FTPPipeline(cfg, P2H_MODEL, device=device), FORCE_MODEL)
+    sf = StreamingForce(bf, STREAMS, window=WINDOW, ema_alpha=EMA_ALPHA)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    over = sf.run_overlapped(refs, seq)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    record_launches("streams640", rows, launches, frames=BATCHES * STREAMS)
+
+    serial_sf = StreamingForce(bf, STREAMS, window=WINDOW, ema_alpha=EMA_ALPHA)
+    serial = [serial_sf(refs, b) for b in seq]
+    state = init_state(STREAMS, WINDOW, device="cpu")
+    for o, s in zip(over, serial):
+        for k in o:
+            np.testing.assert_array_equal(o[k], s[k], err_msg=k)
+        state, ref_out = update(state, torch.as_tensor(o["force_raw_N"]), EMA_ALPHA)
+        for k, v in ref_out.items():
+            np.testing.assert_array_equal(o[k], v.numpy(), err_msg=k)
+    out = bf.batched()(refs, seq[0])
+    for s in range(STREAMS):
+        one = bf._single(refs[s], seq[0][s])
+        for k in ("force_N", "max_depth_mm"):
+            assert torch.equal(out[k][s], one[k]), (k, s, out[k], one[k])
+    np.testing.assert_array_equal(over[0]["force_raw_N"], out["force_N"].cpu().numpy())
+
+    # timing: each batch alone (CUDA events, 2 warm-up), then whole
+    # sequences on the host's clock, serialized and overlapped in turns
+    times = []
+    for b in seq[:2] + seq:
+        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        serial_sf(refs, b)
+        e.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(e))
+    walls = {"serialized": [], "overlapped": []}
+    for kind in ("serialized", "overlapped", "overlapped", "serialized"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "serialized":
+            for b in seq:
+                serial_sf(refs, b)
+        else:
+            sf.run_overlapped(refs, seq)
+        walls[kind].append(time.perf_counter() - t0)
+    p50 = float(np.percentile(times[2:], 50))
+    say("end_to_end", path="streams640", streams=STREAMS, window=WINDOW, batches=BATCHES,
+        force_raw_N=[o["force_raw_N"].tolist() for o in over],
+        force_median_N=[o["force_median_N"].tolist() for o in over],
+        in_contact=[o["in_contact"].tolist() for o in over], launches=launches,
+        launches_per_stream_frame={k: v / (BATCHES * STREAMS) for k, v in launches.items()})
+    say("timing", path="streams640", batches_timed=len(times) - 2,
+        p50_ms_per_batch=p50, p90_ms_per_batch=float(np.percentile(times[2:], 90)),
+        fps=1000.0 * STREAMS / p50,
+        sequence_ms_per_batch={k: [1e3 * w / BATCHES for w in v] for k, v in walls.items()},
+        sequence_fps={k: [STREAMS * BATCHES / w for w in v] for k, v in walls.items()},
+        card=card)
+    assert all(np.isfinite(o["force_raw_N"]).all() for o in over)
+    return lambda: sf(refs, seq[0])
 
 
 def phase_timing(path, fn, card, frames: int, warmup: int):
@@ -700,19 +947,39 @@ def main() -> int:
 
     from vistaf_torch.config import FTPConfig, slice_ftp_config
     device = torch.device("cuda", 0)
+    clock = {"build": time.perf_counter() - t0}
+
+    def lap(name):
+        clock[name] = time.perf_counter() - t0 - sum(clock.values())
+
     rows = phase_kernels(device)
-    runs = {"640": run_path("640", device, rows, slice_ftp_config(H, W), H, W),
-            "4k": run_path("4k", device, rows, FTPConfig().deploy(), H4K, W4K)}
+    lap("kernels")
+    runs = {"640": run_path("640", device, rows, slice_ftp_config(H, W), H, W)[1]}
+    force4k, runs["4k"] = run_path("4k", device, rows, FTPConfig().deploy(), H4K, W4K)
     temp, frame = run_temperature(device, rows)
     runs["temp4k"] = lambda: temp(frame)
     runs["temp4k_stats"] = lambda: temp.stats(frame)
-    phase_timing("640", runs["640"], card, frames=40, warmup=5)
+    lap("end_to_end")
+    mm, mm_ref, mm_def = run_multimodal(device, rows, force4k, temp)
+    runs["mm4k"] = lambda: mm(mm_ref, mm_def)
+    runs["mm4k_scalars"] = lambda: mm.step_fused(mm_ref, mm_def, fetch="scalars")
+    lap("mm4k")
+    runs["streams640"] = run_streams(device, rows, card)
+    lap("streams640")
+    phase_timing("640", runs["640"], card, frames=20, warmup=3)
     phase_timing("4k", runs["4k"], card, frames=5, warmup=2)
-    phase_timing("temp4k", runs["temp4k"], card, frames=10, warmup=2)
-    phase_timing("temp4k_stats", runs["temp4k_stats"], card, frames=10, warmup=2)
+    phase_timing("temp4k", runs["temp4k"], card, frames=6, warmup=2)
+    phase_timing("temp4k_stats", runs["temp4k_stats"], card, frames=6, warmup=2)
+    phase_timing("mm4k", runs["mm4k"], card, frames=5, warmup=2)
+    phase_timing("mm4k_scalars", runs["mm4k_scalars"], card, frames=5, warmup=2)
+    lap("timing")
     phase_profile("640", runs["640"], frames=5)
     phase_profile("4k", runs["4k"], frames=2)
     phase_profile("temp4k_stats", runs["temp4k_stats"], frames=3)
+    phase_profile("mm4k_scalars", runs["mm4k_scalars"], frames=2)
+    phase_profile("streams640", runs["streams640"], frames=2)
+    lap("profile")
+    say("clock", seconds=clock, total=time.perf_counter() - t0)
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -20,6 +20,7 @@ from vistaf_tpu.ops.warp import warp_affine_inverse_shear as j_shear
 from vistaf_torch import kernels
 from vistaf_torch.kernels import ecc_kernel
 from vistaf_torch.ops.registration import ecc_prepare
+from torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 f32 = np.float32
 

@@ -26,6 +26,7 @@ from vistaf_torch.kernels.ecc_loop_kernel import fits as ecc_loop_kernel_fits
 from vistaf_torch.kernels.inpaint_kernel import inpaint_diffusion
 from vistaf_torch.kernels.polyfit_kernel import robust_polyfit2d_coef
 from vistaf_torch.kernels.quantile_kernel import masked_quantiles
+from torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 QS = (0.0, 8.0, 25.0, 50.0, 92.0, 99.9, 100.0)
 

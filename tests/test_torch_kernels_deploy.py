@@ -25,6 +25,7 @@ from vistaf_tpu.ops.warp import shear_warp_stack
 from vistaf_torch.kernels import (ecc_kernel, ecc_loop_kernel, inpaint_kernel,
                                   polyfit_kernel, quantile_kernel, unwrap_kernel)
 from vistaf_torch.ops.consts import DeviceConsts
+from torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 SHAPES = [(8, 8), (59, 59), (118, 118), (236, 236), (240, 256), (295, 295), (296, 384),
           (300, 300), (489, 490), (591, 591), (400, 600), (100, 3000), (3000, 100),

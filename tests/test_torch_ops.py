@@ -46,6 +46,7 @@ from vistaf_torch.ops.consts import DeviceConsts
 from vistaf_torch.ops.padding import pad_last2
 from vistaf_torch.ops.polyfit import eval_poly2d as t_eval_poly2d
 from vistaf_torch.pipelines import force as tforce
+from torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 T = torch.as_tensor
 

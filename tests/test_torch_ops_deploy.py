@@ -25,6 +25,7 @@ from vistaf_torch.ops import polyfit as tpoly
 from vistaf_torch.ops import registration as treg
 from vistaf_torch.ops import unwrap as tun
 from vistaf_torch.ops.consts import DeviceConsts
+from torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 
 def T(a):

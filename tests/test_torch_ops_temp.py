@@ -32,6 +32,7 @@ from vistaf_tpu.ops import warp as jwarp
 
 from vistaf_torch.ops import color, fftops, filters, inpaint, morphology, percentile, warp
 from vistaf_torch.ops.consts import DeviceConsts
+from torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 CPU = DeviceConsts("cpu")
 

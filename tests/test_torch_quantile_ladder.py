@@ -25,6 +25,7 @@ import torch
 
 from vistaf_torch.kernels import quantile_kernel
 from vistaf_torch.kernels.quantile_kernel import masked_median_mad_plain, masked_quantiles_plain
+from torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 F = np.float32
 BIG = F(3.0e38)

@@ -26,6 +26,7 @@ from vistaf_torch import kernels
 from vistaf_torch.config import force_config_from_dict, ftp_config_from_dict
 from vistaf_torch.ftp.pipeline import FTPPipeline
 from vistaf_torch.pipelines.force import ForcePipeline
+from torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 P2H = {"type": "hinge_saturating",
        "params": {"a": 2.0826494996246554, "b": 4.20441143052732,

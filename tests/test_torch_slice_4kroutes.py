@@ -34,6 +34,7 @@ from vistaf_torch.ftp.pipeline import FTPPipeline
 from vistaf_torch.ops.registration import ecc_align
 
 import torch_slice_gates as gates
+from torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 JCFG = scaled_ftp_config(480, 640).deploy().replace(
     ecc_downsample_min_px=0, unwrap_downsample_min_px=0, polyfit_kernel=False)

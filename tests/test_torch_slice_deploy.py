@@ -19,6 +19,7 @@ from vistaf_torch.kernels import unwrap_kernel
 from vistaf_torch.ops.consts import DeviceConsts
 
 import torch_slice_gates as gates
+from torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,7 @@ from vistaf_torch import kernels
 from vistaf_torch.config import temp_config_from_dict
 from vistaf_torch.temperature.inference import STATS, TemperaturePipeline
 from vistaf_torch.utils.synthetic import synthetic_deploy_temp_weights, synthetic_tlc_frame
+from torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 H, W = 320, 640
 MASKS = ("mask_dark", "mask_light", "mask_sat", "mask_roi_eff", "mask_color_support")

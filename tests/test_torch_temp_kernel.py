@@ -28,6 +28,7 @@ from vistaf_torch.calib.temp_weights import poly_powers
 from vistaf_torch.kernels.temp_kernel import (fused_temperature_maps, node_program, op_count,
                                               pack_models, poly_eval, segments_sorted)
 from vistaf_torch.utils.synthetic import synthetic_deploy_temp_weights, synthetic_temp_weights
+from torch_threads import single_torch_thread  # noqa: F401  (autouse)
 
 
 def _assert_close(ours, ref):

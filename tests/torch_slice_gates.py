@@ -57,3 +57,17 @@ def ecc_gap_px(jres, tres) -> float:
 
 def reliable_agreement(jres, tres) -> float:
     return float(np.mean(tres["reliable_crop"] == jres["reliable_crop"]))
+
+
+def compose_multimodal_frame(grating_bgr, tlc_bgr):
+    """A frame of a skin that carries both patterns, for the multimodal
+    paths (neither ``synthetic_pair`` nor ``synthetic_tlc_frame`` draws
+    both): the thermochromic frame's colour, each pixel's BGR minus its
+    gray, over the grating frame's gray, rounded and clipped to uint8.  Its
+    gray is the grating's up to the clipping, so FTP locks on the grating
+    carrier; the temperature path segments that grating as its stripes
+    and reads the thermochromic colours on them."""
+    t = tlc_bgr.astype(np.float32)
+    lum = 0.114 * t[..., 0] + 0.587 * t[..., 1] + 0.299 * t[..., 2]
+    g = grating_bgr[..., 0].astype(np.float32)
+    return np.clip(np.round(t + (g - lum)[..., None]), 0, 255).astype(np.uint8)

@@ -1,10 +1,11 @@
-"""vistaf_torch: PyTorch + CUDA port of the VISTAF force pipeline.
+"""vistaf_torch: PyTorch + CUDA port of the VISTAF force, temperature,
+multimodal and streaming pipelines.
 
 The JAX package beside it is the reference this package is checked
 against.  Layout mirrors it module by module (``config``, ``ops``, ``ftp``,
-``calib``, ``pipelines``, ``utils``); the Pallas kernels become the
-hand-written Hopper kernels in ``kernels`` (Python wrappers) and ``csrc``
-(CUDA sources).  Every kernel wrapper dispatches on the tensor's device
+``calib``, ``pipelines``, ``parallel``, ``temperature``, ``utils``); the
+Pallas kernels become the hand-written Hopper kernels in ``kernels`` (Python
+wrappers) and ``csrc`` (CUDA sources).  Every kernel wrapper dispatches on the tensor's device
 only: a CUDA tensor launches the kernel, a CPU tensor runs the plain
 PyTorch version beside it, anything else raises.
 """

@@ -176,10 +176,14 @@ class FTPPipeline:
             raise NotImplementedError(f"vistaf_torch does not port {bad} yet")
 
     # ------------------------------------------------------------------
-    def __call__(self, ref_bgr: np.ndarray, def_bgr: np.ndarray) -> Dict[str, Any]:
+    def __call__(self, ref_bgr, def_bgr) -> Dict[str, Any]:
         return self.to_host(self.forward(self.upload(ref_bgr), self.upload(def_bgr)))
 
-    def upload(self, frame: np.ndarray) -> torch.Tensor:
+    def upload(self, frame) -> torch.Tensor:
+        """The frame on the pipeline's device: a numpy array is copied
+        there, a tensor already there passes through untouched."""
+        if isinstance(frame, torch.Tensor):
+            return frame.to(self.device)
         return torch.as_tensor(np.ascontiguousarray(frame), device=self.device)
 
     def to_host(self, out: Dict[str, torch.Tensor]) -> Dict[str, Any]:

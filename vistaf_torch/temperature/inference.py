@@ -181,18 +181,26 @@ class TemperaturePipeline:
             raise NotImplementedError(f"vistaf_torch does not port {bad} yet")
 
     # ------------------------------------------------------------------
-    def upload(self, frame: np.ndarray) -> torch.Tensor:
+    def upload(self, frame) -> torch.Tensor:
+        """The frame on the pipeline's device: a numpy array is copied
+        there, a tensor already there passes through untouched."""
+        if isinstance(frame, torch.Tensor):
+            return frame.to(self.device)
         return torch.as_tensor(np.ascontiguousarray(frame), device=self.device)
 
-    def __call__(self, frame_bgr: np.ndarray) -> Dict[str, Any]:
-        out = self.forward(self.upload(frame_bgr))
+    def __call__(self, frame_bgr) -> Dict[str, Any]:
+        return self.to_host(self.forward(self.upload(frame_bgr)))
+
+    def to_host(self, out: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """``forward``'s maps and stats as numpy, with the static ROI masks
+        and the output crop's bbox."""
         res = {k: v.cpu().numpy() for k, v in out.items()}
         res["roi_full"] = self._roi_full
         res["roi_outer"] = self._roi_outer
         res["crop_bbox"] = self._crop_bbox
         return res
 
-    def stats(self, frame_bgr: np.ndarray) -> Dict[str, np.ndarray]:
+    def stats(self, frame_bgr) -> Dict[str, np.ndarray]:
         """The scalar statistics of ``__call__`` only (one device-to-host
         copy): t_mean/min/max/std, valid_pixels, stripe angle and period."""
         out = self.forward(self.upload(frame_bgr), stats_only=True)
