@@ -6,7 +6,9 @@ Phases, one line each, any failure raises and exits non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the Hopper kernels from vistaf_torch/csrc;
   3. kernels: each of the eight kernels against its plain PyTorch version on
-     the card at the shapes its paths give it (236x236 planes for K1, K3,
+     the card at the shapes its paths give it (K3 also at the parity
+     paths': the demod's pair of 236x236 crops, 24 iterations, the pair of
+     1182x1182 crops and the hole fill's 1182x1182 plane, 64; 236x236 planes for K1, K3,
      K5, K6, K7; the 295x295 coarse ECC grid for K4, its whole loop unseeded
      under the native-4K preset's iterations, eps and stall patience, the
      loop seeded, and one iteration's matrix; the 1182x1182 crop of the
@@ -44,6 +46,18 @@ Phases, one line each, any failure raises and exits non-zero:
      8, EMA 0.2, 6 batches through run_overlapped; K1, K3, K5, K6 and K7 must
      launch; bit-equal to the serialized calls, each stream to _single and
      the smoothing to the port's CPU update; p50 per batch and fps;
+  8b. the parity preset (the CLI's default numerics), end to end at 640x480
+     (``scaled_ftp_config(480, 640)``, phase ``parity640``) and at 2160x3840
+     (``FTPConfig()``, phase ``parity4k``): K3 must launch twice a frame (the
+     demod's glare repair and the hole fill) and no other kernel at all (a
+     launch of K1, K2 or K4-K7 would be a deploy route leaking in).  Against
+     the port's CPU run given the card's alignment (``same_alignment``):
+     the global shift within 0.02 px, the CPU's own ECC from that shift
+     within 0.05 px of the card's warp, force within 1%.  The free-running
+     CPU run is gated the same way (force 1%, ECC 0.05 px) at 640x480 and
+     only reported at 2160x3840, where the scene leaves the parity ECC's ty
+     undetermined (``ALIGNMENT_UNDETERMINED``); its line also gives the
+     CPU run's seconds;
   9. timing: steady-state p50/p90, fps and the host syncs one frame makes,
      for each path (fewer frames at 4K; the temperature path both through
      __call__, which fetches every map, and through stats(); multimodal
@@ -74,6 +88,19 @@ FORCE_MODEL = {"type": "growth",
                "params": {"a": 1.6197727931063521, "b": 9.756634595755994}}
 FORCE_RTOL = 0.01          # the deploy preset's 1% force contract
 ECC_ATOL_PX = 0.05         # ECC warp translation, card vs CPU
+# the global shift, card vs CPU: the whitened cross-power spectrum amplifies
+# FFT rounding (pocketfft against XLA's FFT: 0.006 px, tests/test_torch_slice.py)
+SHIFT_ATOL_PX = 0.02
+# paths also held to the port's CPU run given the card's alignment
+# (``same_alignment``), and the one whose free-running comparison is only
+# reported: on the native-4K synthetic pair the parity ECC's ty is not
+# determined to ECC_ATOL_PX (the vertical grating leaves it nearly flat, and
+# a 0.003 px change of the global shift moves the CPU's own stop from 15 to
+# 19-23 iterations and ty by 0.1-0.2 px), so the card's and the CPU's
+# global shifts, ~0.006 px apart, end 0.4 px apart in ty and 3.6% apart in
+# force (x17 through the 4K growth model)
+SAME_ALIGNMENT_PATHS = ("parity640", "parity4k")
+ALIGNMENT_UNDETERMINED = ("parity4k",)
 # the temperature deploy contract (the JAX TempConfig.deploy): scene mean
 # within 0.1 degC, hottest/coldest pixel within 0.75 degC
 T_MEAN_ATOL, T_EXTREME_ATOL, VALID_RTOL, COLOR_MIN_SHARE = 0.1, 0.75, 0.005, 0.01
@@ -91,7 +118,14 @@ PATH_KERNELS = {
              "gn_moments_euclidean", "fused_temperature"),
     "streams640": ("masked_quantiles", "inpaint_diffusion", "ecc_loop_euclidean",
                    "unwrap_wls", "robust_polyfit2d"),
+    "parity640": ("inpaint_diffusion",),
+    "parity4k": ("inpaint_diffusion",),
 }
+# the parity paths' whole launch count a frame: K3 in the demod and in the
+# hole fill, every other kernel none (sort percentiles, the gather ECC, the
+# plain PCG and the non-fused IRLS are the JAX package's XLA routes on a TPU)
+PATH_EXACT_LAUNCHES = {"parity640": {"inpaint_diffusion": 2},
+                       "parity4k": {"inpaint_diffusion": 2}}
 # the multimodal gates of tests/test_multimodal_fused.py: step_fused(maps)
 # against __call__, step_fused(scalars) against step_fused(maps)
 MM_HEIGHT_RTOL, MM_HEIGHT_ATOL, MM_SCALAR_REL = 1e-5, 1e-6, 1e-4
@@ -158,7 +192,7 @@ def kernel_cases(device):
                                       unwrap_kernel)
     from vistaf_torch.ops import geometry
     from vistaf_torch.temperature.inference import TemperaturePipeline
-    from vistaf_torch.utils.synthetic import synthetic_deploy_temp_weights
+    from vistaf_torch.utils.synthetic import scaled_ftp_config, synthetic_deploy_temp_weights
     from vistaf_torch.ops.registration import ecc_prepare
 
     cfg = slice_ftp_config(H, W)
@@ -222,6 +256,18 @@ def kernel_cases(device):
                   (cfg4.bad_intensity_percentile,))
     gray4 = np.round(rng.uniform(60, 200, size=(2, h4, w4))).astype(np.float32)
     k3_4k_args = (t(gray4), t(rng.random((2, h4, w4)) > 0.995), cfg4.inpaint_iters)
+
+    # K3 at the parity paths' shapes: the demod's pair of 236x236 crops at
+    # the scaled preset's 24 iterations, and at native 4K the pair of
+    # 1182x1182 crops and the hole fill's single plane at 64
+    par = scaled_ftp_config(H, W)
+    gray_p = np.round(rng.uniform(60, 200, size=(2, h, w))).astype(np.float32)
+    k3_par_args = (t(gray_p), t(rng.random((2, h, w)) > 0.995), par.inpaint_iters)
+    cfg_p4 = FTPConfig()
+    gray_p4 = np.round(rng.uniform(60, 200, size=(2, h4, w4))).astype(np.float32)
+    k3_par4k_args = (t(gray_p4), t(rng.random((2, h4, w4)) > 0.995), cfg_p4.inpaint_iters)
+    k3_hole4k_args = (t(gray_p4[0].copy()), t(rng.random((h4, w4)) > 0.999),
+                      cfg_p4.inpaint_iters)
 
     # K4 on the 295x295 coarse grid of the 4K preset, K = 4: the whole loop
     # unseeded under the preset's iterations, eps and stall patience, the
@@ -394,6 +440,9 @@ def kernel_cases(device):
         (*k3, k3_args, k3_check),
         (*k3, k3_4k_args, k3_check),
         (*k3, k3_t_args, k3_check),
+        (*k3, k3_par_args, k3_check),
+        (*k3, k3_par4k_args, k3_check),
+        (*k3, k3_hole4k_args, k3_check),
         ("fused_temperature", "vistaf_torch/csrc/temp.cu",
          "vistaf_tpu/pallas/temp_kernel.py:139", k8_fn, k8_plain, k8_args, k8_check),
         (*k5, k5_args, k5_check),
@@ -545,12 +594,47 @@ def record_launches(path: str, rows, launches, frames: int = 1) -> None:
         row["launches"] += launches[row["name"]]
     for name in PATH_KERNELS[path]:
         assert launches[name] > 0, f"{name} was not launched on the {path} path"
+    if path in PATH_EXACT_LAUNCHES:
+        want = {k: PATH_EXACT_LAUNCHES[path].get(k, 0) * frames for k in launches}
+        assert launches == want, f"{path} launches {launches}, expected {want}"
+
+
+def same_alignment(args, ref, de, res):
+    """The port's CPU run of the pair given the card's alignment: the global
+    shift is the card's, the CPU solves its own ECC from there (returned
+    beside the result, to hold against the card's warp), and the stages
+    after the ECC take the card's warp.  Returns (result, (warp, rho,
+    iterations) of the CPU's ECC, seconds)."""
+    import torch
+    import vistaf_torch.ftp.pipeline as ftp_pipeline
+    from vistaf_torch.pipelines.force import ForcePipeline
+
+    cpu = ForcePipeline(*args, debug_outputs=True, device="cpu")
+    shift = torch.as_tensor(res["dbg_global_shift"])
+    card_ecc = tuple(torch.as_tensor(res[k])
+                     for k in ("dbg_ecc_warp", "dbg_ecc_rho", "dbg_ecc_iters"))
+    own_ecc, solved = cpu.ftp._ecc, []
+
+    def ecc(crop01):
+        solved.append(own_ecc(crop01))
+        return card_ecc
+
+    cpu.ftp._ecc = ecc
+    phase_correlate = ftp_pipeline.phase_correlate
+    ftp_pipeline.phase_correlate = lambda a, b, win: (shift[0], shift[1], torch.zeros(()))
+    try:
+        t0 = time.perf_counter()
+        out = cpu(ref, de)
+        return out, solved[0], time.perf_counter() - t0
+    finally:
+        ftp_pipeline.phase_correlate = phase_correlate
 
 
 def run_path(path: str, device, rows, cfg, h: int, w: int):
     """Drive ForcePipeline once on the card with the launch counts set to 0
     just before, check the path's kernels launched and the result against
-    the port's CPU run; returns a frame callable for timing."""
+    the port's CPU run (and, on the parity paths, against the CPU run given
+    the card's alignment); returns a frame callable for timing."""
     import torch
     from vistaf_torch import kernels
     from vistaf_torch.config import ForceConfig
@@ -579,13 +663,30 @@ def run_path(path: str, device, rows, cfg, h: int, w: int):
     gap = abs(force - res_cpu["force_N"]) / abs(res_cpu["force_N"])
     agree = float(np.mean(res["reliable_crop"] == res_cpu["reliable_crop"]))
     warp_gap = float(np.abs(res["dbg_ecc_warp"] - res_cpu["dbg_ecc_warp"])[:, 2].max())
+    shift_gap = float(np.abs(res["dbg_global_shift"] - res_cpu["dbg_global_shift"]).max())
     say("end_to_end", path=path, force_N=force, force_N_cpu=res_cpu["force_N"],
         force_gap=gap, reliable_agreement=agree, ecc_warp_gap_px=warp_gap,
         ecc_warp=res["dbg_ecc_warp"].tolist(), ecc_warp_cpu=res_cpu["dbg_ecc_warp"].tolist(),
         ecc_iters=int(res["dbg_ecc_iters"]), ecc_iters_cpu=int(res_cpu["dbg_ecc_iters"]),
-        cpu_seconds=cpu_s, launches=launches)
-    assert gap <= FORCE_RTOL, (force, res_cpu["force_N"])
-    assert warp_gap < ECC_ATOL_PX, warp_gap
+        global_shift=res["dbg_global_shift"].tolist(),
+        global_shift_cpu=res_cpu["dbg_global_shift"].tolist(), global_shift_gap_px=shift_gap,
+        gated=path not in ALIGNMENT_UNDETERMINED, cpu_seconds=cpu_s, launches=launches)
+    if path in SAME_ALIGNMENT_PATHS:
+        same, (warp_s, rho_s, it_s), same_s = same_alignment(args, ref, de, res)
+        same_gap = abs(force - same["force_N"]) / abs(same["force_N"])
+        same_warp_gap = float(np.abs(res["dbg_ecc_warp"] - warp_s.numpy())[:, 2].max())
+        say("same_alignment", path=path, force_N=force, force_N_cpu=same["force_N"],
+            force_gap=same_gap,
+            reliable_agreement=float(np.mean(res["reliable_crop"] == same["reliable_crop"])),
+            ecc_warp_cpu=warp_s.tolist(), ecc_rho=float(res["dbg_ecc_rho"]),
+            ecc_rho_cpu=float(rho_s), ecc_iters_cpu=int(it_s), ecc_warp_gap_px=same_warp_gap,
+            cpu_seconds=same_s)
+        assert shift_gap <= SHIFT_ATOL_PX, shift_gap
+        assert same_warp_gap < ECC_ATOL_PX, same_warp_gap
+        assert same_gap <= FORCE_RTOL, (force, same["force_N"])
+    if path not in ALIGNMENT_UNDETERMINED:
+        assert gap <= FORCE_RTOL, (force, res_cpu["force_N"])
+        assert warp_gap < ECC_ATOL_PX, warp_gap
     fast = ForcePipeline(*args, device=device)
     return fast, lambda: fast(ref, de)
 
@@ -946,6 +1047,7 @@ def main() -> int:
     say("build", seconds=time.perf_counter() - t0, library=so.name)
 
     from vistaf_torch.config import FTPConfig, slice_ftp_config
+    from vistaf_torch.utils.synthetic import scaled_ftp_config
     device = torch.device("cuda", 0)
     clock = {"build": time.perf_counter() - t0}
 
@@ -966,18 +1068,25 @@ def main() -> int:
     lap("mm4k")
     runs["streams640"] = run_streams(device, rows, card)
     lap("streams640")
+    runs["parity640"] = run_path("parity640", device, rows, scaled_ftp_config(H, W), H, W)[1]
+    runs["parity4k"] = run_path("parity4k", device, rows, FTPConfig(), H4K, W4K)[1]
+    lap("parity")
     phase_timing("640", runs["640"], card, frames=20, warmup=3)
     phase_timing("4k", runs["4k"], card, frames=5, warmup=2)
     phase_timing("temp4k", runs["temp4k"], card, frames=6, warmup=2)
     phase_timing("temp4k_stats", runs["temp4k_stats"], card, frames=6, warmup=2)
     phase_timing("mm4k", runs["mm4k"], card, frames=5, warmup=2)
     phase_timing("mm4k_scalars", runs["mm4k_scalars"], card, frames=5, warmup=2)
+    phase_timing("parity640", runs["parity640"], card, frames=10, warmup=2)
+    phase_timing("parity4k", runs["parity4k"], card, frames=3, warmup=1)
     lap("timing")
     phase_profile("640", runs["640"], frames=5)
     phase_profile("4k", runs["4k"], frames=2)
     phase_profile("temp4k_stats", runs["temp4k_stats"], frames=3)
     phase_profile("mm4k_scalars", runs["mm4k_scalars"], frames=2)
     phase_profile("streams640", runs["streams640"], frames=2)
+    phase_profile("parity640", runs["parity640"], frames=2)
+    phase_profile("parity4k", runs["parity4k"], frames=1)
     lap("profile")
     say("clock", seconds=clock, total=time.perf_counter() - t0)
 

@@ -99,18 +99,21 @@ def test_pipeline_requires_an_explicit_device_and_a_ported_config():
             FTPPipeline(cfg, P2H)
     with pytest.raises(NotImplementedError, match="unwrap_method"):
         FTPPipeline(cfg.replace(unwrap_method="flood_fill"), P2H, device="cpu")
-    with pytest.raises(NotImplementedError, match="ecc_sampler"):
-        FTPPipeline(cfg.replace(ecc_sampler="gather"), P2H, device="cpu")
-    with pytest.raises(NotImplementedError, match="_DCT_FFT_MIN_PX"):
-        FTPPipeline(tcfg.FTPConfig().deploy().replace(unwrap_downsample=1), P2H,
-                    device="cpu")
+    with pytest.raises(NotImplementedError, match="ecc_warp_mode"):
+        FTPPipeline(cfg.replace(ecc_warp_mode="affine"), P2H, device="cpu")
+    with pytest.raises(NotImplementedError, match="percentile_method"):
+        FTPPipeline(tcfg.FTPConfig().deploy().replace(unwrap_downsample=1,
+                                                      percentile_method="hist"),
+                    P2H, device="cpu")
     for ported in (cfg.replace(unwrap_method="wls"), tcfg.FTPConfig().deploy(),
                    cfg.replace(ecc_downsample_min_px=0, unwrap_downsample_min_px=0,
-                               polyfit_kernel=False, ecc_loop_kernel=False)):
+                               polyfit_kernel=False, ecc_loop_kernel=False),
+                   cfg.replace(ecc_sampler="gather", ecc_stride=1),
+                   tcfg.FTPConfig().deploy().replace(unwrap_downsample=1)):
         FTPPipeline.check_config(ported)
     with pytest.raises(ValueError, match="percentile method"):
         from vistaf_torch.ops.percentile import get_percentile_fn
-        get_percentile_fn("sort")
+        get_percentile_fn("hist")
     assert FTPGeometry.from_config(cfg).bbox == (204, 440, 143, 379)
 
 
@@ -123,7 +126,7 @@ def test_pipeline_requires_an_explicit_device_and_a_ported_config():
 def test_unwrap_route_of_each_preset(preset, route):
     """The JAX package's unwrap dispatch: K6 for the shipped 640 preset, the
     plain PCG for ``wls``, the 4x-pooled grid at native 4K; a 1182x1182
-    full-resolution solve needs the unported FFT DCT."""
+    full-resolution solve takes the FFT-based DCT."""
     from vistaf_torch.ftp.pipeline import unwrap_route
     from vistaf_torch.ops.unwrap import dense_dct_solve
     cfg = {"640": tcfg.slice_ftp_config(480, 640),

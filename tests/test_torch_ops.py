@@ -311,7 +311,7 @@ def test_ecc_align_matches_jax_solver(consts):
     jw = J(jw)
     assert abs(float(torch.atan2(w[1, 0], w[0, 0])) - np.arctan2(jw[1, 0], jw[0, 0])) < 5e-5
     with pytest.raises(NotImplementedError):
-        treg.ecc_align(T(base), T(moved), T(mask), sampler="gather")
+        treg.ecc_align(T(base), T(moved), T(mask), mode="affine")
 
 
 # --------------------------------------------------------------- unwrap / polyfit

@@ -131,7 +131,7 @@ def test_inpaint_within_roi_quantized(rng):
     want = np.asarray(jinpaint.inpaint_within_roi(jnp.asarray(z), jnp.asarray(roi),
                                                   jnp.asarray(fill), iters=16,
                                                   quantize_u8=True))
-    got = inpaint.inpaint_within_roi(T(z), T(roi), T(fill), iters=16).numpy()
+    got = inpaint.inpaint_within_roi(T(z), T(roi), T(fill), iters=16, quantize_u8=True).numpy()
     assert np.array_equal(np.isfinite(got), np.isfinite(want))
     f = np.isfinite(want)
     step = (np.nanmax(z) - np.nanmin(z)) / 255.0

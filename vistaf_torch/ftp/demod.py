@@ -1,13 +1,21 @@
 """FTP complex demodulation of a frame pair (JAX ``ftp/demod.py``).
 
-The port runs ``ftp_complex_demod_pair`` on its half-spectrum path
-(``_demod_pair_rfft``): bad-pixel repair (K1 thresholds, K3 inpaint) and
-illumination normalization batched over the pair, symmetric FFT padding,
-``rfft2``, the carrier cascade on the reference half spectrum, parabolic
-refinement, the Hermitian-extended sideband patch and its sparse inverse
-DFT.  The full-``fft2`` pair path, the 'topk' carrier search, the Gaussian
-sideband, unlocked per-frame demodulation and the Hann window are not
-ported yet.
+The port runs ``ftp_complex_demod_pair``: bad-pixel repair (percentile
+thresholds, K3 inpaint) and illumination normalization batched over the
+pair, the DC removal by the masked mean or median, symmetric FFT padding,
+then one of the JAX package's two tails, chosen as it chooses them:
+
+- the half-spectrum path (``_demod_pair_rfft``: ``rfft2``, the carrier
+  cascade on the reference half spectrum, the Hermitian-extended sideband
+  patch) for the cascade search on even FFT sizes, as the deploy presets
+  run it;
+- the full-``fft2`` path (``_demod_pair_fft2``: ``fftshift``ed spectrum,
+  the 'topk' or cascade carrier search, the sideband patch) otherwise, as
+  the parity preset runs it.
+
+Both refine the carrier by a parabola in the log magnitude and invert the
+Hann-windowed patch by a sparse inverse DFT.  The Gaussian sideband,
+unlocked per-frame demodulation and the Hann window are not ported yet.
 """
 from __future__ import annotations
 
@@ -35,17 +43,21 @@ class DemodResult(NamedTuple):
 
 
 def check_config(cfg: FTPConfig) -> None:
-    """Raise for a configuration whose demodulation is not ported."""
-    if not (cfg.lock_carrier_to_reference and cfg.sideband_method == "patch_shift"
-            and cfg.force_right_half_plane and cfg.peak_method == "cascade"):
-        raise NotImplementedError(
-            "vistaf_torch demodulates on the locked-carrier rfft2 pair path only "
-            "(lock_carrier_to_reference, patch_shift, force_right_half_plane, "
-            "peak_method='cascade')")
-    if cfg.use_hann_window or not cfg.remove_mean_after_apod \
-            or cfg.dc_remove_stat != "mean":
-        raise NotImplementedError("vistaf_torch demodulation needs "
-                                  "use_hann_window=False and dc_remove_stat='mean'")
+    """Raise NotImplementedError, naming the knobs, for a configuration whose
+    demodulation is not ported: the Gaussian sideband
+    (``sideband_method='gauss'``), the unlocked per-frame demodulation
+    (``lock_carrier_to_reference=False``), the Hann window and a
+    preprocessing without the DC removal."""
+    unported = {
+        "sideband_method (Gaussian sideband)": cfg.sideband_method != "patch_shift",
+        "lock_carrier_to_reference (unlocked demod)": not cfg.lock_carrier_to_reference,
+        "use_hann_window": cfg.use_hann_window,
+        "remove_mean_after_apod": not cfg.remove_mean_after_apod,
+        "peak_method": cfg.peak_method not in ("topk", "cascade"),
+    }
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(f"vistaf_torch does not port {bad} yet")
 
 
 def preprocess(gray: torch.Tensor, apo: Optional[torch.Tensor], cfg: FTPConfig,
@@ -70,18 +82,76 @@ def preprocess(gray: torch.Tensor, apo: Optional[torch.Tensor], cfg: FTPConfig,
     if cfg.pre_blur_sigma_px and cfg.pre_blur_sigma_px > 0:
         i_norm = gaussian_blur(i_norm, cfg.pre_blur_sigma_px, consts)
     iw = i_norm * apo if apo is not None else i_norm
-    iw = iw - masked_mean(iw, valid)[..., None, None]
-    return iw, i_norm
+    if cfg.dc_remove_stat == "mean":
+        mu = masked_mean(iw, valid)
+    else:
+        mu = get_percentile_fn(cfg.percentile_method)(iw, valid, 50.0)
+    return iw - mu[..., None, None], i_norm
 
 
-def _demod_pair_rfft(iw_fft: torch.Tensor, i_norm_pair: torch.Tensor, h: int, w: int,
-                     cfg: FTPConfig, consts: DeviceConsts
-                     ) -> Tuple[DemodResult, DemodResult]:
-    """Half-spectrum demodulation in the row-shifted rfft layout
-    ``Rr[r, k] == F_shift[r, cx + k]``."""
-    _, hf, wf = iw_fft.shape
+def _patch_tail(peak_f: torch.Tensor, px_i, py_i, patch: torch.Tensor,
+                i_norm_pair: torch.Tensor, fft_shape: Tuple[int, int], cfg: FTPConfig,
+                consts: DeviceConsts) -> Tuple[DemodResult, DemodResult]:
+    """Hann window on the (2, psz, psz) sideband patch, its sparse inverse
+    DFT from the spectrum's centre, the fractional-bin ramp and the crop."""
+    hf, wf = fft_shape
+    h, w = i_norm_pair.shape[-2:]
     cy, cx = hf // 2, wf // 2
     pad = int(max(0, cfg.fft_pad_px))
+    psz = patch.shape[-1]
+    if cfg.patch_window == "hann":
+        patch = patch * consts.get(("hann_patch", psz), lambda: hann_patch(psz, psz))
+    field = fftops.ifft2_sparse_patch(patch, hf, wf, cy - psz // 2, cx - psz // 2, consts)
+    dpx = peak_f[0] - px_i.to(torch.float32)
+    dpy = peak_f[1] - py_i.to(torch.float32)
+    field = field * fftops.frac_ramp(hf, wf, dpx, dpy, consts, sign=-1.0)
+    if pad > 0:
+        field = field[:, pad:pad + h, pad:pad + w]
+    amp = torch.abs(field)
+    k = torch.stack([peak_f[0] - cx, peak_f[1] - cy])
+    return (DemodResult(field[0], amp[0], peak_f, k, (hf, wf), i_norm_pair[0]),
+            DemodResult(field[1], amp[1], peak_f, k, (hf, wf), i_norm_pair[1]))
+
+
+def _demod_pair_fft2(iw_fft: torch.Tensor, cfg: FTPConfig):
+    """Full-spectrum carrier search on the reference: ``fft2`` of the pair,
+    ``fftshift``, the 'topk' search (or the cascade) and parabolic
+    refinement; returns (peak (x, y), rounded x, rounded y, the pair's
+    (2, psz, psz) sideband patch around it)."""
+    _, hf, wf = iw_fft.shape
+    F_shift = torch.fft.fftshift(torch.fft.fft2(iw_fft), dim=(-2, -1))
+    ref_mag = torch.abs(F_shift[0])
+    if cfg.peak_method == "cascade":
+        px, py = fftops.carrier_peak_cascade(
+            ref_mag, cfg.dc_exclusion, force_right_half_plane=cfg.force_right_half_plane,
+            prefer_near_center_row=cfg.prefer_peak_near_center_row,
+            peak_max_dy_frac=cfg.peak_max_dy_from_center)
+    else:
+        xs, ys, mags = fftops.find_top_peaks(ref_mag, cfg.dc_exclusion, cfg.n_fft_peaks)
+        px, py = fftops.choose_carrier_peak(
+            xs, ys, mags, hf, wf, force_right_half_plane=cfg.force_right_half_plane,
+            prefer_near_center_row=cfg.prefer_peak_near_center_row,
+            peak_max_dy_frac=cfg.peak_max_dy_from_center)
+    fx, fy = fftops.refine_peak_parabolic_log(ref_mag, px, py)
+    peak_f = torch.stack([fx, fy])
+    px_i = torch.round(peak_f[0]).to(torch.int64)
+    py_i = torch.round(peak_f[1]).to(torch.int64)
+    bw = int(max(3, cfg.patch_half_width_bins))
+    psz = 2 * bw + 1
+    # dynamic_slice semantics: the window start is clamped into the array
+    win = torch.arange(psz, device=iw_fft.device)
+    rows = torch.clamp(py_i - bw, 0, hf - psz) + win
+    cols = torch.clamp(px_i - bw, 0, wf - psz) + win
+    patch = F_shift.index_select(-2, rows).index_select(-1, cols)
+    return peak_f, px_i, py_i, patch
+
+
+def _demod_pair_rfft(iw_fft: torch.Tensor, cfg: FTPConfig):
+    """Half-spectrum carrier search in the row-shifted rfft layout
+    ``Rr[r, k] == F_shift[r, cx + k]``; returns what ``_demod_pair_fft2``
+    returns, the patch's negative-kx columns from Hermitian symmetry."""
+    _, hf, wf = iw_fft.shape
+    cy, cx = hf // 2, wf // 2
     bw = int(max(3, cfg.patch_half_width_bins))
     psz = 2 * bw + 1
 
@@ -113,19 +183,7 @@ def _demod_pair_rfft(iw_fft: torch.Tensor, i_norm_pair: torch.Tensor, h: int, w:
     sx = torch.clamp(px_i - cx, 0, E.shape[-1] - psz)
     win = torch.arange(psz, device=Rr.device)
     patch = E.index_select(-2, sy + win).index_select(-1, sx + win)
-    if cfg.patch_window == "hann":
-        patch = patch * consts.get(("hann_patch", psz), lambda: hann_patch(psz, psz))
-    field = fftops.ifft2_sparse_patch(patch, hf, wf, cy - psz // 2, cx - psz // 2, consts)
-    dpx = peak_f[0] - px_i.to(torch.float32)
-    dpy = peak_f[1] - py_i.to(torch.float32)
-    field = field * fftops.frac_ramp(hf, wf, dpx, dpy, consts, sign=-1.0)
-
-    if pad > 0:
-        field = field[:, pad:pad + h, pad:pad + w]
-    amp = torch.abs(field)
-    k = torch.stack([peak_f[0] - cx, peak_f[1] - cy])
-    return (DemodResult(field[0], amp[0], peak_f, k, (hf, wf), i_norm_pair[0]),
-            DemodResult(field[1], amp[1], peak_f, k, (hf, wf), i_norm_pair[1]))
+    return peak_f, px_i, py_i, patch
 
 
 def ftp_complex_demod_pair(gray_ref: torch.Tensor, gray_def: torch.Tensor,
@@ -134,13 +192,13 @@ def ftp_complex_demod_pair(gray_ref: torch.Tensor, gray_def: torch.Tensor,
     """Demodulate a reference/deformed pair with the carrier locked to the
     reference peak, every frame-independent stage batched over the pair."""
     check_config(cfg)
-    h, w = gray_ref.shape
     iw_pair, i_norm_pair = preprocess(torch.stack([gray_ref, gray_def]), apo, cfg, consts)
     pad = int(max(0, cfg.fft_pad_px))
     iw_fft = pad_last2(iw_pair, (pad, pad, pad, pad), "symmetric") if pad > 0 else iw_pair
     hf, wf = iw_fft.shape[-2:]
-    if hf % 2 or wf % 2 or min(hf, wf) < cfg.demod_rfft_min_px:
-        raise NotImplementedError(f"padded FFT size {hf}x{wf}: the full-fft2 pair "
-                                  "path is not ported (needs even sizes >= "
-                                  "demod_rfft_min_px)")
-    return _demod_pair_rfft(iw_fft, i_norm_pair, h, w, cfg, consts)
+    if (cfg.force_right_half_plane and cfg.peak_method == "cascade" and hf % 2 == 0
+            and wf % 2 == 0 and min(hf, wf) >= cfg.demod_rfft_min_px):
+        peak = _demod_pair_rfft(iw_fft, cfg)
+    else:
+        peak = _demod_pair_fft2(iw_fft, cfg)
+    return _patch_tail(*peak, i_norm_pair, (hf, wf), cfg, consts)

@@ -3,20 +3,28 @@
 
 Stages in order: gray conversion, full-frame phase-correlation shift, ROI
 crop, ECC crop alignment (K5, or the pooled and coarse-to-fine solves with
-K4), demodulation of the pair (K1, K3), the reliable mask (K1, close,
-dominant component, distance erode), wrapped phase difference, WLS unwrap
-(K6, or the pooled PCG), two-pass IRLS detrend (K7, or the IRLS with K2;
-K1), smoothing, sign flip, frontier taper, unreliable-region fill, clamp,
-mm conversion and the contact-blob filter.  Each kernel is taken where the
+K4; the gather sampler's host loop), demodulation of the pair (percentile
+thresholds, K3), the reliable mask (a percentile, close, dominant or
+largest component, distance erode), wrapped phase difference, WLS unwrap
+(K6, or the PCG, pooled or not), the unfolded plane removal, two-pass IRLS
+detrend (K7, or the IRLS with K2 or sort percentiles), smoothing, sign
+flip, the internal-hole fill (K3), frontier taper, unreliable-region fill,
+clamp, mm conversion and the contact-blob filter.  Percentiles are K1 under
+``hist_pallas`` and sorts under ``sort``.  Each kernel is taken where the
 JAX package takes its Pallas kernel on a TPU, by shape (the routing rule in
 ``kernels/__init__.py``).  The pipeline owns its static geometry (circle
 mask, eroded ROI, apodization, Hann window) and blur/DCT/DFT matrices as
 tensors on its device, built once.
 
-It runs the JAX package's deploy preset as shipped at 640x480
-(``scaled_ftp_config(480, 640).deploy()``) and at native 2160x3840
-(``FTPConfig().deploy()``); configurations the port does not run yet raise
-at construction: see ``FTPPipeline.check_config``.
+It runs the JAX package's parity preset, the CLI's default numerics
+(``FTPConfig()`` at native 2160x3840 and ``scaled_ftp_config(h, w)``: sort
+percentiles, the gather-sampler ECC, the full-``fft2`` demod with the
+'topk' carrier search and median DC removal, the largest component, the
+hole fill, the unfolded plane removal, the full-resolution unwrap with the
+FFT-based DCT from 512 px; K3 is its only kernel), and its deploy preset as
+shipped (``scaled_ftp_config(480, 640).deploy()``, ``FTPConfig().deploy()``).
+Configurations the port does not run yet raise at construction: see
+``FTPPipeline.check_config``.
 """
 from __future__ import annotations
 
@@ -34,17 +42,21 @@ from vistaf_torch.ftp.demod import ftp_complex_demod_pair
 from vistaf_torch.kernels import unwrap_kernel
 from vistaf_torch.ops import geometry
 from vistaf_torch.ops.color import bgr_to_gray
-from vistaf_torch.ops.components import dominant_component, filter_components_by_peak
+from vistaf_torch.ops.components import (dominant_component, filter_components_by_peak,
+                                         largest_component)
 from vistaf_torch.ops.consts import DeviceConsts
 from vistaf_torch.ops.distance import erode_by_distance, get_distance_fn
-from vistaf_torch.ops.filters import gaussian_blur, hanning_window, masked_gaussian_smooth
+from vistaf_torch.ops.filters import (box_filter, gaussian_blur, hanning_window,
+                                      masked_gaussian_smooth)
+from vistaf_torch.ops.inpaint import inpaint_within_roi
 from vistaf_torch.ops.morphology import close as morph_close
 from vistaf_torch.ops.morphology import dilate, ellipse_kernel
 from vistaf_torch.ops.percentile import get_percentile_fn, masked_max
 from vistaf_torch.ops.polyfit import robust_polyfit2d
 from vistaf_torch.ops.registration import ecc_align, phase_correlate
-from vistaf_torch.ops.unwrap import dense_dct_solve, unwrap_wls
-from vistaf_torch.ops.warp import translate_bilinear, warp_affine_inverse_shear
+from vistaf_torch.ops.unwrap import unwrap_wls
+from vistaf_torch.ops.warp import (translate_bilinear, warp_affine_inverse_map,
+                                   warp_affine_inverse_shear)
 
 STAGES = ("align", "demod", "reliable", "unwrap", "detrend", "assemble")
 
@@ -70,6 +82,22 @@ class FTPGeometry:
         cxl, cyl, rl = geometry.local_circle(cx, cy, r, bbox)
         x1, x2, y1, y2 = bbox
         return FTPGeometry(cx, cy, r, bbox, cxl, cyl, rl, y2 - y1, x2 - x1)
+
+
+def detect_internal_holes(container: torch.Tensor, known: torch.Tensor, ksize: int,
+                          frac_thr: float, min_dist_edge_px: float, consts: DeviceConsts,
+                          metric: str = "chamfer3") -> torch.Tensor:
+    """The reference's ``compute_internal_holes_within_mask``: unknown
+    pixels inside ``container`` whose (k x k) neighbourhood is mostly known
+    (box-filter count fraction >= frac_thr) and that lie at least
+    ``min_dist_edge_px`` inside the container's edge."""
+    container = container.to(torch.bool)
+    known = known.to(torch.bool) & container
+    k = max(3, int(ksize) | 1)
+    frac = (box_filter(known.to(torch.float32), k, consts)
+            / (box_filter(container.to(torch.float32), k, consts) + 1e-6))
+    dist = get_distance_fn(metric)(container, max_dist=int(min_dist_edge_px) + 4)
+    return container & ~known & (frac >= float(frac_thr)) & (dist >= float(min_dist_edge_px))
 
 
 def _curve01(t: torch.Tensor, kind: str) -> torch.Tensor:
@@ -139,37 +167,35 @@ class FTPPipeline:
 
     @staticmethod
     def check_config(cfg: FTPConfig) -> None:
-        """Raise NotImplementedError for a configuration outside the ported
-        paths.  Both deploy presets run as shipped: the 640x480 one (K1, K3,
-        K5, K6, K7) and the native-4K one (pooled and coarse-to-fine ECC with
-        K4, pooled unwrap, IRLS with K2; K1, K3).  Still unported: the other
-        percentile methods, the ECC's gather sampler and non-euclidean
-        modes, the pooled or windowed global shift, the grating-band
-        prealignment, the hole fill, the single-pass detrend, the unfolded
-        plane removal, the labelling component method and the FFT-based DCT
-        of full-resolution unwrap solves from 512 px."""
+        """Raise NotImplementedError, naming the knobs, for a configuration
+        outside the ported paths.  The parity preset runs (``FTPConfig()``,
+        ``scaled_ftp_config(h, w)``: sort percentiles, the gather-sampler
+        ECC, the full-``fft2`` demod, the largest component, the hole fill,
+        the unfolded plane removal, the FFT-based DCT), and so do both deploy
+        presets as shipped.  Still unported: the Gaussian sideband, the
+        unlocked demod and the Hann window (``demod.check_config``), the
+        ECC's translation and affine modes and its gather sampler at a
+        stride, the ``hist``/``hist_rows``/``bisect`` percentiles, the
+        single-pass detrend and the grating-band prealignment.  Never
+        ported: the pooled and the windowed global shift
+        (``global_shift_downsample``, ``global_shift_pc_eps``,
+        ``global_shift_window_px``), measured on the goldens and rejected
+        by the JAX package (its ``docs/PERF.md``, the pooled global-shift
+        incident and the rejected round-5 experiments)."""
         demod.check_config(cfg)
-        g = FTPGeometry.from_config(cfg)
-        unwrap_kind, unwrap_grid = unwrap_route(cfg, (g.crop_h, g.crop_w))
         unported = {
-            "percentile_method": cfg.percentile_method != "hist_pallas",
-            "ecc_sampler/ecc_warp_mode": cfg.use_ecc_crop_alignment and (
-                cfg.ecc_sampler != "shear" or cfg.ecc_warp_mode != "euclidean"),
+            "percentile_method": cfg.percentile_method not in ("sort", "hist_pallas"),
+            "ecc_warp_mode/ecc_sampler": cfg.use_ecc_crop_alignment and (
+                cfg.ecc_warp_mode != "euclidean" or cfg.ecc_sampler not in ("shear", "gather")
+                or (cfg.ecc_sampler == "gather" and cfg.ecc_stride != 1)),
             "global_shift_downsample": cfg.global_shift_downsample > 1 and min(
                 cfg.image_height, cfg.image_width) >= cfg.global_shift_downsample_min_px,
             "global_shift_window_px": cfg.global_shift_window_px > 0,
             "use_grating_band_prealign": cfg.use_grating_band_prealign,
             "unwrap_method": cfg.unwrap_method not in ("wls", "wls_pallas"),
-            # K6 multiplies dense DCT matrices at every size it takes
-            "FFT-based DCT (_DCT_FFT_MIN_PX)": unwrap_kind != "k6"
-            and not dense_dct_solve(unwrap_grid),
             "largest_cc_method": cfg.reliable_keep_largest_cc
-            and cfg.largest_cc_method != "seed_edt",
-            "fill_internal_holes_in_reliable": cfg.fill_internal_holes_in_reliable,
+            and cfg.largest_cc_method not in ("seed_edt", "label"),
             "use_two_pass_detrend": not cfg.use_two_pass_detrend,
-            "remove_global_plane_before_detrend (unfolded)":
-            cfg.remove_global_plane_before_detrend and not (
-                cfg.detrend_fold_plane and cfg.poly_order >= cfg.plane_order_for_removal),
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
@@ -210,8 +236,10 @@ class FTPPipeline:
             ksz = max(3, cfg.valid_close_kernel | 1)
             reliable = morph_close(reliable, ellipse_kernel(ksz, ksz),
                                    iterations=cfg.valid_close_iters) & roi
-        if cfg.reliable_keep_largest_cc:
+        if cfg.reliable_keep_largest_cc and cfg.largest_cc_method == "seed_edt":
             reliable = dominant_component(reliable, seed_pool=int(cfg.cc_seed_pool)) & roi
+        elif cfg.reliable_keep_largest_cc:
+            reliable = largest_component(reliable) & roi
         if cfg.reliable_edge_margin_px > 0:
             reliable = erode_by_distance(reliable, cfg.reliable_edge_margin_px,
                                          metric=cfg.distance_metric)
@@ -221,7 +249,8 @@ class FTPPipeline:
         cfg = self.cfg
         return robust_polyfit2d(z, mask, order=order, iters=cfg.polyfit_iters,
                                 resigma_iters=cfg.polyfit_resigma_iters,
-                                fused=cfg.polyfit_kernel)[1]
+                                fused=cfg.polyfit_kernel,
+                                percentile_method=cfg.percentile_method)[1]
 
     def _pool_crop(self, crop01, d):
         """d x d mean-pooled crop pair, its circle mask (pooled mean > 0.5)
@@ -314,7 +343,10 @@ class FTPPipeline:
             if cfg.ecc_gauss_filt and cfg.ecc_gauss_filt > 0:
                 crop01 = gaussian_blur(crop01, cfg.ecc_gauss_filt, consts)
             ecc_warp, ecc_rho, ecc_it = self._ecc(crop01)
-            def_gray = warp_affine_inverse_shear(def_gray, ecc_warp, K=cfg.ecc_shear_k)
+            if cfg.ecc_sampler == "shear":
+                def_gray = warp_affine_inverse_shear(def_gray, ecc_warp, K=cfg.ecc_shear_k)
+            else:
+                def_gray = warp_affine_inverse_map(def_gray, ecc_warp, border="reflect")
         if self.stop_after == "align":
             return {"x": def_gray}
 
@@ -338,7 +370,13 @@ class FTPPipeline:
         if self.stop_after == "unwrap":
             return {"x": phase_unwrapped}
 
-        # --- two-pass detrend (the global plane is folded into the quadratic)
+        # --- global plane removal, unless the quadratic detrend absorbs it
+        if cfg.remove_global_plane_before_detrend and not (
+                cfg.detrend_fold_plane and cfg.poly_order >= cfg.plane_order_for_removal):
+            phase_unwrapped = phase_unwrapped - self._polyfit(
+                phase_unwrapped, reliable, cfg.plane_order_for_removal)
+
+        # --- two-pass detrend
         fit0 = self._polyfit(phase_unwrapped, reliable, cfg.poly_order)
         abs_res = torch.abs(phase_unwrapped - fit0)
         thrs = pctl(abs_res, reliable, (cfg.contact_percentile, 95.0, 98.0))
@@ -377,6 +415,17 @@ class FTPPipeline:
 
         known_height = reliable & torch.isfinite(height_map)
         height_rel_filled = torch.where(known_height, height_map, float("nan"))
+
+        # --- internal holes: detected and filled unconditionally, as in the
+        # JAX graph (under the WLS unwrap the candidate set is usually empty)
+        if cfg.fill_internal_holes_in_reliable:
+            cand = detect_internal_holes(
+                reliable, known_height, cfg.hole_neighborhood_px, cfg.hole_known_fraction,
+                cfg.hole_min_dist_from_reliable_edge_px, consts, metric=cfg.distance_metric)
+            tmp = torch.where(known_height, height_map, pctl(height_map, known_height, 50.0))
+            filled = inpaint_within_roi(tmp, reliable, cand, iters=cfg.inpaint_iters)
+            height_rel_filled = torch.where(cand & torch.isfinite(filled), filled,
+                                            height_rel_filled)
         output_reliable = reliable & torch.isfinite(height_rel_filled)
         dist_fn = get_distance_fn(cfg.distance_metric)
         band = cfg.frontier_zero_band_px

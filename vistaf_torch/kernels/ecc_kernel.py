@@ -96,8 +96,10 @@ def gn_loop(moments: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tensor,
     ``moments(p)`` giving each iteration's (6, 6) matrix: ``linalg.solve``
     of H + 1e-12 I for both right-hand sides, the lambda step, cv2's
     StsNoConv failure rule and, with ``stall_patience``, the best-rho
-    iterate on a stall.  The loop condition costs one host sync per
-    iteration.  Returns (p, rho, n_iters, failed) as tensors."""
+    iterate on a stall.  The step and rho are computed in the matrix's
+    dtype, the warp parameters stay in ``p0``'s.  The loop condition costs
+    one host sync per iteration.  Returns (p, rho, n_iters, failed) as
+    tensors."""
     dev = p0.device
     eye = 1e-12 * torch.eye(3, dtype=torch.float32, device=dev)
     p = p0
@@ -130,7 +132,7 @@ def gn_loop(moments: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tensor,
         lam_num = inorm2 - Gi @ v1
         lam_den = corr - Gt @ v1
         lam = lam_num / torch.where(torch.abs(lam_den) < 1e-12, 1e-12, lam_den)
-        p_new = p + (lam * u - v1)
+        p_new = p + (lam * u - v1).to(p.dtype)
         new_rho = corr / torch.clamp(torch.sqrt(torch.clamp(tnorm2, min=0.0)
                                                 * torch.clamp(inorm2, min=0.0)), min=1e-12)
         now_failed = (lam_den <= 0.0) | torch.isnan(new_rho)

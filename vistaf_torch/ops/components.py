@@ -1,6 +1,7 @@
 """Connected components (JAX ``ops/components.py``): neighbour-min label
-propagation with pointer jumping, the EDT-seeded dominant component and
-the contact-blob peak filter.  Labels are root pixel indices (row-major
+propagation with pointer jumping, the largest component (the parity
+preset's), the EDT-seeded dominant component (the deploy presets') and the
+contact-blob peak filter.  Labels are root pixel indices (row-major
 flat), background -1."""
 from __future__ import annotations
 
@@ -47,6 +48,14 @@ def component_areas(labels: torch.Tensor) -> torch.Tensor:
     valid = flat >= 0
     key = torch.where(valid, flat, 0)
     return torch.zeros_like(flat).scatter_add(0, key, valid.to(flat.dtype))
+
+
+def largest_component(mask: torch.Tensor) -> torch.Tensor:
+    """The largest 8-connected component of ``mask`` (the first root in
+    row-major order on a tie in area); an empty mask is returned as is."""
+    labels = label(mask)
+    best = torch.argmax(component_areas(labels))
+    return torch.where(mask.any(), (labels == best) & mask, mask)
 
 
 def dominant_component(mask: torch.Tensor, seed_pool: int = 1) -> torch.Tensor:

@@ -1,11 +1,11 @@
-"""FFT helpers (JAX ``ops/fftops.py``): the carrier cascade over the full
-and the half spectrum, sub-bin parabolic refinement, the fractional phase
-ramp, the sparse-patch inverse DFT and the temperature segmentation's
-windowed bandpass over the rfft2 half spectrum.  ``find_top_peaks``/
-``choose_carrier_peak`` (the 'topk' search) and the full-spectrum
-``ifft2_bandpass_dynamic`` are not ported yet.  Peak positions stay 0-d
-device tensors and windows are taken with index tensors; nothing here
-syncs."""
+"""FFT helpers (JAX ``ops/fftops.py``): the 'topk' carrier search
+(``dc_notch``, ``find_top_peaks``, ``choose_carrier_peak``), the carrier
+cascade over the full and the half spectrum, sub-bin parabolic refinement,
+the fractional phase ramp, the sparse-patch inverse DFT and the temperature
+segmentation's windowed bandpass over the rfft2 half spectrum.  The
+full-spectrum ``ifft2_bandpass_dynamic`` is not ported yet.  Peak positions
+stay 0-d device tensors and windows are taken with index tensors; nothing
+here syncs."""
 from __future__ import annotations
 
 import math
@@ -15,6 +15,48 @@ import numpy as np
 import torch
 
 from vistaf_torch.ops.consts import DeviceConsts
+
+
+def dc_notch(mag: torch.Tensor, dc_exclusion: int) -> torch.Tensor:
+    """Zero the (2 dc_exclusion)^2 square around the DC bin."""
+    h, w = mag.shape
+    cy, cx = h // 2, w // 2
+    iy = torch.arange(h, device=mag.device)[:, None]
+    ix = torch.arange(w, device=mag.device)[None, :]
+    in_notch = ((iy >= cy - dc_exclusion) & (iy < cy + dc_exclusion)
+                & (ix >= cx - dc_exclusion) & (ix < cx + dc_exclusion))
+    return torch.where(in_notch, 0.0, mag)
+
+
+def find_top_peaks(mag: torch.Tensor, dc_exclusion: int, n_peaks: int = 12):
+    """The ``n_peaks`` largest bins of the DC-notched magnitude, descending:
+    (xs, ys, mags).  Equal magnitudes keep the lower flat index first, as
+    ``lax.top_k`` does (a stable sort; ``torch.topk`` promises no order
+    among ties, and a real spectrum's mirror peaks can tie)."""
+    w = mag.shape[1]
+    m = dc_notch(mag.to(torch.float32), dc_exclusion).reshape(-1)
+    vals, idx = torch.sort(m, descending=True, stable=True)
+    vals, idx = vals[:n_peaks], idx[:n_peaks]
+    return idx % w, idx // w, vals
+
+
+def choose_carrier_peak(xs, ys, mags, h: int, w: int,
+                        force_right_half_plane: bool = True,
+                        prefer_near_center_row: bool = True,
+                        peak_max_dy_frac: float = 0.12) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's candidate filter over the top-k set: keep x > cx if
+    any does, then |y - cy| <= frac h if any does, and take the strongest
+    left (the first on ties)."""
+    cy, cx = h // 2, w // 2
+    keep = torch.ones_like(mags, dtype=torch.bool)
+    if force_right_half_plane:
+        m1 = xs > cx
+        keep = torch.where(m1.any(), m1, keep)
+    if prefer_near_center_row:
+        m2 = keep & (torch.abs(ys - cy) <= int(peak_max_dy_frac * h))
+        keep = torch.where(m2.any(), m2, keep)
+    i = torch.argmax(torch.where(keep, mags, -math.inf))
+    return xs[i], ys[i]
 
 
 def carrier_peak_cascade(mag: torch.Tensor, dc_exclusion: int,

@@ -2,9 +2,9 @@
 
 The relaxation is the K3 kernel (``kernels/inpaint_kernel.py``) on a CUDA
 tensor and its plain PyTorch version on a CPU tensor; ``inpaint_within_roi``
-is the temperature path's per-domain fill around it.  ``inpaint_float32``
-(the force path's hole fill, which the deploy preset turns off) is not
-ported yet.
+is the fill inside a region around it: in float for the force path's hole
+fill (the parity preset's), through 8-bit levels for the temperature path.
+``inpaint_float32``, which no pipeline reaches, is not ported.
 """
 from __future__ import annotations
 
@@ -25,23 +25,27 @@ def inpaint_diffusion(img: torch.Tensor, fill_mask: torch.Tensor,
 
 
 def inpaint_within_roi(z: torch.Tensor, roi: torch.Tensor, fill_mask: torch.Tensor,
-                       iters: int) -> torch.Tensor:
-    """Inpaint only inside ``roi``; NaN outside.  As the reference routes the
-    float map through a uint8 image, the known values are scaled to [0, 255]
-    over their range and rounded, filled, rounded and clipped again, and
-    unscaled; a degenerate range fills with its minimum."""
+                       iters: int = 96, quantize_u8: bool = False) -> torch.Tensor:
+    """Inpaint only inside ``roi``; NaN outside; a degenerate range of the
+    known values fills with its minimum.  With ``quantize_u8``, as the
+    reference routes the temperature map through a uint8 image, the known
+    values are scaled to [0, 255] over their range and rounded, filled,
+    rounded and clipped again, and unscaled."""
     z = z.to(torch.float32)
     known = roi & torch.isfinite(z) & ~fill_mask
     missing = roi & fill_mask
     vmin = masked_min(z, known)
     vmax = masked_max(z, known)
     span = vmax - vmin
-    scaled = torch.where(known, torch.clamp(
-        (z - vmin) / torch.clamp(span, min=1e-6) * 255.0, 0.0, 255.0), 0.0)
-    scaled = torch.round(scaled)
-    filled = inpaint_diffusion(torch.where(known, scaled, 0.0), ~known, iters=iters)
-    filled = torch.round(torch.clamp(filled, 0.0, 255.0))
-    restored = filled / 255.0 * span + vmin
+    if quantize_u8:
+        scaled = torch.where(known, torch.clamp(
+            (z - vmin) / torch.clamp(span, min=1e-6) * 255.0, 0.0, 255.0), 0.0)
+        scaled = torch.round(scaled)
+        filled = inpaint_diffusion(torch.where(known, scaled, 0.0), ~known, iters=iters)
+        filled = torch.round(torch.clamp(filled, 0.0, 255.0))
+        restored = filled / 255.0 * span + vmin
+    else:
+        restored = inpaint_diffusion(torch.where(known, z, 0.0), ~known, iters=iters)
     out = torch.where(known, z, torch.where(missing, restored, math.nan))
     out = torch.where(roi, out, math.nan)
     return torch.where(missing & (span < 1e-6), vmin, out)

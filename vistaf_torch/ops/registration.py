@@ -1,11 +1,12 @@
 """Image registration (JAX ``ops/registration.py``): cv2-style phase
-correlation and the ECC alignment in euclidean mode with the shear sampler,
-routed by shape as the JAX package routes it on a TPU: the whole-solve K5
-kernel (``kernels/ecc_loop_kernel.py``), else the per-iteration loop of K4
-(``kernels/ecc_kernel.py``, the loop on the card), else the same loop on
-the host with the plain moments.
-The translation and affine modes and the bilinear-gather sampler are not
-ported yet."""
+correlation and the ECC alignment in euclidean mode.  With the shear sampler
+it is routed by shape as the JAX package routes it on a TPU: the whole-solve
+K5 kernel (``kernels/ecc_loop_kernel.py``), else the per-iteration loop of K4
+(``kernels/ecc_kernel.py``, the loop on the card), else the same loop on the
+host with the plain moments.  With the bilinear-gather sampler (the parity
+preset's, at stride 1) it is the host loop over the gather moments, as the
+JAX package runs plain XLA for it on a TPU.  The translation and affine
+modes are not ported yet."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -14,7 +15,7 @@ import torch
 
 from vistaf_torch.kernels import ecc_kernel, ecc_loop_kernel
 from vistaf_torch.kernels.ecc_loop_kernel import ecc_loop_euclidean
-from vistaf_torch.ops.warp import shear_warp_stack
+from vistaf_torch.ops.warp import sample_bilinear_stack, shear_warp_stack
 
 
 def phase_correlate(src1: torch.Tensor, src2: torch.Tensor, window: torch.Tensor
@@ -83,6 +84,33 @@ def _plain_moments(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor, p: tor
     return A @ A.T
 
 
+def _gather_moments(S_cf: torch.Tensor, T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The JAX package's XLA moments with the bilinear-gather sampler at
+    stride 1: the [I, gx, gy, mask] stack sampled at the euclidean W(x; p)
+    (zeros outside), the mask thresholded at 0.95, the steepest-descent rows
+    and A A^T as one product, accumulated in float64.
+
+    Float64, where the JAX package sums in float32, as cv2's ECC (the
+    reference's) accumulates its dot products and rho in double: the loop
+    stops once rho moves by less than eps = 1e-7, and float32 sums over a
+    full-resolution crop are noisier than that.  On the native-4K parity
+    crop (1182^2) with float32 sums the card and the CPU stopped after 31
+    and 14 iterations, 0.44 px apart in ty, a direction the synthetic
+    grating leaves nearly flat."""
+    h, w = T.shape
+    yy = torch.arange(h, dtype=torch.float32, device=T.device)[:, None].expand(h, w)
+    xx = torch.arange(w, dtype=torch.float32, device=T.device)[None, :].expand(h, w)
+    c, s = torch.cos(p[0]), torch.sin(p[0])
+    samp = sample_bilinear_stack(S_cf, s * xx + c * yy + p[2], c * xx - s * yy + p[1])
+    mf = (samp[3] > 0.95).to(torch.float32)
+    gxm = samp[1] * mf
+    gym = samp[2] * mf
+    g_theta = gxm * (-s * xx - c * yy) + gym * (c * xx - s * yy)
+    A = torch.stack([mf, T * mf, samp[0] * mf, g_theta, gxm, gym]).reshape(6, -1)
+    A = A.to(torch.float64)
+    return A @ A.T
+
+
 def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
               mode: str = "euclidean", max_iters: int = 300, eps: float = 1e-7,
               stride: int = 1, sampler: str = "shear", shear_k: int = 4,
@@ -94,15 +122,21 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
     NaN, as the reference falls back to the unaligned image.  ``p_init``
     (theta, tx, ty) seeds the iteration instead of the identity; a seeded
     solve takes the per-iteration loop, as in the JAX package."""
-    if (mode, sampler) != ("euclidean", "shear"):
-        raise NotImplementedError("vistaf_torch ports the euclidean/shear ECC only, "
-                                  f"got mode={mode!r}, sampler={sampler!r}")
+    if mode != "euclidean" or sampler not in ("shear", "gather") \
+            or (sampler == "gather" and stride != 1):
+        raise NotImplementedError("vistaf_torch ports the euclidean ECC with the shear "
+                                  "sampler or the gather sampler at stride 1, got "
+                                  f"mode={mode!r}, sampler={sampler!r}, stride={stride}")
     S_cf, T = ecc_prepare(template, image, mask)
+    p0 = (torch.zeros(3, dtype=torch.float32, device=T.device) if p_init is None
+          else p_init.to(torch.float32).reshape(3))
+    if sampler == "gather":
+        p, rho, it, failed = ecc_kernel.gn_loop(lambda q: _gather_moments(S_cf, T, q), p0,
+                                                max_iters, eps, stall_patience)
+        return _result(p, rho.to(torch.float32), it, failed)
     smask = torch.zeros_like(T)
     smask[::stride, ::stride] = 1.0
     fused = ecc_kernel.fits(T.shape)
-    p0 = (torch.zeros(3, dtype=torch.float32, device=T.device) if p_init is None
-          else p_init.to(torch.float32).reshape(3))
     if fused and loop_kernel and p_init is None and ecc_loop_kernel.fits(T.shape):
         p, rho, it, failed = ecc_loop_euclidean(S_cf, T, smask, K=shear_k,
                                                 max_iters=max_iters, eps=eps,
@@ -115,7 +149,11 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
         p, rho, it, failed = ecc_kernel.gn_loop(
             lambda q: _plain_moments(S_cf, T, smask, q, shear_k), p0, max_iters, eps,
             stall_patience)
+    return _result(p, rho, it, failed)
+
+
+def _result(p, rho, it, failed):
+    """(warp, rho, n_iters): the identity and NaN rho on StsNoConv failure."""
     identity = warp_matrix_euclidean(torch.zeros_like(p))
     warp = torch.where(failed, identity, warp_matrix_euclidean(p))
-    rho = torch.where(failed, float("nan"), rho)
-    return warp, rho, it
+    return warp, torch.where(failed, float("nan"), rho), it

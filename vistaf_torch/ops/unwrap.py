@@ -1,12 +1,14 @@
 """Weighted least-squares phase unwrap (JAX ``ops/unwrap.py::unwrap_wls``):
-PCG with a DCT-Poisson preconditioner (dense DCT matmuls below
-``_DCT_FFT_MIN_PX``), gauge anchoring and congruence projection, and the
-``downsample`` path of the native-4K deploy preset (the solve on a pooled
-grid, pooled in the complex domain, upsampled as ``jax.image.resize``
-'linear' does).  The PCG ``while_loop`` is a Python loop whose convergence
-check is one host sync per iteration.  The FFT-based DCT the JAX package
-takes for solve grids of ``_DCT_FFT_MIN_PX`` and more is not ported yet.
-The K6 kernel (``kernels/unwrap_kernel.py``) is the ``wls_pallas`` route."""
+PCG with a DCT-Poisson preconditioner, gauge anchoring and congruence
+projection, and the ``downsample`` path of the native-4K deploy preset (the
+solve on a pooled grid, pooled in the complex domain, upsampled as
+``jax.image.resize`` 'linear' does).  The orthonormal DCT-II is a pair of
+dense matmuls below ``_DCT_FFT_MIN_PX`` and an FFT above it (Makhoul's
+even/odd reordering, one complex FFT and a twiddle a transform, as the JAX
+package's ``jax.scipy.fft.dct``; the full-resolution parity solve at native
+4K takes it).  The PCG ``while_loop`` is a Python loop whose convergence
+check is one host sync per iteration.  The K6 kernel
+(``kernels/unwrap_kernel.py``) is the ``wls_pallas`` route."""
 from __future__ import annotations
 
 import math
@@ -47,19 +49,65 @@ _DCT_FFT_MIN_PX = 512
 
 def dense_dct_solve(shape) -> bool:
     """Whether the JAX package solves an unwrap grid of ``shape`` with the
-    dense DCT matrices, the only DCT ported (else its FFT-based DCT)."""
+    dense DCT matrices (else with its FFT-based DCT)."""
     return min(shape) < _DCT_FFT_MIN_PX
 
 
+def _dct_twiddle(n: int) -> np.ndarray:
+    """2 f_k exp(-i pi k / (2n)): the twiddle of Makhoul's DCT-II times the
+    orthonormal scale (f_0 = sqrt(1 / 4n), f_k = sqrt(1 / 2n))."""
+    k = np.arange(n, dtype=np.float64)
+    scale = np.full(n, 2.0 * np.sqrt(1.0 / (2.0 * n)))
+    scale[0] = 2.0 * np.sqrt(1.0 / (4.0 * n))
+    return (scale * np.exp(-1j * np.pi * k / (2.0 * n))).astype(np.complex64)
+
+
+def _idct_twiddle(n: int) -> np.ndarray:
+    """exp(i pi k / (2n)) / (2 f_k): the inverse's twiddle."""
+    return (1.0 / _dct_twiddle(n).astype(np.complex128)).astype(np.complex64)
+
+
+def dct_ortho(x: torch.Tensor, dim: int, consts: DeviceConsts) -> torch.Tensor:
+    """``dct(x, type=2, norm='ortho', axis=dim)`` of a real tensor by one
+    FFT: v = (x[0], x[2], ..., x[3], x[1]), X_k = Re(fft(v)_k 2 f_k
+    exp(-i pi k / 2n))."""
+    x = x.transpose(dim, -1)
+    n = x.shape[-1]
+    v = torch.cat([x[..., ::2], x[..., 1::2].flip(-1)], dim=-1)
+    tw = consts.get(("dct_twiddle", n), lambda: _dct_twiddle(n))
+    return (torch.fft.fft(v) * tw).real.transpose(dim, -1)
+
+
+def idct_ortho(X: torch.Tensor, dim: int, consts: DeviceConsts) -> torch.Tensor:
+    """The inverse of ``dct_ortho`` (``idct(X, type=2, norm='ortho')``): with
+    Y_k = X_k / 2 f_k, fft(v)_k = (Y_k - i Y_{n-k}) exp(i pi k / 2n) (Y_n =
+    0) is Hermitian, so v is one inverse real FFT of its first half; the
+    even/odd reordering is then undone."""
+    X = X.transpose(dim, -1)
+    n = X.shape[-1]
+    h = n // 2 + 1
+    tw = consts.get(("idct_twiddle", n), lambda: _idct_twiddle(n))
+    y_rev = torch.cat([torch.zeros_like(X[..., :1]), X[..., 1:].flip(-1)], dim=-1)
+    V = torch.complex(X[..., :h], -y_rev[..., :h]) * tw[:h]
+    v = torch.fft.irfft(V, n=n)
+    x = torch.empty_like(X)
+    ne = (n + 1) // 2
+    x[..., ::2] = v[..., :ne]
+    x[..., 1::2] = v[..., ne:].flip(-1)
+    return x.transpose(dim, -1)
+
+
 def _poisson_dct_solve(rho: torch.Tensor, consts: DeviceConsts) -> torch.Tensor:
-    """Neumann Poisson solve Laplacian(phi) = rho via DCT-II matmuls."""
+    """Neumann Poisson solve Laplacian(phi) = rho via DCT-II: dense matmuls
+    below ``_DCT_FFT_MIN_PX``, FFTs from it on."""
     h, w = rho.shape
+    denom = consts.get(("poisson_denom", h, w), lambda: _poisson_denominator(h, w))
     if not dense_dct_solve((h, w)):
-        raise NotImplementedError(f"{h}x{w} unwrap solve: the FFT-based DCT "
-                                  f"(min side >= {_DCT_FFT_MIN_PX}) is not ported")
+        out = dct_ortho(dct_ortho(rho, 0, consts), 1, consts) / denom
+        out[0, 0] = 0.0
+        return idct_ortho(idct_ortho(out, 0, consts), 1, consts)
     Dh = consts.get(("dct", h), lambda: _dct2_matrix(h))
     Dw = consts.get(("dct", w), lambda: _dct2_matrix(w))
-    denom = consts.get(("poisson_denom", h, w), lambda: _poisson_denominator(h, w))
     out = torch.matmul(torch.matmul(Dh, rho), Dw.T) / denom
     out[0, 0] = 0.0
     return torch.matmul(torch.matmul(Dh.T, out), Dw)

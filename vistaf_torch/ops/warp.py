@@ -1,8 +1,10 @@
-"""Gather-free warps (JAX ``ops/warp.py``): global translation, the
-two-pass shear warp and the Paeth three-shear rotation (``translate_bilinear``,
+"""Warps (JAX ``ops/warp.py``): the bilinear gather sampler with OpenCV's
+border folds (``sample_bilinear``, ``sample_bilinear_stack``,
+``warp_affine_inverse_map``: the parity preset's ECC sampler and its final
+warp), and the gather-free ones: global translation, the two-pass shear
+warp and the Paeth three-shear rotation (``translate_bilinear``,
 ``shear_warp_stack``, ``warp_affine_inverse_shear``, ``line_shift_frac``,
-``rotate_stack_shear``), and ``rotation_matrix``.  The bilinear gather
-sampler is not ported yet."""
+``rotate_stack_shear``), and ``rotation_matrix``."""
 from __future__ import annotations
 
 import math
@@ -11,6 +13,99 @@ import numpy as np
 import torch
 
 from vistaf_torch.ops.padding import pad_last2
+
+
+def _fold_symmetric(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """BORDER_REFLECT (symmetric) index folding: fedcba|abcdef|fedcba."""
+    period = 2 * n
+    m = torch.remainder(idx, period)
+    return torch.where(m >= n, period - 1 - m, m)
+
+
+def _fold_reflect101(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """BORDER_REFLECT_101 folding: gfedcb|abcdefg|fedcba."""
+    if n == 1:
+        return torch.zeros_like(idx)
+    period = 2 * (n - 1)
+    m = torch.remainder(idx, period)
+    return torch.where(m >= n, period - m, m)
+
+
+def _bilinear(corners, fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
+    """Blend of the four corner samples (a b / c d), rows first."""
+    a, b, c, d = corners
+    top = a * (1.0 - fx) + b * fx
+    bot = c * (1.0 - fx) + d * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def sample_bilinear(img: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                    border: str = "reflect") -> torch.Tensor:
+    """Bilinear sample of the (H, W) plane ``img`` at float coordinates
+    (sy, sx): 'reflect' folds indices symmetrically (BORDER_REFLECT),
+    'reflect101' as BORDER_REFLECT_101, anything else clamps them and reads
+    zeros outside [0, w - 1] x [0, h - 1] ('constant0').  Four gathers of
+    the flat plane at explicit row-major indices."""
+    h, w = img.shape
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    fx = (sx - x0).to(torch.float32)
+    fy = (sy - y0).to(torch.float32)
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    if border == "reflect":
+        fold_y, fold_x = (lambda i: _fold_symmetric(i, h)), (lambda i: _fold_symmetric(i, w))
+    elif border == "reflect101":
+        fold_y, fold_x = (lambda i: _fold_reflect101(i, h)), (lambda i: _fold_reflect101(i, w))
+    else:
+        fold_y, fold_x = (lambda i: torch.clamp(i, 0, h - 1)), (lambda i: torch.clamp(i, 0, w - 1))
+    ya, yb = fold_y(y0i) * w, fold_y(y0i + 1) * w
+    xa, xb = fold_x(x0i), fold_x(x0i + 1)
+    flat = img.reshape(-1)
+    out = _bilinear([flat.take(ya + xa), flat.take(ya + xb), flat.take(yb + xa),
+                     flat.take(yb + xb)], fx, fy)
+    if border not in ("reflect", "reflect101"):
+        inside = (sx >= 0) & (sx <= w - 1) & (sy >= 0) & (sy <= h - 1)
+        out = torch.where(inside, out, 0.0)
+    return out
+
+
+def sample_bilinear_stack(stack: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor
+                          ) -> torch.Tensor:
+    """Bilinear sample of a channel-first (C, H, W) stack at float
+    coordinates (sy, sx), one index computation for all C channels: indices
+    clamped into the plane, zeros outside [0, w - 1] x [0, h - 1].  The JAX
+    ``sample_bilinear_stack`` takes (H, W, C); this returns (C, *sy.shape)."""
+    C, h, w = stack.shape
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    fx = (sx - x0).to(torch.float32)
+    fy = (sy - y0).to(torch.float32)
+    x0i = torch.clamp(x0.to(torch.int64), 0, w - 1)
+    y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
+    x1i = torch.clamp(x0i + 1, 0, w - 1)
+    y1i = torch.clamp(y0i + 1, 0, h - 1)
+    flat = stack.reshape(C, -1)
+
+    def take(iy, ix):
+        return flat.index_select(1, (iy * w + ix).reshape(-1)).reshape(C, *sy.shape)
+
+    out = _bilinear([take(y0i, x0i), take(y0i, x1i), take(y1i, x0i), take(y1i, x1i)],
+                    fx, fy)
+    inside = (sx >= 0) & (sx <= w - 1) & (sy >= 0) & (sy <= h - 1)
+    return torch.where(inside, out, 0.0)
+
+
+def warp_affine_inverse_map(img: torch.Tensor, M: torch.Tensor,
+                            border: str = "reflect") -> torch.Tensor:
+    """cv2.warpAffine(img, M, INTER_LINEAR | WARP_INVERSE_MAP) of an (H, W)
+    plane: dst(x, y) = src(M00 x + M01 y + M02, M10 x + M11 y + M12)."""
+    h, w = img.shape
+    yy = torch.arange(h, dtype=torch.float32, device=img.device)[:, None].expand(h, w)
+    xx = torch.arange(w, dtype=torch.float32, device=img.device)[None, :].expand(h, w)
+    sx = M[0, 0] * xx + M[0, 1] * yy + M[0, 2]
+    sy = M[1, 0] * xx + M[1, 1] * yy + M[1, 2]
+    return sample_bilinear(img.to(torch.float32), sy, sx, border=border)
 
 
 def hat_resample_axis(S: torch.Tensor, disp: torch.Tensor, K: int, axis: int,

@@ -251,11 +251,11 @@ class TemperaturePipeline:
 
         wide_map = inpaint_within_roi(wide_map_raw, roi_full_c,
                                       ~torch.isfinite(wide_map_raw) & roi_full_c,
-                                      iters=cfg.wide_inpaint_iters)
+                                      iters=cfg.wide_inpaint_iters, quantize_u8=True)
         wide_map = clamp_map(wide_map, roi_full_c, cfg.final_t_min, cfg.final_t_max)
         color_map = inpaint_within_roi(color_map_raw, color_support,
                                        ~torch.isfinite(color_map_raw) & color_support,
-                                       iters=cfg.color_inpaint_iters)
+                                       iters=cfg.color_inpaint_iters, quantize_u8=True)
         color_map = clamp_map(color_map, color_support,
                               cfg.color_t_min - 5.0, cfg.color_t_max + 5.0)
 
