@@ -8,7 +8,9 @@ Phases, one line each, any failure raises and exits non-zero:
   3. kernels: each of the eight kernels against its plain PyTorch version on
      the card at the shapes its paths give it (K3 also at the parity
      paths': the demod's pair of 236x236 crops, 24 iterations, the pair of
-     1182x1182 crops and the hole fill's 1182x1182 plane, 64; 236x236 planes for K1, K3,
+     1182x1182 crops and the hole fill's 1182x1182 plane, 64, and the
+     temperature parity path's full 2160x3840 plane, the WIDE fill's 96
+     iterations and the COLOR fill's 48; 236x236 planes for K1, K3,
      K5, K6, K7; the 295x295 coarse ECC grid for K4, its whole loop unseeded
      under the native-4K preset's iterations, eps and stall patience, the
      loop seeded, and one iteration's matrix; the 1182x1182 crop of the
@@ -57,7 +59,22 @@ Phases, one line each, any failure raises and exits non-zero:
      CPU run is gated the same way (force 1%, ECC 0.05 px) at 640x480 and
      only reported at 2160x3840, where the scene leaves the parity ECC's ty
      undetermined (``ALIGNMENT_UNDETERMINED``); its line also gives the
-     CPU run's seconds;
+     CPU run's seconds; and ``ForcePipeline.from_artifacts`` over
+     calibration JSONs written to a temporary directory gives the parity640
+     force of the constructor-built pipeline;
+  8c. the temperature parity preset (``TempConfig()``, the CLI's default
+     temperature numerics) at 2160x3840 (phase ``temp4k_parity``): K3 must
+     launch exactly twice a frame (the WIDE and COLOR fills) and no other
+     kernel; against the port's CPU run the gates of phase 6; the gap to the
+     deploy preset on the same frame is reported, not gated;
+  8d. multimodal under the parity presets (``FTPConfig()`` and
+     ``TempConfig()``) at 2160x3840 (phase ``mm4k_parity``): K3 exactly four
+     times a frame and no other kernel, in ``__call__`` and in
+     ``step_fused(scalars)``; ``__call__`` bit-equal to the two pipelines
+     alone, ``step_fused`` within the gates of phase 7 and its scalar fetch
+     one device-to-host copy; the force held to the port's CPU run given the
+     card's alignment as on ``parity4k`` (free-running only reported), the
+     temperature to the CPU run with the gates of phase 6;
   9. timing: steady-state p50/p90, fps and the host syncs one frame makes,
      for each path (fewer frames at 4K; the temperature path both through
      __call__, which fetches every map, and through stats(); multimodal
@@ -99,8 +116,8 @@ SHIFT_ATOL_PX = 0.02
 # 19-23 iterations and ty by 0.1-0.2 px), so the card's and the CPU's
 # global shifts, ~0.006 px apart, end 0.4 px apart in ty and 3.6% apart in
 # force (x17 through the 4K growth model)
-SAME_ALIGNMENT_PATHS = ("parity640", "parity4k")
-ALIGNMENT_UNDETERMINED = ("parity4k",)
+SAME_ALIGNMENT_PATHS = ("parity640", "parity4k", "mm4k_parity")
+ALIGNMENT_UNDETERMINED = ("parity4k", "mm4k_parity")
 # the temperature deploy contract (the JAX TempConfig.deploy): scene mean
 # within 0.1 degC, hottest/coldest pixel within 0.75 degC
 T_MEAN_ATOL, T_EXTREME_ATOL, VALID_RTOL, COLOR_MIN_SHARE = 0.1, 0.75, 0.005, 0.01
@@ -120,12 +137,18 @@ PATH_KERNELS = {
                    "unwrap_wls", "robust_polyfit2d"),
     "parity640": ("inpaint_diffusion",),
     "parity4k": ("inpaint_diffusion",),
+    "temp4k_parity": ("inpaint_diffusion",),
+    "mm4k_parity": ("inpaint_diffusion",),
 }
 # the parity paths' whole launch count a frame: K3 in the demod and in the
-# hole fill, every other kernel none (sort percentiles, the gather ECC, the
-# plain PCG and the non-fused IRLS are the JAX package's XLA routes on a TPU)
+# hole fill of the force path, in the WIDE and COLOR fills of the
+# temperature path, every other kernel none (sort percentiles, the gather
+# ECC, the plain PCG, the non-fused IRLS and the unfused LAB and models are
+# the JAX package's XLA routes on a TPU)
 PATH_EXACT_LAUNCHES = {"parity640": {"inpaint_diffusion": 2},
-                       "parity4k": {"inpaint_diffusion": 2}}
+                       "parity4k": {"inpaint_diffusion": 2},
+                       "temp4k_parity": {"inpaint_diffusion": 2},
+                       "mm4k_parity": {"inpaint_diffusion": 4}}
 # the multimodal gates of tests/test_multimodal_fused.py: step_fused(maps)
 # against __call__, step_fused(scalars) against step_fused(maps)
 MM_HEIGHT_RTOL, MM_HEIGHT_ATOL, MM_SCALAR_REL = 1e-5, 1e-6, 1e-4
@@ -416,6 +439,37 @@ def kernel_cases(device):
                    t(geometry.circular_mask(hu, wu, wu / 2, hu / 2, wu / 2 - 6)), consts,
                    cfg.unwrap_cg_iters, cfg.unwrap_cg_tol)
 
+    # K3 at the temperature parity path's shapes (drawn last): the full
+    # 2160x3840 plane of 8-bit levels, known on the outer ROI less 0.5% of
+    # holes for the WIDE fill's 96 iterations, on the ROI's light stripes
+    # (12 px, tilted 8 degrees) for the COLOR fill's 48; everything else is
+    # filled, as inpaint_within_roi asks it
+    pcfg = TempConfig()
+    levels = t(np.round(rng.uniform(0, 255, size=(H4K, W4K))).astype(np.float32))
+    known_w = roi_t & (rng.random((H4K, W4K)) > 0.005)
+    yt, xt = np.mgrid[0:H4K, 0:W4K].astype(np.float32)
+    stripes = np.cos((2.0 * np.pi / 12.0) * (np.cos(0.14) * xt + np.sin(0.14) * yt)) > 0
+    del yt, xt
+    k3_pw_args = (levels, t(~known_w), pcfg.wide_inpaint_iters)
+    k3_pc_args = (levels, t(~(known_w & stripes)), pcfg.color_inpaint_iters)
+
+    def k3_far_check(a, b, args):
+        """Bit-equal wherever a step reaches (within ``iters`` pixels of a
+        known one, Chebyshev); beyond, both hold the initial mean of ~3e6
+        known levels, whose float32 sums pass 2**24 and so round in each
+        one's order: within a relative 1e-6."""
+        import torch.nn.functional as F
+        it = int(args[2])
+        k = (~args[1]).to(torch.float32)[None, None]
+        near = F.max_pool2d(F.max_pool2d(k, (1, 2 * it + 1), 1, (0, it)),
+                            (2 * it + 1, 1), 1, (it, 0))[0, 0] > 0
+        assert torch.equal(a[near], b[near]), float((a[near] - b[near]).abs().max())
+        far = float((a[~near] - b[~near]).abs().max()) if bool((~near).any()) else 0.0
+        assert far <= 1e-6 * float(b.abs().max()), far
+        say("kernel_check", name="inpaint_diffusion", iters=it, reached_share=float(
+            near.float().mean()), unreached_max_abs_err=far)
+        return far
+
     k1 = ("masked_quantiles", "vistaf_torch/csrc/quantile.cu",
           "vistaf_tpu/pallas/quantile_kernel.py:91",
           quantile_kernel.masked_quantiles, quantile_kernel.masked_quantiles_plain)
@@ -443,6 +497,8 @@ def kernel_cases(device):
         (*k3, k3_par_args, k3_check),
         (*k3, k3_par4k_args, k3_check),
         (*k3, k3_hole4k_args, k3_check),
+        (*k3, k3_pw_args, lambda a, b: k3_far_check(a, b, k3_pw_args)),
+        (*k3, k3_pc_args, lambda a, b: k3_far_check(a, b, k3_pc_args)),
         ("fused_temperature", "vistaf_torch/csrc/temp.cu",
          "vistaf_tpu/pallas/temp_kernel.py:139", k8_fn, k8_plain, k8_args, k8_check),
         (*k5, k5_args, k5_check),
@@ -599,11 +655,12 @@ def record_launches(path: str, rows, launches, frames: int = 1) -> None:
         assert launches == want, f"{path} launches {launches}, expected {want}"
 
 
-def same_alignment(args, ref, de, res):
+def same_alignment(args, ref, de, res, roi_from_finite: bool = False):
     """The port's CPU run of the pair given the card's alignment: the global
     shift is the card's, the CPU solves its own ECC from there (returned
     beside the result, to hold against the card's warp), and the stages
-    after the ECC take the card's warp.  Returns (result, (warp, rho,
+    after the ECC take the card's warp; ``roi_from_finite`` as the
+    multimodal path calls the force.  Returns (result, (warp, rho,
     iterations) of the CPU's ECC, seconds)."""
     import torch
     import vistaf_torch.ftp.pipeline as ftp_pipeline
@@ -624,7 +681,7 @@ def same_alignment(args, ref, de, res):
     ftp_pipeline.phase_correlate = lambda a, b, win: (shift[0], shift[1], torch.zeros(()))
     try:
         t0 = time.perf_counter()
-        out = cpu(ref, de)
+        out = cpu(ref, de, roi_from_finite=roi_from_finite)
         return out, solved[0], time.perf_counter() - t0
     finally:
         ftp_pipeline.phase_correlate = phase_correlate
@@ -691,18 +748,45 @@ def run_path(path: str, device, rows, cfg, h: int, w: int):
     return fast, lambda: fast(ref, de)
 
 
-def run_temperature(device, rows):
-    """Drive TemperaturePipeline under TempConfig().deploy() once on the card
-    at 2160x3840 with the launch counts set to 0 just before, check K1, K3
-    and K8 launched and the result against the port's CPU run; returns the
+def check_from_artifacts(device, cfg, h: int, w: int) -> None:
+    """``ForcePipeline.from_artifacts`` over the two calibration JSONs of the
+    reference layout, written to a temporary directory, against the
+    pipeline built by its constructor from the same models, on the card and
+    the same pair: the same force (within rel 1e-6)."""
+    import os
+    import tempfile
+    from vistaf_torch.calib import artifacts
+    from vistaf_torch.config import HEIGHT_TO_FORCE_JSON, PHASE_TO_HEIGHT_JSON, ForceConfig
+    from vistaf_torch.pipelines.force import ForcePipeline
+    from vistaf_torch.utils.synthetic import synthetic_pair
+
+    ref, de = synthetic_pair(h, w, cfg, seed=SEED)
+    built = ForcePipeline(cfg, ForceConfig(), P2H_MODEL, FORCE_MODEL, device=device)(ref, de)
+    with tempfile.TemporaryDirectory() as root:
+        artifacts.save_json(os.path.join(root, PHASE_TO_HEIGHT_JSON),
+                            {"best_model": P2H_MODEL, "use_negated_height_for_fit": True})
+        artifacts.save_json(os.path.join(root, HEIGHT_TO_FORCE_JSON),
+                            {"best_model": FORCE_MODEL})
+        loaded = ForcePipeline.from_artifacts(root, cfg, device=device)
+    got = loaded(ref, de)
+    gap = abs(got["force_N"] - built["force_N"]) / abs(built["force_N"])
+    say("from_artifacts", force_N=got["force_N"], force_N_constructed=built["force_N"],
+        force_gap=gap)
+    assert loaded.force_model == FORCE_MODEL and loaded.ftp.p2h_model == P2H_MODEL
+    assert gap <= 1e-6, (got["force_N"], built["force_N"])
+
+
+def run_temperature(device, rows, cfg, path: str):
+    """Drive TemperaturePipeline under ``cfg`` (TempConfig().deploy() on the
+    ``temp4k`` path, TempConfig() on ``temp4k_parity``) once on the card at
+    2160x3840 with the launch counts set to 0 just before, check the path's
+    kernels launched and the result against the port's CPU run; returns the
     pipeline and the frame for timing."""
     import torch
     from vistaf_torch import kernels
-    from vistaf_torch.config import TempConfig
     from vistaf_torch.temperature.inference import STATS, TemperaturePipeline
     from vistaf_torch.utils.synthetic import synthetic_deploy_temp_weights, synthetic_tlc_frame
 
-    cfg = TempConfig().deploy()
     color, wide = synthetic_deploy_temp_weights(SEED)
     frame = synthetic_tlc_frame(H4K, W4K, cfg, SEED)
     gpu = TemperaturePipeline(cfg, color, wide, device=device)
@@ -711,7 +795,7 @@ def run_temperature(device, rows):
     res = gpu(frame)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    record_launches("temp4k", rows, launches)
+    record_launches(path, rows, launches)
     final = res["temperature_map_final"]
     roi = res["roi_outer"]
     assert final.shape == (H4K, W4K) and np.isfinite(final[roi]).mean() > 0.99
@@ -731,14 +815,14 @@ def run_temperature(device, rows):
              for k in ("mask_dark", "mask_sat", "mask_color_support")}
     fa, fb = np.isfinite(final), np.isfinite(res_cpu["temperature_map_final"])
     both = fa & fb
-    say("end_to_end", path="temp4k", **{k: float(res[k]) for k in STATS},
+    say("end_to_end", path=path, **{k: float(res[k]) for k in STATS},
         seg_peak_xy=res["seg_peak_xy"].tolist(), seg_peak_xy_cpu=res_cpu["seg_peak_xy"].tolist(),
         **{f"{k}_cpu": float(res_cpu[k]) for k in ("t_mean", "t_min", "t_max")},
         **{f"{k}_gap": v for k, v in gaps.items()}, valid_pixels_gap=valid_gap,
         color_share_of_roi=color_share, mask_agreement=agree,
         final_map_max_gap=float(np.abs(final[both] - res_cpu["temperature_map_final"][both]).max()),
         final_finite_agreement=float(np.mean(fa == fb)), cpu_seconds=cpu_s,
-        compute_bbox=list(gpu._compute_bbox), launches=launches)
+        compute_bbox=gpu._compute_bbox and list(gpu._compute_bbox), launches=launches)
     np.testing.assert_array_equal(res["seg_peak_xy"], res_cpu["seg_peak_xy"])
     assert gaps["t_mean"] <= T_MEAN_ATOL, gaps
     assert gaps["t_min"] <= T_EXTREME_ATOL and gaps["t_max"] <= T_EXTREME_ATOL, gaps
@@ -783,23 +867,26 @@ def d2h_copies(fn):
     return len(copies), [int(e["args"]["bytes"]) for e in copies]
 
 
-def run_multimodal(device, rows, force, temp):
+def run_multimodal(device, rows, force, temp, path: str, timed_force=None):
     """Drive MultimodalPipeline at 2160x3840 on the card over the 4K force
-    and temperature pipelines built above, on a frame pair that carries the
-    grating and the thermochromic colours: ``__call__`` (launches counted
-    from 0 over that frame), then ``step_fused`` with both fetches, each
-    held to its gates; the device-to-host copies of the scalar fetch; the
-    port's CPU run of the same frames.  Returns (pipeline, ref, def)."""
+    and temperature pipelines built above (the deploy presets on the
+    ``mm4k`` path, the parity presets on ``mm4k_parity``), on a frame pair
+    that carries the grating and the thermochromic colours: ``__call__``
+    (launches counted from 0 over that frame), then ``step_fused`` with both
+    fetches, each held to its gates; the device-to-host copies of the scalar
+    fetch; the port's CPU run of the same frames (on a parity path the force
+    also given the card's alignment).  Returns (pipeline to time, ref, def):
+    over ``timed_force`` where one is given."""
     import torch
     from vistaf_torch import kernels
-    from vistaf_torch.config import ForceConfig, FTPConfig, TempConfig
+    from vistaf_torch.config import ForceConfig
     from vistaf_torch.pipelines.force import ForcePipeline
     from vistaf_torch.pipelines.multimodal import MultimodalPipeline, temperature_stats
     from vistaf_torch.temperature.inference import TemperaturePipeline
     from vistaf_torch.utils.synthetic import (synthetic_deploy_temp_weights, synthetic_pair,
                                               synthetic_tlc_frame)
 
-    fcfg, tcfg = FTPConfig().deploy(), TempConfig().deploy()
+    fcfg, tcfg = force.ftp.cfg, temp.cfg
     ref_g, de_g = synthetic_pair(H4K, W4K, fcfg, seed=SEED)
     tlc = synthetic_tlc_frame(H4K, W4K, tcfg, SEED)
     ref, de = compose_multimodal_frame(ref_g, tlc), compose_multimodal_frame(de_g, tlc)
@@ -810,7 +897,7 @@ def run_multimodal(device, rows, force, temp):
     seq = mm(ref, de)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    record_launches("mm4k", rows, launches)
+    record_launches(path, rows, launches)
 
     # the sequential path is the two pipelines alone, bit for bit
     de_t = mm.ingest(de)
@@ -858,7 +945,8 @@ def run_multimodal(device, rows, force, temp):
     t0 = time.perf_counter()
     color, wide = synthetic_deploy_temp_weights(SEED)
     cpu = MultimodalPipeline(
-        ForcePipeline(fcfg, ForceConfig(), P2H_MODEL, FORCE_MODEL, device="cpu"),
+        ForcePipeline(fcfg, ForceConfig(), P2H_MODEL, FORCE_MODEL,
+                      debug_outputs=force.ftp.debug_outputs, device="cpu"),
         TemperaturePipeline(tcfg, color, wide, device="cpu"))(ref, de)
     cpu_s = time.perf_counter() - t0
     cs, ts = cpu["temperature_stats"], seq["temperature_stats"]
@@ -866,21 +954,43 @@ def run_multimodal(device, rows, force, temp):
             "t_mean": abs(ts["mean_C"] - cs["mean_C"]), "t_min": abs(ts["min_C"] - cs["min_C"]),
             "t_max": abs(ts["max_C"] - cs["max_C"]),
             "valid": abs(ts["valid_pixels"] - cs["valid_pixels"]) / cs["valid_pixels"]}
-    say("end_to_end", path="mm4k", force_N=fs["force_N"], force_N_cpu=cpu["force"]["force_N"],
+    say("end_to_end", path=path, force_N=fs["force_N"], force_N_cpu=cpu["force"]["force_N"],
         ecc_warp=fs["dbg_ecc_warp"].tolist() if "dbg_ecc_warp" in fs else None,
         temperature_stats=ts, temperature_stats_cpu=cs, gaps=gaps,
         color_share_of_roi=color_share, scalars=sc, cpu_seconds=cpu_s,
         d2h_copies_forward=base_n, d2h_copies_scalars=fetch_n,
         d2h_bytes_scalars_fetch=extra_b, d2h_bytes_scalars_step=sum(fetch_b),
-        launches=launches, launches_fused_scalars=launches_fused)
+        launches=launches, launches_fused_scalars=launches_fused,
+        gated=path not in ALIGNMENT_UNDETERMINED)
     assert np.isfinite(fs["force_N"]) and fs["force_N"] > 0.0, fs["force_N"]
-    assert gaps["force"] <= FORCE_RTOL, gaps
+    if path in SAME_ALIGNMENT_PATHS:
+        args = (fcfg, ForceConfig(), P2H_MODEL, FORCE_MODEL)
+        same, (warp_s, rho_s, it_s), same_s = same_alignment(args, ref, de, fs,
+                                                             roi_from_finite=True)
+        shift_gap = float(np.abs(fs["dbg_global_shift"]
+                                 - cpu["force"]["dbg_global_shift"]).max())
+        same_gap = abs(fs["force_N"] - same["force_N"]) / abs(same["force_N"])
+        same_warp_gap = float(np.abs(fs["dbg_ecc_warp"] - warp_s.numpy())[:, 2].max())
+        say("same_alignment", path=path, force_N=fs["force_N"], force_N_cpu=same["force_N"],
+            force_gap=same_gap, global_shift_gap_px=shift_gap, ecc_warp_cpu=warp_s.tolist(),
+            ecc_warp=fs["dbg_ecc_warp"].tolist(), ecc_iters=int(fs["dbg_ecc_iters"]),
+            ecc_iters_cpu=int(it_s), ecc_warp_gap_px=same_warp_gap, cpu_seconds=same_s)
+        assert shift_gap <= SHIFT_ATOL_PX, shift_gap
+        assert same_warp_gap < ECC_ATOL_PX, same_warp_gap
+        assert same_gap <= FORCE_RTOL, (fs["force_N"], same["force_N"])
+    if path not in ALIGNMENT_UNDETERMINED:
+        assert gaps["force"] <= FORCE_RTOL, gaps
     assert gaps["t_mean"] <= T_MEAN_ATOL, gaps
     assert gaps["t_min"] <= T_EXTREME_ATOL and gaps["t_max"] <= T_EXTREME_ATOL, gaps
     assert gaps["valid"] <= VALID_RTOL, gaps
     assert ts["valid_pixels"] > 0 and color_share >= COLOR_MIN_SHARE, (ts, color_share)
-    for name in PATH_KERNELS["mm4k"]:
+    for name in PATH_KERNELS[path]:
         assert launches_fused[name] > 0, f"{name} was not launched by step_fused"
+    if path in PATH_EXACT_LAUNCHES:
+        want = {k: PATH_EXACT_LAUNCHES[path].get(k, 0) for k in launches_fused}
+        assert launches_fused == want, (launches_fused, want)
+    if timed_force is not None:
+        mm = MultimodalPipeline(timed_force, temp)
     return mm, ref, de
 
 
@@ -1046,7 +1156,7 @@ def main() -> int:
     kernels.library()
     say("build", seconds=time.perf_counter() - t0, library=so.name)
 
-    from vistaf_torch.config import FTPConfig, slice_ftp_config
+    from vistaf_torch.config import FTPConfig, TempConfig, slice_ftp_config
     from vistaf_torch.utils.synthetic import scaled_ftp_config
     device = torch.device("cuda", 0)
     clock = {"build": time.perf_counter() - t0}
@@ -1058,19 +1168,37 @@ def main() -> int:
     lap("kernels")
     runs = {"640": run_path("640", device, rows, slice_ftp_config(H, W), H, W)[1]}
     force4k, runs["4k"] = run_path("4k", device, rows, FTPConfig().deploy(), H4K, W4K)
-    temp, frame = run_temperature(device, rows)
+    temp, frame = run_temperature(device, rows, TempConfig().deploy(), "temp4k")
     runs["temp4k"] = lambda: temp(frame)
     runs["temp4k_stats"] = lambda: temp.stats(frame)
     lap("end_to_end")
-    mm, mm_ref, mm_def = run_multimodal(device, rows, force4k, temp)
+    mm, mm_ref, mm_def = run_multimodal(device, rows, force4k, temp, "mm4k")
     runs["mm4k"] = lambda: mm(mm_ref, mm_def)
     runs["mm4k_scalars"] = lambda: mm.step_fused(mm_ref, mm_def, fetch="scalars")
     lap("mm4k")
     runs["streams640"] = run_streams(device, rows, card)
     lap("streams640")
     runs["parity640"] = run_path("parity640", device, rows, scaled_ftp_config(H, W), H, W)[1]
-    runs["parity4k"] = run_path("parity4k", device, rows, FTPConfig(), H4K, W4K)[1]
+    check_from_artifacts(device, scaled_ftp_config(H, W), H, W)
+    force_p4k, runs["parity4k"] = run_path("parity4k", device, rows, FTPConfig(), H4K, W4K)
     lap("parity")
+    temp_p, frame_p = run_temperature(device, rows, TempConfig(), "temp4k_parity")
+    dep, par = temp.stats(frame_p), temp_p.stats(frame_p)
+    say("parity_vs_deploy", path="temp4k_parity", gated=False,
+        **{f"{k}_gap": float(par[k]) - float(dep[k]) for k in ("t_mean", "t_min", "t_max")},
+        valid_pixels=int(par["valid_pixels"]), valid_pixels_deploy=int(dep["valid_pixels"]))
+    runs["temp4k_parity"] = lambda: temp_p(frame_p)
+    runs["temp4k_parity_stats"] = lambda: temp_p.stats(frame_p)
+    lap("temp4k_parity")
+    from vistaf_torch.config import ForceConfig
+    from vistaf_torch.pipelines.force import ForcePipeline
+    debug_p4k = ForcePipeline(FTPConfig(), ForceConfig(), P2H_MODEL, FORCE_MODEL,
+                              debug_outputs=True, device=device)
+    mmp, mmp_ref, mmp_def = run_multimodal(device, rows, debug_p4k, temp_p, "mm4k_parity",
+                                           timed_force=force_p4k)
+    runs["mm4k_parity"] = lambda: mmp(mmp_ref, mmp_def)
+    runs["mm4k_parity_scalars"] = lambda: mmp.step_fused(mmp_ref, mmp_def, fetch="scalars")
+    lap("mm4k_parity")
     phase_timing("640", runs["640"], card, frames=20, warmup=3)
     phase_timing("4k", runs["4k"], card, frames=5, warmup=2)
     phase_timing("temp4k", runs["temp4k"], card, frames=6, warmup=2)
@@ -1079,6 +1207,10 @@ def main() -> int:
     phase_timing("mm4k_scalars", runs["mm4k_scalars"], card, frames=5, warmup=2)
     phase_timing("parity640", runs["parity640"], card, frames=10, warmup=2)
     phase_timing("parity4k", runs["parity4k"], card, frames=3, warmup=1)
+    phase_timing("temp4k_parity", runs["temp4k_parity"], card, frames=3, warmup=1)
+    phase_timing("temp4k_parity_stats", runs["temp4k_parity_stats"], card, frames=3, warmup=1)
+    phase_timing("mm4k_parity", runs["mm4k_parity"], card, frames=3, warmup=1)
+    phase_timing("mm4k_parity_scalars", runs["mm4k_parity_scalars"], card, frames=3, warmup=1)
     lap("timing")
     phase_profile("640", runs["640"], frames=5)
     phase_profile("4k", runs["4k"], frames=2)
@@ -1087,6 +1219,8 @@ def main() -> int:
     phase_profile("streams640", runs["streams640"], frames=2)
     phase_profile("parity640", runs["parity640"], frames=2)
     phase_profile("parity4k", runs["parity4k"], frames=1)
+    phase_profile("temp4k_parity_stats", runs["temp4k_parity_stats"], frames=1)
+    phase_profile("mm4k_parity_scalars", runs["mm4k_parity_scalars"], frames=1)
     lap("profile")
     say("clock", seconds=clock, total=time.perf_counter() - t0)
 

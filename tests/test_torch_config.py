@@ -113,7 +113,7 @@ def test_pipeline_requires_an_explicit_device_and_a_ported_config():
         FTPPipeline.check_config(ported)
     with pytest.raises(ValueError, match="percentile method"):
         from vistaf_torch.ops.percentile import get_percentile_fn
-        get_percentile_fn("hist")
+        get_percentile_fn("bisect")
     assert FTPGeometry.from_config(cfg).bbox == (204, 440, 143, 379)
 
 

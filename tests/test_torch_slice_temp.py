@@ -112,16 +112,26 @@ def test_geometry_matches(both):
 
 
 def test_check_config_accepts_deploy_and_rejects_the_unported_knobs():
+    """Every knob value of the JAX package is ported now: each one the list
+    names, alone on the deploy preset, is accepted and builds a pipeline,
+    and so do odd frame sides; only a value the JAX package does not know
+    raises."""
     from vistaf_torch.config import TempConfig
     import inspect
     TemperaturePipeline.check_config(TempConfig().deploy())
+    TemperaturePipeline.check_config(TempConfig())
     assert inspect.signature(TemperaturePipeline).parameters["device"].default == "cuda"
     dep = TempConfig().deploy()
+    color, wide = synthetic_deploy_temp_weights(seed=0)
     for knob, value in (("rotate_method", "gather"), ("seg_peak_method", "topk"),
                         ("seg_bandpass", "fft"), ("seg_fft", "fft2"),
                         ("percentile_method", "sort"), ("percentile_method", "hist"),
-                        ("use_fused_kernel", False)):
-        with pytest.raises(NotImplementedError, match=knob):
-            TemperaturePipeline.check_config(dep.replace(**{knob: value}))
-    with pytest.raises(NotImplementedError, match="seg_fft"):
-        TemperaturePipeline.check_config(dep.replace(image_width=3841))
+                        ("use_fused_kernel", False), ("seg_force_right_half_plane", False),
+                        ("image_width", 3841)):
+        cfg = dep.replace(**{knob: value})
+        TemperaturePipeline.check_config(cfg)
+        assert TemperaturePipeline(cfg, color, wide, device="cpu").cfg == cfg
+    for knob in ("rotate_method", "seg_peak_method", "seg_bandpass", "seg_fft",
+                 "percentile_method"):
+        with pytest.raises(ValueError, match=knob):
+            TemperaturePipeline.check_config(dep.replace(**{knob: "bogus"}))

@@ -3,24 +3,35 @@
 A fitted temperature model is StandardScaler -> PolynomialFeatures ->
 HuberRegressor, optionally followed by an isotonic calibrator.  The JAX
 package exports those fitted parameters once into ``TempModelWeights``;
-the port keeps the same fields, and ``from_numpy`` carries a JAX export
-across.  ``from_joblib`` and ``load_reference_models`` (which need sklearn,
-joblib and the reference artifacts) are not ported yet.
+the port keeps the same fields.  ``from_joblib`` reads a reference joblib
+bundle (it needs joblib and sklearn, imported only there),
+``load_reference_models`` the newest pair under a data root, and
+``from_numpy`` carries a JAX export across.
 
-``TempModelWeights.tables`` packs the model into the float32 tables that
-the fused per-pixel kernel and its plain version read (``kernels/temp_kernel.py``),
-with the JAX Pallas kernel's roundings: every constant is the float32
-rounding of a float64 value formed on the host.
+Two evaluations: ``TempModelWeights.predict``, the unfused path of the
+parity preset, in the JAX ``predict``'s order; and ``tables``, which packs
+the model into the float32 tables that the fused per-pixel kernel and its
+plain version read (``kernels/temp_kernel.py``), with the JAX Pallas
+kernel's roundings: every constant is the float32 rounding of a float64
+value formed on the host.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import glob
 import os
 from itertools import combinations_with_replacement
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
+
+from vistaf_torch.config import TEMP_COLOR_MODEL_GLOB, TEMP_WIDE_MODEL_GLOB
+
+# np.spacing(np.finfo(np.float32).eps): jnp.interp's test for a zero-width
+# knot interval
+_INTERP_EPS = float(np.spacing(np.finfo(np.float32).eps))
 
 
 class PolyTables(NamedTuple):
@@ -85,6 +96,44 @@ class TempModelWeights:
                           powers[keep].astype(np.uint8), coef[keep].astype(np.float32),
                           np.float32(self.intercept), segs, y_first)
 
+    @functools.cached_property
+    def _on_device(self) -> Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]]:
+        return {}
+
+    def predict(self, X: torch.Tensor) -> torch.Tensor:
+        """Evaluate on features ``X`` (..., F) -> (...,) float32, in the JAX
+        ``predict``'s order: the scaled features (X - mean) * (1 / scale),
+        as XLA compiles the division by a constant; each term's features in
+        feature order, each a product of its exponent's copies; then
+        ``out + c * term`` term by term from the intercept, skipping zero
+        coefficients; then the isotonic calibrator as ``jnp.interp``."""
+        mean = np.asarray(self.scaler_mean, np.float32)
+        rscale = np.float32(1.0) / np.asarray(self.scaler_scale, np.float32)
+        X = X.to(torch.float32)
+        xs = [(X[..., f] - float(mean[f])) * float(rscale[f]) for f in range(X.shape[-1])]
+        out = torch.full(X.shape[:-1], float(np.float32(self.intercept)),
+                         dtype=torch.float32, device=X.device)
+        powers = np.asarray(self.powers)
+        for c, row in zip(np.asarray(self.coef, np.float64).ravel(), powers):
+            if c == 0.0:
+                continue
+            term = None
+            for f, e in enumerate(row):
+                if e == 0:
+                    continue
+                contrib = xs[f]
+                for _ in range(int(e) - 1):
+                    contrib = contrib * xs[f]
+                term = contrib if term is None else term * contrib
+            out = out + float(c) if term is None else out + float(c) * term
+        if self.iso_x is None:
+            return out
+        if X.device not in self._on_device:
+            self._on_device[X.device] = tuple(
+                torch.as_tensor(np.asarray(v, np.float32), device=X.device)
+                for v in (self.iso_x, self.iso_y))
+        return interp(out, *self._on_device[X.device])
+
     # ------------------------------------------------------------------
     def save_npz(self, path: str) -> None:
         d = {
@@ -146,6 +195,78 @@ def from_numpy(d: Dict[str, Any]) -> TempModelWeights:
     )
     w.tables
     return w
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """``jnp.interp(x, xp, fp)`` for increasing knots ``xp`` (repeats
+    allowed): fp[0] below the first knot, fp[-1] above the last, linear in
+    between; the interval of x is the last knot <= x (a NaN sorts above
+    every knot), and a zero-width interval gives its left value.  So a NaN
+    gives NaN, unless the last two knots coincide."""
+    n = xp.numel()
+    i = torch.searchsorted(xp, x.contiguous(), right=True)
+    i = torch.clamp(torch.where(torch.isnan(x), n, i), 1, n - 1)
+    x0, f0 = xp[i - 1], fp[i - 1]
+    df = fp[i] - f0
+    dx = xp[i] - x0
+    dx0 = torch.abs(dx) <= _INTERP_EPS
+    f = torch.where(dx0, f0, f0 + ((x - x0) / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def from_joblib(path: str, name: str = "model") -> TempModelWeights:
+    """Export a reference joblib bundle ({model, use_features,
+    isotonic_calibrator, ...}: StandardScaler -> PolynomialFeatures ->
+    HuberRegressor, optionally an IsotonicRegression) into plain weights.
+    Needs joblib and sklearn; raises ImportError where they are absent."""
+    import joblib
+    obj = joblib.load(path)
+    if not (isinstance(obj, dict) and "model" in obj):
+        raise RuntimeError(f"Unrecognized joblib format: {path}")
+    pipe = obj["model"]
+    sc = pipe.named_steps["standardscaler"]
+    poly = pipe.named_steps["polynomialfeatures"]
+    hub = pipe.named_steps["huberregressor"]
+    iso = obj.get("isotonic_calibrator", None)
+    iso_x = iso_y = None
+    if iso is not None:
+        iso_x = np.asarray(iso.X_thresholds_, np.float64)
+        iso_y = np.asarray(iso.y_thresholds_, np.float64)
+    return TempModelWeights(
+        name=str(obj.get("name", name)),
+        feature_names=tuple(obj["use_features"]),
+        scaler_mean=np.asarray(sc.mean_, np.float64),
+        scaler_scale=np.asarray(sc.scale_, np.float64),
+        powers=np.asarray(poly.powers_, np.int32),
+        coef=np.asarray(hub.coef_, np.float64).ravel(),
+        intercept=float(np.ravel(hub.intercept_)[0]),
+        poly_degree=int(poly.degree),
+        iso_x=iso_x,
+        iso_y=iso_y,
+    )
+
+
+def resolve_latest(pattern: str) -> str:
+    """The newest file (by modification time) matching the glob ``pattern``."""
+    matches = glob.glob(pattern)
+    if not matches:
+        raise RuntimeError(f"No model matches pattern: {pattern}")
+    return max(matches, key=os.path.getmtime)
+
+
+def load_reference_models(data_root: str) -> Tuple[TempModelWeights, TempModelWeights]:
+    """(color_model, wide_model): the newest bundles of the reference layout
+    under ``data_root``, COLOR on (L, a, b) and WIDE on (L, a, b, gray)."""
+    color = from_joblib(resolve_latest(os.path.join(data_root, TEMP_COLOR_MODEL_GLOB)),
+                        "color_model")
+    wide = from_joblib(resolve_latest(os.path.join(data_root, TEMP_WIDE_MODEL_GLOB)),
+                       "wide_model")
+    if color.feature_names != ("L", "a", "b"):
+        raise RuntimeError(f"Color model must use (L,a,b), got {color.feature_names}")
+    if wide.feature_names != ("L", "a", "b", "gray"):
+        raise RuntimeError(f"Wide model must use (L,a,b,gray), got {wide.feature_names}")
+    return color, wide
 
 
 def poly_powers(n_features: int, degree: int) -> np.ndarray:

@@ -1,9 +1,9 @@
 """Frozen configuration dataclasses for the force and temperature paths.
 
 A field-for-field copy of the JAX package's ``FTPConfig`` and
-``TempConfig`` (each with its ``deploy()`` preset) and ``ForceConfig``; the
-port cannot import them
-because importing the JAX package may load jax.  ``tests/test_torch_config.py``
+``TempConfig`` (each with its ``deploy()`` preset) and ``ForceConfig``, and
+the reference artifacts' default paths under a data root; the port cannot
+import them because importing the JAX package may load jax.  ``tests/test_torch_config.py``
 compares every field name and default with the JAX dataclasses, so drift is
 caught.  The field documentation lives in the JAX package.
 """
@@ -266,6 +266,16 @@ class TempConfig:
 
     def replace(self, **kw) -> "TempConfig":
         return dataclasses.replace(self, **kw)
+
+
+# Default locations of the reference calibration artifacts, relative to a
+# data root (the JAX ``config.py``'s constants, for ``from_artifacts``).
+PHASE_TO_HEIGHT_JSON = "Force/Phase_to_height/calibration_out/calibration_model.json"
+HEIGHT_TO_FORCE_JSON = "Force/Height_to_force/calibration_out/calibration_model.json"
+TEMP_COLOR_METRICS_JSON = "Temperature/Colored_Model/calibration_out/models_final_summary_metrics.json"
+TEMP_BLACK_METRICS_JSON = "Temperature/MixedColorBlack_Model/calibration_out/models_final_summary_metrics.json"
+TEMP_COLOR_MODEL_GLOB = "Temperature/Colored_Model/calibration_out/color_model_global_huber_deg*.joblib"
+TEMP_WIDE_MODEL_GLOB = "Temperature/MixedColorBlack_Model/calibration_out/black_model_global_huber_deg*.joblib"
 
 
 def slice_ftp_config(height: int, width: int) -> FTPConfig:

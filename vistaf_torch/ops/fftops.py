@@ -2,10 +2,9 @@
 (``dc_notch``, ``find_top_peaks``, ``choose_carrier_peak``), the carrier
 cascade over the full and the half spectrum, sub-bin parabolic refinement,
 the fractional phase ramp, the sparse-patch inverse DFT and the temperature
-segmentation's windowed bandpass over the rfft2 half spectrum.  The
-full-spectrum ``ifft2_bandpass_dynamic`` is not ported yet.  Peak positions
-stay 0-d device tensors and windows are taken with index tensors; nothing
-here syncs."""
+segmentation's windowed bandpass over the full shifted spectrum and over
+the rfft2 half spectrum.  Peak positions stay 0-d device tensors and
+windows are taken with index tensors; nothing here syncs."""
 from __future__ import annotations
 
 import math
@@ -193,6 +192,24 @@ def _bandpass_window_tail(P: torch.Tensor, sy, sx, px, py, h: int, w: int,
     cay = torch.polar(torch.ones_like(oy), two_pi * (oy * fy / h))
     cax = torch.polar(torch.ones_like(ox), two_pi * (ox * fx / w))
     return inner * (cay[:, None] / (h * w)) * cax[None, :]
+
+
+def ifft2_bandpass_dynamic(F_shift: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                           radius: float, consts: DeviceConsts,
+                           rows: slice = None, cols: slice = None) -> torch.Tensor:
+    """ifft2(ifftshift(F_shift * disk((px, py), radius))) for a peak on the
+    device, by two twiddle matmuls over the disk's (2 ceil(r) + 1)^2 window
+    of the shifted spectrum, its start clamped into the plane as the JAX
+    ``dynamic_slice`` clamps it.  ``rows``/``cols`` restrict the output to a
+    static window."""
+    h, w = F_shift.shape
+    rr = int(np.ceil(radius))
+    psz = 2 * rr + 1
+    sy = torch.clamp(py - rr, 0, h - psz)
+    sx = torch.clamp(px - rr, 0, w - psz)
+    ar = torch.arange(psz, device=F_shift.device)
+    P = F_shift.index_select(0, sy + ar).index_select(1, sx + ar)
+    return _bandpass_window_tail(P, sy, sx, px, py, h, w, radius, rows, cols, consts)
 
 
 def ifft2_bandpass_dynamic_half(Rr: torch.Tensor, k_i: torch.Tensor, py: torch.Tensor,

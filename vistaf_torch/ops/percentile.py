@@ -1,12 +1,13 @@
 """Masked percentile and mean/min/max reductions (JAX ``ops/percentile.py``).
 
-Two methods are ported: ``sort`` (the parity preset's: NumPy's linear
+Three methods are ported: ``sort`` (the parity presets': NumPy's linear
 interpolation over a full sort, the JAX ``masked_percentile``, bit-equal to
-it on the CPU) and ``hist_pallas`` (the deploy preset's: the K1 kernel,
-``kernels/quantile_kernel.py``).  The ``hist``, histogram-rows and bisection
-XLA paths are no preset's route and are not ported.  Reductions run over
-the trailing (H, W) dimensions, so a (2, H, W) pair gives one value per
-plane.
+it on the CPU), ``hist`` (the JAX histogram refinement,
+``masked_percentile_hist`` and ``_hist_multi``) and ``hist_pallas`` (the
+deploy presets': the K1 kernel, ``kernels/quantile_kernel.py``).  The
+histogram-rows and bisection XLA paths are no preset's route and are not
+ported.  Reductions run over the trailing (H, W) dimensions, so a (2, H, W)
+pair gives one value per plane.
 """
 from __future__ import annotations
 
@@ -48,13 +49,93 @@ def masked_median(arr: torch.Tensor, mask, fallback: float = 0.0) -> torch.Tenso
     return masked_percentile(arr, mask, 50.0, fallback=fallback)
 
 
+def _hist_counts(x: torch.Tensor, m: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """float32 counts[..., b] of the ``m`` elements of ``x`` (..., N) with
+    x <= edges[..., b], for non-decreasing edges (..., B): each element
+    counted once in the bin of the first edge >= it, then a running sum
+    (the JAX (N, B) compare-and-sum, exact below 2**24 elements)."""
+    idx = torch.searchsorted(edges, x, right=False)
+    B = edges.shape[-1]
+    idx = torch.where(m, idx, B)                       # unmasked: past the last edge
+    hist = torch.zeros((*x.shape[:-1], B + 1), dtype=torch.int64, device=x.device)
+    hist.scatter_add_(-1, idx, torch.ones_like(idx))
+    return torch.cumsum(hist[..., :B], dim=-1).to(torch.float32)
+
+
+def _hist_setup(arr: torch.Tensor, mask):
+    x = arr.to(torch.float32)
+    m = torch.isfinite(x) if mask is None else mask.expand(x.shape) & torch.isfinite(x)
+    x = x.reshape(*x.shape[:-2], -1).contiguous()
+    m = m.reshape(x.shape)
+    n = m.to(torch.float32).sum(dim=-1)
+    lo = torch.where(m, x, _BIG).amin(dim=-1)
+    hi = torch.where(m, x, -_BIG).amax(dim=-1)
+    return x, m, n, lo, hi
+
+
+def _hist_bin(counts: torch.Tensor, target: torch.Tensor, bins: int) -> torch.Tensor:
+    """The smallest bin whose count exceeds the target rank, as float32."""
+    b = (counts <= target[..., None]).to(torch.int32).sum(dim=-1)
+    return torch.clamp(b, 0, bins - 1).to(torch.float32)
+
+
+def masked_percentile_hist(arr: torch.Tensor, mask, q: float, bins: int = 128,
+                           refine: int = 2, fallback: float = 0.0) -> torch.Tensor:
+    """The JAX ``masked_percentile_hist``: a bracket [lo, hi] from the masked
+    range narrowed ``1 + refine`` times to the bin of ``bins`` equal steps
+    whose count of elements <= its upper edge first exceeds the target rank
+    q / 100 * (n - 1); the bracket's midpoint, ``fallback`` where the mask
+    is empty.  Scalar ``q``; over the trailing (H, W) dimensions."""
+    x, m, n, lo, hi = _hist_setup(arr, mask)
+    # q / 100 as XLA compiles it: q times the float32 reciprocal of 100
+    target = float(np.float32(q) * (np.float32(1.0) / np.float32(100.0))) \
+        * torch.clamp(n - 1.0, min=0.0)
+    steps = torch.arange(1, bins + 1, dtype=torch.float32, device=x.device)
+    for _ in range(1 + refine):
+        span = torch.clamp(hi - lo, min=1e-30)
+        edges = lo[..., None] + span[..., None] * steps / bins
+        b = _hist_bin(_hist_counts(x, m, edges), target, bins)
+        lo, hi = lo + span * b / bins, lo + span * (b + 1.0) / bins
+    return torch.where(n > 0, 0.5 * (lo + hi), float(fallback))
+
+
+def masked_percentile_hist_multi(arr: torch.Tensor, mask, qs: tuple, bins: int = 128,
+                                 refine: int = 2, fallback: float = 0.0) -> torch.Tensor:
+    """The JAX ``masked_percentile_hist_multi``: ``masked_percentile_hist``
+    for each of ``qs`` with a shared first pass over the masked range
+    (targets float32(q / 100) * (n - 1)); returns (..., Q)."""
+    x, m, n, glo, ghi = _hist_setup(arr, mask)
+    targets = (torch.tensor([q / 100.0 for q in qs], dtype=torch.float32, device=x.device)
+               * torch.clamp(n - 1.0, min=0.0)[..., None])
+    steps = torch.arange(1, bins + 1, dtype=torch.float32, device=x.device)
+    span = torch.clamp(ghi - glo, min=1e-30)
+    counts = _hist_counts(x, m, glo[..., None] + span[..., None] * steps / bins)
+    b = _hist_bin(counts[..., None, :], targets, bins)
+    lo = glo[..., None] + span[..., None] * b / bins
+    hi = glo[..., None] + span[..., None] * (b + 1.0) / bins
+    for _ in range(refine):
+        span = torch.clamp(hi - lo, min=1e-30)
+        edges = lo[..., None] + span[..., None] * steps / bins
+        counts = torch.stack([_hist_counts(x, m, edges[..., k, :].contiguous())
+                              for k in range(len(qs))], dim=-2)
+        b = _hist_bin(counts, targets, bins)
+        lo, hi = lo + span * b / bins, lo + span * (b + 1.0) / bins
+    return torch.where((n > 0)[..., None], 0.5 * (lo + hi), float(fallback))
+
+
 def get_percentile_fn(method: str):
     """``pctl(arr, mask, q)``: q a scalar gives (...,), a tuple (..., Q)."""
     if method == "sort":
         return masked_percentile
+    if method == "hist":
+        def hist(arr, mask, q, fallback=0.0):
+            if isinstance(q, (tuple, list)):
+                return masked_percentile_hist_multi(arr, mask, tuple(q), fallback=fallback)
+            return masked_percentile_hist(arr, mask, q, fallback=fallback)
+        return hist
     if method != "hist_pallas":
         raise ValueError(f"percentile method {method!r} is not ported "
-                         "(vistaf_torch runs 'sort' and 'hist_pallas')")
+                         "(vistaf_torch runs 'sort', 'hist' and 'hist_pallas')")
 
     def pctl(arr, mask, q):
         if isinstance(q, (tuple, list)):

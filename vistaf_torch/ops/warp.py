@@ -4,7 +4,7 @@ border folds (``sample_bilinear``, ``sample_bilinear_stack``,
 warp), and the gather-free ones: global translation, the two-pass shear
 warp and the Paeth three-shear rotation (``translate_bilinear``,
 ``shear_warp_stack``, ``warp_affine_inverse_shear``, ``line_shift_frac``,
-``rotate_stack_shear``), and ``rotation_matrix``."""
+``rotate_stack_shear``), ``rotation_matrix`` and ``invert_affine``."""
 from __future__ import annotations
 
 import math
@@ -268,6 +268,16 @@ def rotate_stack_shear(stack: torch.Tensor, angle_deg, center) -> torch.Tensor:
     out = line_shift_frac(stack, sx, shift_axis=rx, line_axis=ry, bits=bits_x)
     out = line_shift_frac(out, sy, shift_axis=ry, line_axis=rx, bits=bits_y)
     return line_shift_frac(out, sx, shift_axis=rx, line_axis=ry, bits=bits_x)
+
+
+def invert_affine(M: torch.Tensor) -> torch.Tensor:
+    """The inverse of a (2, 3) affine matrix, as a (2, 3) tensor on its
+    device: [A^-1, -A^-1 t] from the adjugate over the determinant."""
+    A, t = M[:, :2], M[:, 2]
+    det = A[0, 0] * A[1, 1] - A[0, 1] * A[1, 0]
+    inv = torch.stack([torch.stack([A[1, 1], -A[0, 1]]),
+                       torch.stack([-A[1, 0], A[0, 0]])]) / det
+    return torch.cat([inv, (-inv @ t)[:, None]], dim=1)
 
 
 def rotation_matrix(center, angle_deg, scale: float = 1.0) -> torch.Tensor:

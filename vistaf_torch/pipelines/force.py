@@ -9,13 +9,15 @@ frame tensors to device tensors; none copies a map to the host.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+import os
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
-from vistaf_torch.calib import scalar_models
-from vistaf_torch.config import ForceConfig, FTPConfig
+from vistaf_torch.calib import artifacts, scalar_models
+from vistaf_torch.config import (HEIGHT_TO_FORCE_JSON, PHASE_TO_HEIGHT_JSON, ForceConfig,
+                                 FTPConfig)
 from vistaf_torch.ftp.pipeline import FTPPipeline
 
 
@@ -122,6 +124,19 @@ class ForcePipeline:
                                debug_outputs=debug_outputs, device=device)
         self.force_cfg = force_cfg
         self.force_model = force_model
+
+    @classmethod
+    def from_artifacts(cls, data_root: str, ftp_cfg: Optional[FTPConfig] = None,
+                       force_cfg: Optional[ForceConfig] = None,
+                       debug_outputs: bool = False, *, device="cuda") -> "ForcePipeline":
+        """The pipeline over the reference layout's phase-to-height and
+        height-to-force calibrations under ``data_root``, under ``ftp_cfg``
+        (default ``FTPConfig()``, the parity preset) and ``force_cfg``."""
+        p2h, use_neg = artifacts.load_phase_to_height(
+            os.path.join(data_root, PHASE_TO_HEIGHT_JSON))
+        fc = artifacts.load_force_calibration(os.path.join(data_root, HEIGHT_TO_FORCE_JSON))
+        return cls(ftp_cfg or FTPConfig(), force_cfg or ForceConfig(), p2h, fc["best_model"],
+                   use_neg, debug_outputs=debug_outputs, device=device)
 
     def mm_per_px(self, est_period_px: float) -> float:
         """Grating pitch / FFT-estimated period."""

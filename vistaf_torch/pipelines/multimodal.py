@@ -13,16 +13,18 @@ share the deformed frame.  Two execution shapes:
   and no map.  PyTorch runs eagerly: "fused" is this sharing of inputs and
   reductions, not one compiled graph as in the JAX package.
 
-``from_artifacts`` is not ported yet (ROADMAP Queue 1 item 8).
+``from_artifacts`` builds both pipelines from the reference calibration
+artifacts under a data root.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from vistaf_torch.calib import scalar_models
+from vistaf_torch.config import ForceConfig, FTPConfig, TempConfig
 from vistaf_torch.pipelines.force import ForcePipeline, depth_map_to_volume_cm3
 from vistaf_torch.temperature.inference import TemperaturePipeline
 
@@ -70,6 +72,17 @@ class MultimodalPipeline:
         self.force = force
         self.temperature = temperature
         self.device = temperature.device
+
+    @classmethod
+    def from_artifacts(cls, data_root: str, ftp_cfg: Optional[FTPConfig] = None,
+                       force_cfg: Optional[ForceConfig] = None,
+                       temp_cfg: Optional[TempConfig] = None, *,
+                       device="cuda") -> "MultimodalPipeline":
+        """Both pipelines from the reference artifacts under ``data_root``
+        (``ForcePipeline.from_artifacts``, ``TemperaturePipeline.from_artifacts``;
+        the parity presets unless configurations are given), on ``device``."""
+        return cls(ForcePipeline.from_artifacts(data_root, ftp_cfg, force_cfg, device=device),
+                   TemperaturePipeline.from_artifacts(data_root, temp_cfg, device=device))
 
     def ingest(self, frame) -> torch.Tensor:
         """Upload a frame once; pass the result to ``__call__`` /

@@ -1,36 +1,42 @@
 """Temperature inference: BGR frame -> fused per-pixel degC map and stats
 (JAX ``temperature/inference.py``).
 
-Stages in order: gray, stripe segmentation on the full frame (K1 for the
-median; ``segmentation.py``), then on the static compute bbox around the
-outer ROI: the 5x5 feature blur per channel, the colour-support gate, the
-fused per-pixel models (K8), the per-domain inpaints (K3), clamping, the
-per-pixel fusion, the stripe-oriented smoothing by the three-shear
-rotation, the ROI statistics, and the re-embed into the frame.
+Stages in order: gray, stripe segmentation on the full frame
+(``segmentation.py``; its median is K1 under 'hist_pallas'), then, on the
+static compute bbox around the outer ROI where ``crop_compute`` sets one
+and on the full frame otherwise: the 5x5 feature blur per channel, the
+colour-support gate, the per-pixel models (fused in K8, or the unfused LAB
+and ``TempModelWeights.predict``), the per-domain inpaints (K3), clamping,
+the per-pixel fusion, the stripe-oriented smoothing (by the three-shear
+rotation or by bilinear gathers), the ROI statistics, and the re-embed into
+the frame.
 
-It runs the JAX package's deploy preset (``TempConfig().deploy()``, and
-its scaled versions) as shipped; configurations the port does not run yet
-raise at construction: see ``TemperaturePipeline.check_config``.
+It runs every ``TempConfig``: the deploy preset (``TempConfig().deploy()``)
+and the parity preset (``TempConfig()``, the CLI's default), their scaled
+versions, and each knob on its own, on the route the JAX package takes on
+a TPU.  Off the TPU the JAX package runs the unfused path even where
+``use_fused_kernel`` is set; the port runs K8 wherever it is set.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from vistaf_torch import use_full_fp32
-from vistaf_torch.calib.temp_weights import TempModelWeights
+from vistaf_torch.calib.temp_weights import TempModelWeights, load_reference_models
 from vistaf_torch.config import TempConfig
 from vistaf_torch.kernels.temp_kernel import make_fused_temperature_fn
 from vistaf_torch.ops import geometry
-from vistaf_torch.ops.color import bgr_to_gray
+from vistaf_torch.ops.color import bgr_to_gray, bgr_to_lab_u8, chroma_ab
 from vistaf_torch.ops.consts import DeviceConsts
 from vistaf_torch.ops.filters import gaussian_blur, gaussian_blur_u8_round
 from vistaf_torch.ops.inpaint import inpaint_within_roi
 from vistaf_torch.ops.morphology import dilate, ellipse_kernel
-from vistaf_torch.ops.warp import rotate_stack_shear
+from vistaf_torch.ops.warp import (invert_affine, rotate_stack_shear, rotation_matrix,
+                                   sample_bilinear_stack)
 from vistaf_torch.temperature.segmentation import segment_stripes
 
 STATS = ("t_mean", "t_min", "t_max", "t_std", "valid_pixels", "stripe_angle_rad",
@@ -64,16 +70,31 @@ def fuse_maps_per_pixel(roi, wide_map, color_map, cfg: TempConfig):
     return final.to(torch.float32), source, color_ok
 
 
+def _rotate_stack(stack: torch.Tensor, M: torch.Tensor, consts: DeviceConsts) -> torch.Tensor:
+    """Forward-warp the channel-first (C, H, W) stack by the affine ``M``:
+    every output pixel bilinearly samples the stack at M^-1 of its position,
+    zeros outside (one index computation for all channels)."""
+    _, h, w = stack.shape
+    Minv = invert_affine(M)
+    yy, xx = consts.iota(h, w, 0), consts.iota(h, w, 1)
+    sx = Minv[0, 0] * xx + Minv[0, 1] * yy + Minv[0, 2]
+    sy = Minv[1, 0] * xx + Minv[1, 1] * yy + Minv[1, 2]
+    return sample_bilinear_stack(stack, sy, sx)
+
+
 def oriented_gaussian_blur(map_f: torch.Tensor, roi: torch.Tensor, angle_rad: torch.Tensor,
                            sigma_across: float, sigma_along: float,
-                           consts: DeviceConsts, vpu: bool = False) -> torch.Tensor:
+                           consts: DeviceConsts, method: str = "gather",
+                           vpu: bool = False) -> torch.Tensor:
     """Rotate so the across-stripe direction lies along +x, blur with
     (sigma_across, sigma_along), rotate back; NaN where the rotated ROI does
-    not return.  The JAX ``oriented_gaussian_blur`` with method 'shear':
-    angles are folded by quarter turns into the shear's range, and an odd
-    quarter turn swaps the two sigmas.  Both sigma orders are blurred and
-    one is selected on the device (the JAX ``lax.cond`` as a vmapped caller
-    gets it), so no host sync."""
+    not return.  ``method`` 'gather' (the parity preset's) rotates the map
+    and its ROI by bilinear gathers (``_rotate_stack``) about the frame's
+    centre, and back by the opposite angle.  'shear' (the deploy preset's)
+    rotates by three shears: angles are folded by quarter turns into the
+    shear's range, and an odd quarter turn swaps the two sigmas; both sigma
+    orders are blurred and one is selected on the device (the JAX
+    ``lax.cond`` as a vmapped caller gets it), so no host sync."""
     if sigma_across <= 0 and sigma_along <= 0:
         return torch.where(roi, map_f, math.nan)
     h, w = map_f.shape
@@ -84,15 +105,21 @@ def oriented_gaussian_blur(map_f: torch.Tensor, roi: torch.Tensor, angle_rad: to
 
     map0 = torch.where(torch.isfinite(map_f), map_f, 0.0)
     stack0 = torch.stack([map0, roi.to(torch.float32)])
-    q = torch.round(angle_deg / 90.0)
-    ang = angle_deg - 90.0 * q
-    odd = torch.remainder(torch.abs(q.to(torch.int32)), 2) == 1
+    if method == "shear":
+        q = torch.round(angle_deg / 90.0)
+        ang = angle_deg - 90.0 * q
+        odd = torch.remainder(torch.abs(q.to(torch.int32)), 2) == 1
+        rot = rotate_stack_shear(stack0, ang, center)
+        blurred = torch.where(odd, gaussian_blur(rot[0], sl, consts, sigma_y=sa, vpu=vpu),
+                              gaussian_blur(rot[0], sa, consts, sigma_y=sl, vpu=vpu))
+        stack1 = torch.stack([blurred, (rot[1] > 0.5).to(torch.float32)])
+        back = rotate_stack_shear(stack1, -ang, center)
+        return torch.where(back[1] > 0.5, back[0], math.nan)
 
-    rot = rotate_stack_shear(stack0, ang, center)
-    blurred = torch.where(odd, gaussian_blur(rot[0], sl, consts, sigma_y=sa, vpu=vpu),
-                          gaussian_blur(rot[0], sa, consts, sigma_y=sl, vpu=vpu))
+    rot = _rotate_stack(stack0, rotation_matrix(center, angle_deg), consts)
+    blurred = gaussian_blur(rot[0], sa, consts, sigma_y=sl, vpu=vpu)
     stack1 = torch.stack([blurred, (rot[1] > 0.5).to(torch.float32)])
-    back = rotate_stack_shear(stack1, -ang, center)
+    back = _rotate_stack(stack1, rotation_matrix(center, -angle_deg), consts)
     return torch.where(back[1] > 0.5, back[0], math.nan)
 
 
@@ -106,7 +133,8 @@ class TemperaturePipeline:
     ``device`` defaults to the card; pass ``device="cpu"`` for the plain
     versions of the kernels.  The pipeline owns its static geometry (ROI
     masks, the compute bbox), the blur and twiddle matrices and the packed
-    model tables on its device, built once."""
+    model tables on its device, built once.  ``from_artifacts`` loads the
+    newest reference model bundles under a data root."""
 
     def __init__(self, cfg: TempConfig, color_model: TempModelWeights,
                  wide_model: TempModelWeights, *, device="cuda"):
@@ -134,8 +162,18 @@ class TemperaturePipeline:
         self._compute_bbox = self.compute_bbox(cfg)
         self.roi_full = torch.as_tensor(self._roi_full, device=self.device)
         self.roi_outer = torch.as_tensor(self._roi_outer, device=self.device)
-        self._fused_fn = make_fused_temperature_fn(cfg.color_chroma_min, color_model,
-                                                   wide_model)
+        self._fused_fn = (make_fused_temperature_fn(cfg.color_chroma_min, color_model,
+                                                    wide_model)
+                          if cfg.use_fused_kernel else None)
+
+    @classmethod
+    def from_artifacts(cls, data_root: str, cfg: Optional[TempConfig] = None, *,
+                       device="cuda") -> "TemperaturePipeline":
+        """The pipeline over the newest COLOR and WIDE bundles of the
+        reference layout under ``data_root`` (``load_reference_models``),
+        under ``cfg`` (default ``TempConfig()``, the parity preset)."""
+        color, wide = load_reference_models(data_root)
+        return cls(cfg or TempConfig(), color, wide, device=device)
 
     @staticmethod
     def compute_bbox(cfg: TempConfig):
@@ -159,26 +197,16 @@ class TemperaturePipeline:
 
     @staticmethod
     def check_config(cfg: TempConfig) -> None:
-        """Raise NotImplementedError for a configuration outside the ported
-        route: the deploy preset's knobs (fused K8 models, 'hist_pallas'
-        percentiles, shear rotation, cascade peak search, matmul bandpass
-        over the rfft2 half spectrum, even frame sides).  Still unported:
-        the gather rotation, the top-k peak search, the full-frame FFT
-        bandpass, the full fft2 spectrum, the sort and hist percentiles
-        and the unfused LAB + predict path."""
-        unported = {
-            "rotate_method": cfg.final_smooth_enable and cfg.rotate_method != "shear",
-            "seg_peak_method": cfg.seg_peak_method != "cascade",
-            "seg_bandpass": cfg.seg_bandpass != "matmul",
-            "seg_fft (or odd frame sides, which take fft2)": cfg.seg_fft != "rfft2"
-            or cfg.image_height % 2 or cfg.image_width % 2,
-            "seg_force_right_half_plane": not cfg.seg_force_right_half_plane,
-            "percentile_method": cfg.percentile_method != "hist_pallas",
-            "use_fused_kernel": not cfg.use_fused_kernel,
-        }
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(f"vistaf_torch does not port {bad} yet")
+        """Every value of every ``TempConfig`` knob is ported, so nothing the
+        JAX package runs is rejected; a route knob holding a value the JAX
+        package does not know raises ValueError (the JAX package would take
+        its last branch for it, or fail at its first frame)."""
+        known = {"rotate_method": ("gather", "shear"), "seg_peak_method": ("topk", "cascade"),
+                 "seg_bandpass": ("fft", "matmul"), "seg_fft": ("fft2", "rfft2"),
+                 "percentile_method": ("sort", "hist", "hist_pallas")}
+        for knob, values in known.items():
+            if getattr(cfg, knob) not in values:
+                raise ValueError(f"{knob}={getattr(cfg, knob)!r} is none of {values}")
 
     # ------------------------------------------------------------------
     def upload(self, frame) -> torch.Tensor:
@@ -246,8 +274,20 @@ class TemperaturePipeline:
 
         k = cfg.color_support_dilate | 1
         csup_pre = dilate(crop(seg.light), ellipse_kernel(k, k)) & roi_eff_c & ~crop(seg.sat)
-        wide_map_raw, color_map_raw, color_support = self._fused_fn(
-            blurred.contiguous(), roi_eff_c, csup_pre)
+        chroma = None
+        if self._fused_fn is not None:
+            wide_map_raw, color_map_raw, color_support = self._fused_fn(
+                blurred.contiguous(), roi_eff_c, csup_pre)
+        else:
+            lab = bgr_to_lab_u8(blurred)
+            L, a, b = lab[..., 0], lab[..., 1], lab[..., 2]
+            chroma = chroma_ab(a, b)
+            color_support = csup_pre & (chroma >= cfg.color_chroma_min)
+            wide_pred = self.wide_model.predict(
+                torch.stack([L, a, b, bgr_to_gray(blurred)], dim=-1))
+            wide_map_raw = torch.where(roi_eff_c, wide_pred, math.nan)
+            color_pred = self.color_model.predict(torch.stack([L, a, b], dim=-1))
+            color_map_raw = torch.where(color_support, color_pred, math.nan)
 
         wide_map = inpaint_within_roi(wide_map_raw, roi_full_c,
                                       ~torch.isfinite(wide_map_raw) & roi_full_c,
@@ -264,8 +304,8 @@ class TemperaturePipeline:
         if cfg.final_smooth_enable:
             final_map = oriented_gaussian_blur(final_fused, roi_full_c, seg.angle_rad,
                                                cfg.final_smooth_sigma_across,
-                                               cfg.final_smooth_sigma_along,
-                                               consts, vpu=cfg.conv_vpu)
+                                               cfg.final_smooth_sigma_along, consts,
+                                               method=cfg.rotate_method, vpu=cfg.conv_vpu)
             final_map = clamp_map(final_map, roi_full_c, cfg.final_t_min, cfg.final_t_max)
         else:
             final_map = final_fused
@@ -293,6 +333,7 @@ class TemperaturePipeline:
             "wide_map_raw": embed(wide_map_raw, math.nan),
             "color_map_raw": embed(color_map_raw, math.nan),
             "source_map": embed(source_map, 0),
+            **({"chroma": embed(chroma, 0.0)} if chroma is not None else {}),
             "mask_dark": seg.dark,
             "mask_light": seg.light,
             "mask_sat": seg.sat,

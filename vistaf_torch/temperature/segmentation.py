@@ -1,7 +1,11 @@
 """Periodic TLC-stripe segmentation by FFT carrier extraction (JAX
-``temperature/segmentation.py``), on the deploy route: the rfft2 half
-spectrum, the masked-argmax carrier cascade over it, the windowed
-two-matmul bandpass, and the post-FFT per-pixel stages on the compute bbox.
+``temperature/segmentation.py``), on every route of its knobs: the deploy
+route (the rfft2 half spectrum, the masked-argmax carrier cascade over it,
+the windowed two-matmul bandpass), and the full shifted ``fft2`` spectrum,
+which the parity preset, odd frame sides and every other knob combination
+take, with the top-k or the cascade carrier search and the windowed or the
+full-frame masked ``ifft2`` bandpass.  The post-FFT per-pixel stages run on
+the compute bbox where one is given.
 
 The dark/light assignment (whichever sign bin is darker on average) and the
 global phase ``phi0`` are ``torch.where`` selects on device scalars: no host
@@ -69,12 +73,29 @@ def segment_stripes(image_gray: torch.Tensor, roi: torch.Tensor, cfg: TempConfig
     mu = torch.where(torch.abs(mu) > 1e-9, mu, 1.0)
     i_norm = norm / mu
 
-    Rr = torch.roll(torch.fft.rfft2(i_norm), h // 2, dims=0)
-    k_i, py = fftops.carrier_peak_cascade_half(
-        torch.abs(Rr), cfg.seg_dc_exclusion,
-        prefer_near_center_row=cfg.seg_prefer_peak_near_center_row,
-        peak_max_dy_frac=cfg.seg_peak_max_dy_from_center)
-    px = k_i + w // 2
+    # the JAX package's condition for the real-input half spectrum
+    use_rfft = (cfg.seg_fft == "rfft2" and cfg.seg_peak_method == "cascade"
+                and cfg.seg_force_right_half_plane and cfg.seg_bandpass == "matmul"
+                and h % 2 == 0 and w % 2 == 0)
+    peak = dict(prefer_near_center_row=cfg.seg_prefer_peak_near_center_row,
+                peak_max_dy_frac=cfg.seg_peak_max_dy_from_center)
+    if use_rfft:
+        Rr = torch.roll(torch.fft.rfft2(i_norm), h // 2, dims=0)
+        k_i, py = fftops.carrier_peak_cascade_half(torch.abs(Rr), cfg.seg_dc_exclusion,
+                                                   **peak)
+        px = k_i + w // 2
+    else:
+        F_shift = torch.fft.fftshift(torch.fft.fft2(i_norm))
+        if cfg.seg_peak_method == "cascade":
+            px, py = fftops.carrier_peak_cascade(
+                torch.abs(F_shift), cfg.seg_dc_exclusion,
+                force_right_half_plane=cfg.seg_force_right_half_plane, **peak)
+        else:
+            xs, ys, mags = fftops.find_top_peaks(torch.abs(F_shift), cfg.seg_dc_exclusion,
+                                                 cfg.seg_n_peaks)
+            px, py = fftops.choose_carrier_peak(
+                xs, ys, mags, h, w, force_right_half_plane=cfg.seg_force_right_half_plane,
+                **peak)
 
     cb = compute_bbox
     rows = slice(cb[0], cb[1]) if cb is not None else None
@@ -90,8 +111,20 @@ def segment_stripes(image_gray: torch.Tensor, roi: torch.Tensor, cfg: TempConfig
         full[rows, cols] = mask_c
         return full
 
-    z = fftops.ifft2_bandpass_dynamic_half(Rr, k_i, py, float(cfg.seg_band_radius),
-                                           consts, rows=rows, cols=cols)
+    radius = float(cfg.seg_band_radius)
+    if use_rfft:
+        z = fftops.ifft2_bandpass_dynamic_half(Rr, k_i, py, radius, consts,
+                                               rows=rows, cols=cols)
+    elif cfg.seg_bandpass == "matmul":
+        z = fftops.ifft2_bandpass_dynamic(F_shift, px, py, radius, consts,
+                                          rows=rows, cols=cols)
+    else:
+        # the full-frame masked inverse transform: the disk by float32
+        # distances to the peak bin
+        dy = consts.iota(h, w, 0) - py.to(torch.float32)
+        dx = consts.iota(h, w, 1) - px.to(torch.float32)
+        disk = dx * dx + dy * dy <= radius ** 2
+        z = crop(torch.fft.ifft2(torch.fft.ifftshift(torch.where(disk, F_shift, 0.0))))
     roi_c = crop(roi)
     roi_eff_c = crop(roi_eff)
     gray_c = crop(gray)
