@@ -80,15 +80,31 @@ Phases, one line each, any failure raises and exits non-zero:
      __call__, which fetches every map, and through stats(); multimodal
      through __call__ and step_fused(scalars));
   10. profile: device busy share and the heaviest kernels of a few frames of
-     each path under torch.profiler.
+     each path under torch.profiler;
+  11. runner at 2160x3840 (``vistaf_torch/runner``): the ``force`` command
+     whole through ``cli.main`` under ``--preset parity`` and ``deploy``
+     (with ``--export-heightmaps``) on the 4K pair written as lossless PNGs
+     with the calibration JSONs to a temporary data root, and ``run_session``
+     over the multimodal pipelines built above (parity sequential, deploy
+     ``fused_step``) on the composed pair: the force equal to the
+     constructor-built pipeline's direct call within rel 1e-6 and its
+     heightmap bit-equal, the session's readings, maps and mask PNGs equal
+     to the direct call, the JAX runner's file sets, the exact launches of
+     the kernel table, each command's wall time split by ``StageTimer``
+     (setup, decode, forward, writers); a probe line says whether
+     matplotlib, joblib and sklearn are present, and where they are the
+     phase also runs ``force --debug`` and ``temperature``.
 Then the card line, one JSON line with the kernel table and, last, the
 device line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -149,6 +165,19 @@ PATH_EXACT_LAUNCHES = {"parity640": {"inpaint_diffusion": 2},
                        "parity4k": {"inpaint_diffusion": 2},
                        "temp4k_parity": {"inpaint_diffusion": 2},
                        "mm4k_parity": {"inpaint_diffusion": 4}}
+# the runner phase: each command's or session's whole launch count at
+# 2160x3840, the CLI's presets (PERF.md's kernel table: the 4K force, 4K
+# multimodal and their parity columns)
+RUNNER_LAUNCHES = {
+    "cli_force_parity": {"inpaint_diffusion": 2},
+    "cli_force_deploy": {"masked_quantiles": 7, "masked_median_mad": 4,
+                         "inpaint_diffusion": 1, "gn_moments_euclidean": 1},
+    "session_parity": {"inpaint_diffusion": 4},
+    "session_deploy": {"masked_quantiles": 8, "masked_median_mad": 4, "inpaint_diffusion": 3,
+                       "gn_moments_euclidean": 1, "fused_temperature": 1},
+}
+PATH_KERNELS.update({k: tuple(v) for k, v in RUNNER_LAUNCHES.items()})
+PATH_EXACT_LAUNCHES.update(RUNNER_LAUNCHES)
 # the multimodal gates of tests/test_multimodal_fused.py: step_fused(maps)
 # against __call__, step_fused(scalars) against step_fused(maps)
 MM_HEIGHT_RTOL, MM_HEIGHT_ATOL, MM_SCALAR_REL = 1e-5, 1e-6, 1e-4
@@ -156,6 +185,37 @@ MM_TMAP_ATOL, MM_STATS_ATOL, MM_FETCH_REL = 1e-4, 1e-3, 1e-6
 # BASELINE config 4 (scripts/bench_streams.py): 4 streams, window 8, EMA 0.2
 STREAMS, WINDOW, EMA_ALPHA, BATCHES = 4, 8, 0.2, 6
 DENTS_RAD = (0.8, 0.0, 0.5, 0.3, 0.7, 0.1)
+# the runner's file contract without figures (matplotlib), as the JAX runner
+# writes it (tests/test_torch_runner.py and tests/test_torch_cli.py hold
+# these to the JAX trees): the force command with --export-heightmaps, and
+# one multimodal session (save_summary_figures=False)
+FORCE_CLI_FILES = ("result.json", "result.csv", "ftp_run/height_map_crop.npy",
+                   "ftp_run/height_map_crop.csv", "ftp_run/height_map_bundle.npz")
+# each mask PNG of a temperature output and the output key it is cropped from
+MASK_KEYS = {"mask_roi.png": "roi_full", "mask_roi_eff.png": "mask_roi_eff",
+             "mask_sat.png": "mask_sat", "mask_dark.png": "mask_dark",
+             "mask_light.png": "mask_light", "mask_color_support.png": "mask_color_support",
+             "mask_color_ok.png": "mask_color_ok"}
+MASK_PNGS = tuple(MASK_KEYS)
+# the FTP debug set the force command's --debug adds under ftp_run/ (the JAX
+# contract, tests/test_debug_artifacts.py)
+FTP_DEBUG_FILES = (
+    "debug_log.txt", "DEBUG_fft_peaks_ref.png", "DEBUG_fft_peaks_def.png",
+    "DEBUG_complex_amplitude_ref.png", "DEBUG_complex_amplitude_def.png",
+    "DEBUG_phase_wrapped_ref.png", "DEBUG_phase_wrapped_def.png",
+    "DEBUG_phase_unwrapped_ref.png", "DEBUG_phase_unwrapped_def.png",
+    "DEBUG_ramp_phase_diff.png", "DEBUG_ramp_cross_phase_diff.png",
+    "DEBUG_phase_diff_wrapped.png", "03_ref_def_crops_with_roi.png", "05_fft_debug_panels.png",
+    "07_phase_and_height_FINAL_SMOOTH_ROI.png")
+SESSION_FILES = (
+    "force_sensing/result.json", "force_sensing/result.csv",
+    "force_sensing/ftp_run/height_map_crop.npy", "force_sensing/ftp_run/height_map_full.npy",
+    "force_sensing/ftp_run/height_map_crop.csv", "force_sensing/ftp_run/height_map_bundle.npz",
+    "temperature_sensing/temperature_map_fused.npy",
+    "temperature_sensing/temperature_map_final.npy",
+    *(f"temperature_sensing/{m}" for m in MASK_PNGS),
+    "combined_outputs/multimodal_summary.json", "combined_outputs/force_result.json",
+    "combined_outputs/force_result.csv")
 
 
 def say(phase: str, **kw) -> None:
@@ -753,8 +813,6 @@ def check_from_artifacts(device, cfg, h: int, w: int) -> None:
     reference layout, written to a temporary directory, against the
     pipeline built by its constructor from the same models, on the card and
     the same pair: the same force (within rel 1e-6)."""
-    import os
-    import tempfile
     from vistaf_torch.calib import artifacts
     from vistaf_torch.config import HEIGHT_TO_FORCE_JSON, PHASE_TO_HEIGHT_JSON, ForceConfig
     from vistaf_torch.pipelines.force import ForcePipeline
@@ -847,8 +905,6 @@ def compose_multimodal_frame(grating_bgr, tlc_bgr):
 def d2h_copies(fn):
     """(count, bytes) of the device-to-host copies one call of fn() makes,
     from torch.profiler's memcpy events (the trace's ``bytes``)."""
-    import os
-    import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1074,6 +1130,231 @@ def run_streams(device, rows, card):
     return lambda: sf(refs, seq[0])
 
 
+def probe_host_libraries():
+    """Which of the figure writers' and temperature bundles' host libraries
+    this machine has (an import probe, not a caught failure)."""
+    import importlib.util
+    return {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "joblib", "sklearn")}
+
+
+@contextlib.contextmanager
+def staged(timer, patches):
+    """While the block runs, each call of ``owner.attr`` for (owner, attr,
+    stage) in ``patches`` is timed under ``timer.stage(stage)``; a call made
+    inside another timed call is not timed again."""
+    active = []
+
+    def wrap(fn, stage):
+        def timed(*a, **k):
+            if active:
+                return fn(*a, **k)
+            active.append(stage)
+            try:
+                with timer.stage(stage):
+                    return fn(*a, **k)
+            finally:
+                active.pop()
+        return timed
+
+    saved = [(owner, attr, vars(owner)[attr]) for owner, attr, _ in patches]
+    try:
+        for owner, attr, stage in patches:
+            setattr(owner, attr, wrap(getattr(owner, attr), stage))
+        yield
+    finally:
+        for owner, attr, raw in saved:
+            setattr(owner, attr, raw)
+
+
+def file_tree(root) -> set:
+    return {os.path.relpath(os.path.join(d, f), root)
+            for d, _, files in os.walk(root) for f in files}
+
+
+def write_frames(root, tag, ref, de):
+    """The pair as lossless PNGs under ``root``; returns their paths."""
+    import cv2
+    paths = []
+    for name, frame in (("ref", ref), ("def", de)):
+        paths.append(os.path.join(root, f"{tag}_{name}.png"))
+        assert cv2.imwrite(paths[-1], frame), paths[-1]
+    return paths
+
+
+def write_temperature_bundles(root, color, wide):
+    """The reference layout's COLOR and WIDE joblib bundles (sklearn
+    pipelines, as the JAX trainer exports them) of ``color`` and ``wide``."""
+    import joblib
+    from sklearn.isotonic import IsotonicRegression
+    from sklearn.linear_model import HuberRegressor
+    from sklearn.pipeline import make_pipeline
+    from sklearn.preprocessing import PolynomialFeatures, StandardScaler
+    from vistaf_torch.config import TEMP_COLOR_MODEL_GLOB, TEMP_WIDE_MODEL_GLOB
+
+    for m, glob_, name in ((color, TEMP_COLOR_MODEL_GLOB, "color_model_global_huber_deg"),
+                           (wide, TEMP_WIDE_MODEL_GLOB, "black_model_global_huber_deg")):
+        nf = len(m.feature_names)
+        sc = StandardScaler()
+        sc.mean_, sc.scale_ = np.asarray(m.scaler_mean, float), np.asarray(m.scaler_scale, float)
+        sc.var_, sc.n_features_in_, sc.n_samples_seen_ = sc.scale_ ** 2, nf, 1
+        pf = PolynomialFeatures(degree=m.poly_degree, include_bias=True).fit(np.zeros((1, nf)))
+        hub = HuberRegressor()
+        hub.coef_, hub.intercept_ = np.asarray(m.coef, float), float(m.intercept)
+        iso = None
+        if m.iso_x is not None:
+            iso = IsotonicRegression(out_of_bounds="clip").fit(m.iso_x, m.iso_y)
+        path = os.path.join(root, os.path.dirname(glob_), f"{name}{m.poly_degree}.joblib")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        joblib.dump({"model": make_pipeline(sc, pf, hub), "use_features": m.feature_names,
+                     "isotonic_calibrator": iso, "name": m.name}, path)
+
+
+def check_temperature_files(out, t):
+    """The mask PNGs and .npy maps under ``out`` against a temperature
+    output dict, bit for bit; returns the names that differ."""
+    import cv2
+    from vistaf_torch.runner.io import crop2d
+    bad = []
+    for name, key in MASK_KEYS.items():
+        got = cv2.imread(os.path.join(out, name), cv2.IMREAD_UNCHANGED)
+        if not np.array_equal(got, crop2d(t[key], t["crop_bbox"]).astype(np.uint8) * 255):
+            bad.append(name)
+    for key in ("temperature_map_final", "temperature_map_fused"):
+        if not np.array_equal(np.load(os.path.join(out, f"{key}.npy")), t[key], equal_nan=True):
+            bad.append(f"{key}.npy")
+    return bad
+
+
+def run_runner(device, rows, card, force_pipes, sessions, temp_parity):
+    """The runner phase at 2160x3840: the ``force`` command whole through
+    ``cli.main`` under both presets (``force_pipes``: the constructor-built
+    pipelines of the same presets, for the direct call), and ``run_session``
+    over ``sessions``' multimodal pipelines (parity sequential, deploy
+    ``fused_step``), each with the launch counts set to 0 just before and
+    its wall time split by ``StageTimer``; where matplotlib is present also
+    ``force --debug``, and with joblib and sklearn the ``temperature``
+    command."""
+    from io import StringIO
+    import torch
+    from vistaf_torch import kernels
+    from vistaf_torch.calib import artifacts
+    from vistaf_torch.config import (HEIGHT_TO_FORCE_JSON, PHASE_TO_HEIGHT_JSON, FTPConfig,
+                                     SessionConfig)
+    from vistaf_torch.pipelines.force import ForcePipeline
+    from vistaf_torch.pipelines.multimodal import MultimodalPipeline
+    from vistaf_torch.runner import cli, io
+    from vistaf_torch.runner.session import run_session
+    from vistaf_torch.utils.profiling import StageTimer
+    from vistaf_torch.utils.synthetic import synthetic_deploy_temp_weights, synthetic_pair
+
+    libs = probe_host_libraries()
+    say("runner_probe", **libs)
+    figures = libs["matplotlib"]
+
+    def drive(fn, patches):
+        """fn() with the launches counted from 0 and the stages timed: (its
+        result, its stdout, the launches, {stage: ms}); the wall time that no
+        stage took is the writers'."""
+        timer = StageTimer(device)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with staged(timer, patches), contextlib.redirect_stdout(StringIO()) as text:
+            out = fn()
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        ms = {k: v * 1e3 for k, v in timer.totals.items()}
+        ms["writers"] = total_ms - sum(ms.values())
+        ms["total"] = total_ms
+        return out, text.getvalue(), launches, ms
+
+    cli_stages = [(ForcePipeline, "from_artifacts", "setup"), (io, "imread_bgr", "decode"),
+                  (ForcePipeline, "__call__", "forward")]
+    with tempfile.TemporaryDirectory() as root:
+        artifacts.save_json(os.path.join(root, PHASE_TO_HEIGHT_JSON),
+                            {"best_model": P2H_MODEL, "use_negated_height_for_fit": True})
+        artifacts.save_json(os.path.join(root, HEIGHT_TO_FORCE_JSON),
+                            {"best_model": FORCE_MODEL})
+        ref, de = synthetic_pair(H4K, W4K, FTPConfig(), seed=SEED)
+        ref_p, def_p = write_frames(root, "force", ref, de)
+        for preset, direct in force_pipes.items():
+            out = os.path.join(root, f"force_{preset}")
+            argv = ["force", "--ref", ref_p, "--def", def_p, "--out", out, "--data-root", root,
+                    "--export-heightmaps", "--preset", preset]
+            rc, text, launches, ms = drive(lambda: cli.main(argv), cli_stages)
+            want = direct(ref, de)
+            with open(os.path.join(out, "result.json")) as f:
+                got = json.load(f)
+            hm = np.load(os.path.join(out, "ftp_run", "height_map_crop.npy"))
+            files = file_tree(out)
+            gap = abs(got["force_N"] - want["force_N"]) / abs(want["force_N"])
+            say("runner", command="force", preset=preset, force_N=got["force_N"],
+                force_N_direct=want["force_N"], force_gap=gap,
+                height_map_equal=bool(np.array_equal(hm, want["height_map_mm_crop"],
+                                                     equal_nan=True)),
+                files=sorted(files), stdout=text.splitlines(), launches=launches)
+            say("runner_timing", command="force", preset=preset, ms=ms, card=card)
+            record_launches(f"cli_force_{preset}", rows, launches)
+            assert rc == 0 and files == set(FORCE_CLI_FILES), (rc, files)
+            assert gap <= 1e-6, (got["force_N"], want["force_N"])
+            np.testing.assert_array_equal(hm, want["height_map_mm_crop"])
+
+        session_stages = [(io, "imread_bgr", "decode"),
+                          (MultimodalPipeline, "ingest", "forward"),
+                          (MultimodalPipeline, "__call__", "forward"),
+                          (MultimodalPipeline, "step_fused", "forward")]
+        for preset, (mm, fused, ref_m, de_m) in sessions.items():
+            paths = write_frames(root, f"mm_{preset}", ref_m, de_m)
+            cfg = SessionConfig(output_root=os.path.join(root, f"sessions_{preset}"),
+                                save_summary_figures=figures, fused_step=fused)
+            summary, _, launches, ms = drive(
+                lambda: run_session(mm, *paths, root, cfg, timestamp=preset), session_stages)
+            direct = mm.step_fused(ref_m, de_m, fetch="maps") if fused else mm(ref_m, de_m)
+            f, t = direct["force"], direct["temperature"]
+            want = {"force": {"force_N": f["force_N"], "volume_cm3": f["volume_cm3"],
+                              "contact_area_mm2": f["contact_area_mm2"],
+                              "max_depth_mm": f["max_depth_mm"],
+                              "scale_mm_per_px": f["mm_per_px"]},
+                    "temperature": direct["temperature_stats"]}
+            sdir = os.path.join(cfg.output_root, f"session_{preset}")
+            files = file_tree(sdir)
+            hm = np.load(os.path.join(sdir, "force_sensing", "ftp_run", "height_map_crop.npy"))
+            bad = check_temperature_files(os.path.join(sdir, "temperature_sensing"), t)
+            if not np.array_equal(hm, f["height_map_mm_crop"], equal_nan=True):
+                bad.append("height_map_crop.npy")
+            say("runner", command="session", preset=preset, fused_step=fused,
+                figures=figures, sensor_readings=summary["sensor_readings"],
+                readings_equal=summary["sensor_readings"] == want, files_differ=bad,
+                files=len(files), launches=launches)
+            say("runner_timing", command="session", preset=preset, fused_step=fused, ms=ms,
+                card=card)
+            record_launches(f"session_{preset}", rows, launches)
+            assert summary["sensor_readings"] == want, (summary["sensor_readings"], want)
+            assert not bad, bad
+            assert files == set(SESSION_FILES) if not figures else files > set(SESSION_FILES)
+
+        if figures:
+            out = os.path.join(root, "force_debug")
+            cli.main(["force", "--ref", ref_p, "--def", def_p, "--out", out, "--data-root",
+                      root, "--export-heightmaps", "--debug"])
+            files = file_tree(out)
+            want = {f"ftp_run/{n}" for n in FTP_DEBUG_FILES} | set(FORCE_CLI_FILES)
+            say("runner", command="force --debug", preset="parity", files=len(files),
+                missing=sorted(want - files))
+            assert want <= files, want - files
+        if figures and libs["joblib"] and libs["sklearn"]:
+            write_temperature_bundles(root, *synthetic_deploy_temp_weights(SEED))
+            out = os.path.join(root, "temperature")
+            cli.main(["temperature", "--image", os.path.join(root, "mm_parity_def.png"),
+                      "--out", out, "--data-root", root, "--debug"])
+            bad = check_temperature_files(out, temp_parity(sessions["parity"][3]))
+            say("runner", command="temperature", preset="parity", files=len(file_tree(out)),
+                files_differ=bad)
+            assert not bad, bad
+
+
+
 def phase_timing(path, fn, card, frames: int, warmup: int):
     import torch
     for _ in range(warmup):
@@ -1222,6 +1503,10 @@ def main() -> int:
     phase_profile("temp4k_parity_stats", runs["temp4k_parity_stats"], frames=1)
     phase_profile("mm4k_parity_scalars", runs["mm4k_parity_scalars"], frames=1)
     lap("profile")
+    run_runner(device, rows, card, {"parity": force_p4k, "deploy": force4k},
+               {"parity": (mmp, False, mmp_ref, mmp_def), "deploy": (mm, True, mm_ref, mm_def)},
+               temp_p)
+    lap("runner")
     say("clock", seconds=clock, total=time.perf_counter() - t0)
 
     print(card)

@@ -16,7 +16,7 @@ from vistaf_torch.utils import synthetic as tsyn
 P2H = {"type": "hinge_saturating", "params": {"a": 2.08, "b": 4.2, "c": 0.0}}
 
 
-@pytest.mark.parametrize("name", ["FTPConfig", "ForceConfig", "TempConfig"])
+@pytest.mark.parametrize("name", ["FTPConfig", "ForceConfig", "TempConfig", "SessionConfig"])
 def test_dataclass_fields_match(name):
     jf = {f.name: f.default for f in dataclasses.fields(getattr(jcfg, name))}
     tf = {f.name: f.default for f in dataclasses.fields(getattr(tcfg, name))}

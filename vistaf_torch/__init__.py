@@ -3,7 +3,8 @@ multimodal and streaming pipelines.
 
 The JAX package beside it is the reference this package is checked
 against.  Layout mirrors it module by module (``config``, ``ops``, ``ftp``,
-``calib``, ``pipelines``, ``parallel``, ``temperature``, ``utils``); the
+``calib``, ``pipelines``, ``parallel``, ``temperature``, ``runner`` (the CLI,
+``python -m vistaf_torch.runner.cli``, and the session runner), ``utils``); the
 Pallas kernels become the hand-written Hopper kernels in ``kernels`` (Python
 wrappers) and ``csrc`` (CUDA sources).  Every kernel wrapper dispatches on the tensor's device
 only: a CUDA tensor launches the kernel, a CPU tensor runs the plain

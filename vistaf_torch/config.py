@@ -1,8 +1,9 @@
 """Frozen configuration dataclasses for the force and temperature paths.
 
 A field-for-field copy of the JAX package's ``FTPConfig`` and
-``TempConfig`` (each with its ``deploy()`` preset) and ``ForceConfig``, and
-the reference artifacts' default paths under a data root; the port cannot
+``TempConfig`` (each with its ``deploy()`` preset), ``ForceConfig`` and
+``SessionConfig``, and the reference artifacts' default paths under a data
+root; the port cannot
 import them because importing the JAX package may load jax.  ``tests/test_torch_config.py``
 compares every field name and default with the JAX dataclasses, so drift is
 caught.  The field documentation lives in the JAX package.
@@ -266,6 +267,19 @@ class TempConfig:
 
     def replace(self, **kw) -> "TempConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class SessionConfig:
+    """Multimodal session-runner configuration (``runner/session.py``)."""
+
+    output_root: str = "./Multimodal_Sensor/run_output"
+    save_summary_figures: bool = True
+    export_heightmaps: bool = True
+    show_3d_interactive: bool = False
+    # MultimodalPipeline.step_fused (shared uploads, device reductions)
+    # instead of __call__; same outputs
+    fused_step: bool = False
 
 
 # Default locations of the reference calibration artifacts, relative to a
