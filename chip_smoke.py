@@ -48,6 +48,21 @@ Phases, one line each, any failure raises and exits non-zero:
      8, EMA 0.2, 6 batches through run_overlapped; K1, K3, K5, K6 and K7 must
      launch; bit-equal to the serialized calls, each stream to _single and
      the smoothing to the port's CPU update; p50 per batch and fps;
+  8a. BASELINE config 5 at 640x480 (phase ``limb640``): the same four
+     streams (their first batch) through ``whole_limb_step`` and
+     ``whole_limb_step_aux`` (map stride 2, a 960x1280 canvas, the poses of
+     scripts/bench_streams.py, one stream's gate 0 and one's 0.5) on a
+     world-1 NCCL stream mesh; a stream frame launches exactly what a
+     streams640 frame launches (K1 7, K3 1, K5 1, K6 1, K7 2); the forces
+     bit-equal to ``BatchedForce.batched()``, the aux head's to them times
+     the gates, the gates within 1e-6 of ``motion_gate``, the sums within
+     1e-6, the maps the heightmaps' contact depth and the canvas a numpy
+     max-blend of them; against the same heads on the port's CPU (a gloo
+     mesh) the forces, map maxima and canvas maximum within 1%; p50 and p90
+     a step, the step rate, the fusion alone and the NCCL version;
+     then the force path under ``scaled_ftp_config(480, 640)`` with
+     ``percentile_method="hist"`` (phase ``hist640``): K3 exactly twice a
+     frame and no other kernel, the parity gates below;
   8b. the parity preset (the CLI's default numerics), end to end at 640x480
      (``scaled_ftp_config(480, 640)``, phase ``parity640``) and at 2160x3840
      (``FTPConfig()``, phase ``parity4k``): K3 must launch twice a frame (the
@@ -132,7 +147,7 @@ SHIFT_ATOL_PX = 0.02
 # 19-23 iterations and ty by 0.1-0.2 px), so the card's and the CPU's
 # global shifts, ~0.006 px apart, end 0.4 px apart in ty and 3.6% apart in
 # force (x17 through the 4K growth model)
-SAME_ALIGNMENT_PATHS = ("parity640", "parity4k", "mm4k_parity")
+SAME_ALIGNMENT_PATHS = ("parity640", "hist640", "parity4k", "mm4k_parity")
 ALIGNMENT_UNDETERMINED = ("parity4k", "mm4k_parity")
 # the temperature deploy contract (the JAX TempConfig.deploy): scene mean
 # within 0.1 degC, hottest/coldest pixel within 0.75 degC
@@ -151,7 +166,10 @@ PATH_KERNELS = {
              "gn_moments_euclidean", "fused_temperature"),
     "streams640": ("masked_quantiles", "inpaint_diffusion", "ecc_loop_euclidean",
                    "unwrap_wls", "robust_polyfit2d"),
+    "limb640": ("masked_quantiles", "inpaint_diffusion", "ecc_loop_euclidean", "unwrap_wls",
+                "robust_polyfit2d"),
     "parity640": ("inpaint_diffusion",),
+    "hist640": ("inpaint_diffusion",),
     "parity4k": ("inpaint_diffusion",),
     "temp4k_parity": ("inpaint_diffusion",),
     "mm4k_parity": ("inpaint_diffusion",),
@@ -162,6 +180,7 @@ PATH_KERNELS = {
 # ECC, the plain PCG, the non-fused IRLS and the unfused LAB and models are
 # the JAX package's XLA routes on a TPU)
 PATH_EXACT_LAUNCHES = {"parity640": {"inpaint_diffusion": 2},
+                       "hist640": {"inpaint_diffusion": 2},
                        "parity4k": {"inpaint_diffusion": 2},
                        "temp4k_parity": {"inpaint_diffusion": 2},
                        "mm4k_parity": {"inpaint_diffusion": 4}}
@@ -185,6 +204,14 @@ MM_TMAP_ATOL, MM_STATS_ATOL, MM_FETCH_REL = 1e-4, 1e-3, 1e-6
 # BASELINE config 4 (scripts/bench_streams.py): 4 streams, window 8, EMA 0.2
 STREAMS, WINDOW, EMA_ALPHA, BATCHES = 4, 8, 0.2, 6
 DENTS_RAD = (0.8, 0.0, 0.5, 0.3, 0.7, 0.1)
+# BASELINE config 5 (scripts/bench_streams.py): the whole-limb heads over the
+# 4 streams at map stride 2, the aux head on a (2H, 2W) canvas; a stream
+# frame launches what a streams640 frame launches (PERF.md's kernel table),
+# the heads add no kernel of the table
+LIMB_STRIDE, LIMB_CANVAS = 2, (2 * H, 2 * W)
+PATH_EXACT_LAUNCHES["limb640"] = {"masked_quantiles": 7, "inpaint_diffusion": 1,
+                                  "ecc_loop_euclidean": 1, "unwrap_wls": 1,
+                                  "robust_polyfit2d": 2}
 # the runner's file contract without figures (matplotlib), as the JAX runner
 # writes it (tests/test_torch_runner.py and tests/test_torch_cli.py hold
 # these to the JAX trees): the force command with --export-heightmaps, and
@@ -1130,6 +1157,181 @@ def run_streams(device, rows, card):
     return lambda: sf(refs, seq[0])
 
 
+def contract_gap(card, cpu):
+    """|card - cpu| relative to |cpu|, and to the largest |cpu| where the
+    CPU reads 0 (a stream with no pixel over the contact threshold), per
+    element."""
+    card, cpu = np.asarray(card, np.float64), np.asarray(cpu, np.float64)
+    scale = np.where(cpu != 0.0, np.abs(cpu), np.abs(cpu).max())
+    return np.abs(card - cpu) / scale
+
+
+def max_blend(maps, gates, poses, canvas_hw, stride):
+    """numpy model of the aux head's canvas: each map times its gate,
+    max-blended onto zeros at its pose // stride clipped to keep it inside."""
+    ch, cw = canvas_hw[0] // stride, canvas_hw[1] // stride
+    ph, pw = maps.shape[1:]
+    canvas = np.zeros((ch, cw), np.float32)
+    for mp, g, (y, x) in zip(maps, gates, poses):
+        y, x = min(max(y // stride, 0), ch - ph), min(max(x // stride, 0), cw - pw)
+        canvas[y:y + ph, x:x + pw] = np.maximum(canvas[y:y + ph, x:x + pw], mp * g)
+    return canvas
+
+
+class _Replay:
+    """Per-stream results computed before, handed out in stream order: the
+    whole-limb heads over it time the fusion alone."""
+
+    def __init__(self, outs, depth_eps_mm):
+        self.outs, self.depth_eps_mm, self.k = outs, depth_eps_mm, 0
+
+    def _single(self, ref, de):
+        self.k += 1
+        return self.outs[(self.k - 1) % len(self.outs)]
+
+
+def run_limb(device, rows, card):
+    """BASELINE config 5 at 640x480 on the card: the four streams of
+    ``run_streams`` (their first batch) through ``whole_limb_step`` and
+    ``whole_limb_step_aux`` on a world-1 NCCL stream mesh (launches counted
+    from 0 over both), held to ``BatchedForce.batched()`` on the same card,
+    to ``motion_gate`` and a numpy max-blend, and to the same heads on the
+    port's CPU (a gloo mesh) within the deploy contract's 1%; then timed,
+    the fusion alone too.  Returns the two steps for the profile."""
+    import torch
+    import torch.distributed as dist
+    from vistaf_torch import kernels
+    from vistaf_torch.ftp.pipeline import FTPPipeline
+    from vistaf_torch.parallel import (BatchedForce, make_stream_mesh, motion_gate, shard_batch,
+                                       whole_limb_step, whole_limb_step_aux)
+
+    cfg, refs, defs, (pose, accel) = limb_inputs()
+    mesh = make_stream_mesh()
+    assert dist.get_backend() == "nccl" and mesh.size() == 1 and mesh.device_type == "cuda"
+    bf = BatchedForce(FTPPipeline(cfg, P2H_MODEL, device=device), FORCE_MODEL)
+    step = whole_limb_step(bf, mesh, map_stride=LIMB_STRIDE)
+    step_aux = whole_limb_step_aux(bf, mesh, LIMB_CANVAS, map_stride=LIMB_STRIDE)
+    rs, ds = shard_batch(mesh, refs), shard_batch(mesh, defs)
+    aux = {"pose_px": shard_batch(mesh, pose), "accel_mss": shard_batch(mesh, accel)}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = step(rs, ds)
+    out_aux = step_aux(rs, ds, aux)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    record_launches("limb640", rows, launches, frames=2 * STREAMS)
+
+    got = {k: v.cpu().numpy() for k, v in out.items()}
+    got_aux = {k: v.cpu().numpy() for k, v in out_aux.items()}
+    ref = bf.batched()(rs, ds)
+    forces = ref["force_N"]
+    gates = out_aux["stream_gate"]
+    assert torch.equal(out["per_stream_force"], forces), (out["per_stream_force"], forces)
+    assert torch.equal(out_aux["per_stream_force"], forces * gates)
+    gate_gap = float((gates.cpu() - motion_gate(torch.as_tensor(accel))).abs().max())
+    assert gate_gap <= 1e-6, gate_gap
+    for o in (got, got_aux):
+        total = float(o["per_stream_force"].astype(np.float64).sum())
+        assert abs(float(o["total_force_N"]) - total) <= 1e-6 * abs(total), o
+    limb = got["whole_limb_map_mm"]
+    assert limb.shape == (STREAMS, 118, 118), limb.shape
+    hm = ref["height_map_mm"].cpu().numpy()
+    hmf = np.where(np.isfinite(hm), hm, 0.0).astype(np.float32)
+    neg = np.clip(-hmf, 0, None).sum(axis=(1, 2)) > np.clip(hmf, 0, None).sum(axis=(1, 2))
+    depth = np.where(neg[:, None, None], -hmf, hmf)
+    want_map = np.where(np.isfinite(hm) & (depth > bf.depth_eps_mm), depth, 0.0)
+    np.testing.assert_array_equal(limb, want_map[:, ::LIMB_STRIDE, ::LIMB_STRIDE])
+    canvas = got_aux["limb_canvas_mm"]
+    np.testing.assert_array_equal(
+        canvas, max_blend(limb, got_aux["stream_gate"], pose, LIMB_CANVAS, LIMB_STRIDE))
+
+    # the same heads on the port's CPU (a gloo group over the same rank)
+    t0 = time.perf_counter()
+    cpu_mesh = make_stream_mesh(device="cpu")
+    cpu_bf = BatchedForce(FTPPipeline(cfg, P2H_MODEL, device="cpu"), FORCE_MODEL)
+    cpu = {k: v.numpy() for k, v in whole_limb_step(
+        cpu_bf, cpu_mesh, map_stride=LIMB_STRIDE)(refs, defs).items()}
+    cpu_aux = {k: v.numpy() for k, v in whole_limb_step_aux(
+        cpu_bf, cpu_mesh, LIMB_CANVAS, map_stride=LIMB_STRIDE)(
+            refs, defs, {"pose_px": pose, "accel_mss": accel}).items()}
+    cpu_s = time.perf_counter() - t0
+    gaps = {
+        "per_stream_force": contract_gap(got["per_stream_force"], cpu["per_stream_force"]),
+        "map_max": contract_gap(limb.max(axis=(1, 2)), cpu["whole_limb_map_mm"].max(axis=(1, 2))),
+        "aux_per_stream_force": contract_gap(got_aux["per_stream_force"],
+                                             cpu_aux["per_stream_force"]),
+        "canvas_max": contract_gap(canvas.max(), cpu_aux["limb_canvas_mm"].max()),
+        "total_force_N": contract_gap(got["total_force_N"], cpu["total_force_N"]),
+    }
+    say("end_to_end", path="limb640", streams=STREAMS, map_stride=LIMB_STRIDE,
+        canvas=list(canvas.shape), pose_px=pose.tolist(), stream_gate=gates.tolist(),
+        per_stream_force=got["per_stream_force"].tolist(),
+        per_stream_force_cpu=cpu["per_stream_force"].tolist(),
+        aux_per_stream_force=got_aux["per_stream_force"].tolist(),
+        total_force_N=float(got["total_force_N"]), max_depth_mm=float(got["max_depth_mm"]),
+        contact_area_mm2=float(got["contact_area_mm2"]),
+        map_max=limb.max(axis=(1, 2)).tolist(), canvas_max=float(canvas.max()),
+        gaps_vs_cpu={k: float(v.max()) for k, v in gaps.items()}, gate_gap=gate_gap,
+        cpu_seconds=cpu_s, launches=launches,
+        launches_per_stream_frame={k: v / (2 * STREAMS) for k, v in launches.items()})
+    for k, v in gaps.items():
+        assert float(v.max()) <= FORCE_RTOL, (k, v)
+    assert np.isfinite(limb).all() and float(limb.max()) > 0.01
+
+    time_limb("limb640", bf, mesh, rs, ds, aux, card)
+    return lambda: step(rs, ds), lambda: step_aux(rs, ds, aux)
+
+
+def limb_inputs():
+    """The limb heads' inputs: the deploy preset, the four streams of
+    ``run_streams``' first batch, the poses as scripts/bench_streams.py
+    draws them, and the accelerations (one stream moving at 30 m/s^2, gate
+    0; one at 11 m/s^2, gate 0.5; the rest still)."""
+    from vistaf_torch.config import slice_ftp_config
+    from vistaf_torch.utils.synthetic import synthetic_pair
+    cfg = slice_ftp_config(H, W)
+    refs = np.stack([synthetic_pair(H, W, cfg, seed=SEED + s)[0] for s in range(STREAMS)])
+    defs = np.stack([synthetic_pair(H, W, cfg, seed=SEED + s, dent_depth_rad=DENTS_RAD[s])[1]
+                     for s in range(STREAMS)])
+    rng = np.random.default_rng(5)
+    pose = np.stack([rng.integers(0, LIMB_CANVAS[0] - H, STREAMS),
+                     rng.integers(0, LIMB_CANVAS[1] - W, STREAMS)], axis=1).astype(np.int32)
+    accel = np.zeros((STREAMS, 3), np.float32)
+    accel[-1], accel[-2] = (30.0, 0.0, 0.0), (0.0, 11.0, 0.0)
+    return cfg, refs, defs, (pose, accel)
+
+
+def time_limb(path, bf, mesh, rs, ds, aux, card, **extra):
+    """A ``timing`` line for each head over this rank's streams ``rs``,
+    ``ds``: p50 and p90 a step (CUDA events, 2 warm-up, 8 timed), the step
+    rate, and the fusion alone (the head over the streams' results computed
+    before: everything after the forwards), with the NCCL version."""
+    import torch
+    from vistaf_torch.parallel import whole_limb_step, whole_limb_step_aux
+    step = whole_limb_step(bf, mesh, map_stride=LIMB_STRIDE)
+    step_aux = whole_limb_step_aux(bf, mesh, LIMB_CANVAS, map_stride=LIMB_STRIDE)
+    replay = _Replay([bf._single(rs[s], ds[s]) for s in range(rs.shape[0])], bf.depth_eps_mm)
+    fuse = whole_limb_step(replay, mesh, map_stride=LIMB_STRIDE)
+    fuse_aux = whole_limb_step_aux(replay, mesh, LIMB_CANVAS, map_stride=LIMB_STRIDE)
+    for name, fn, fusion in ((path, lambda: step(rs, ds), lambda: fuse(rs, ds)),
+                             (f"{path}_aux", lambda: step_aux(rs, ds, aux),
+                              lambda: fuse_aux(rs, ds, aux))):
+        times = []
+        for _ in range(2 + 8):
+            a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            e.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(e))
+        p50 = float(np.percentile(times[2:], 50))
+        say("timing", path=name, streams=STREAMS, local_streams=int(rs.shape[0]),
+            steps_timed=len(times) - 2, p50_ms_per_step=p50,
+            p90_ms_per_step=float(np.percentile(times[2:], 90)), step_hz=1000.0 / p50,
+            fusion_ms=cuda_ms(fusion, reps=20, warmup=2),
+            nccl=".".join(map(str, torch.cuda.nccl.version())), card=card, **extra)
+
+
 def probe_host_libraries():
     """Which of the figure writers' and temperature bundles' host libraries
     this machine has (an import probe, not a caught failure)."""
@@ -1459,6 +1661,11 @@ def main() -> int:
     lap("mm4k")
     runs["streams640"] = run_streams(device, rows, card)
     lap("streams640")
+    runs["limb640"], runs["limb640_aux"] = run_limb(device, rows, card)
+    lap("limb640")
+    runs["hist640"] = run_path("hist640", device, rows,
+                               scaled_ftp_config(H, W).replace(percentile_method="hist"), H, W)[1]
+    lap("hist640")
     runs["parity640"] = run_path("parity640", device, rows, scaled_ftp_config(H, W), H, W)[1]
     check_from_artifacts(device, scaled_ftp_config(H, W), H, W)
     force_p4k, runs["parity4k"] = run_path("parity4k", device, rows, FTPConfig(), H4K, W4K)
@@ -1487,6 +1694,7 @@ def main() -> int:
     phase_timing("mm4k", runs["mm4k"], card, frames=5, warmup=2)
     phase_timing("mm4k_scalars", runs["mm4k_scalars"], card, frames=5, warmup=2)
     phase_timing("parity640", runs["parity640"], card, frames=10, warmup=2)
+    phase_timing("hist640", runs["hist640"], card, frames=10, warmup=2)
     phase_timing("parity4k", runs["parity4k"], card, frames=3, warmup=1)
     phase_timing("temp4k_parity", runs["temp4k_parity"], card, frames=3, warmup=1)
     phase_timing("temp4k_parity_stats", runs["temp4k_parity_stats"], card, frames=3, warmup=1)
@@ -1498,7 +1706,10 @@ def main() -> int:
     phase_profile("temp4k_stats", runs["temp4k_stats"], frames=3)
     phase_profile("mm4k_scalars", runs["mm4k_scalars"], frames=2)
     phase_profile("streams640", runs["streams640"], frames=2)
+    phase_profile("limb640", runs["limb640"], frames=2)
+    phase_profile("limb640_aux", runs["limb640_aux"], frames=2)
     phase_profile("parity640", runs["parity640"], frames=2)
+    phase_profile("hist640", runs["hist640"], frames=2)
     phase_profile("parity4k", runs["parity4k"], frames=1)
     phase_profile("temp4k_parity_stats", runs["temp4k_parity_stats"], frames=1)
     phase_profile("mm4k_parity_scalars", runs["mm4k_parity_scalars"], frames=1)
@@ -1507,6 +1718,8 @@ def main() -> int:
                {"parity": (mmp, False, mmp_ref, mmp_def), "deploy": (mm, True, mm_ref, mm_def)},
                temp_p)
     lap("runner")
+    import torch.distributed as dist
+    dist.destroy_process_group()
     say("clock", seconds=clock, total=time.perf_counter() - t0)
 
     print(card)

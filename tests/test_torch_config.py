@@ -103,9 +103,11 @@ def test_pipeline_requires_an_explicit_device_and_a_ported_config():
         FTPPipeline(cfg.replace(ecc_warp_mode="affine"), P2H, device="cpu")
     with pytest.raises(NotImplementedError, match="percentile_method"):
         FTPPipeline(tcfg.FTPConfig().deploy().replace(unwrap_downsample=1,
-                                                      percentile_method="hist"),
+                                                      percentile_method="hist_rows"),
                     P2H, device="cpu")
     for ported in (cfg.replace(unwrap_method="wls"), tcfg.FTPConfig().deploy(),
+                   tcfg.FTPConfig().deploy().replace(unwrap_downsample=1,
+                                                     percentile_method="hist"),
                    cfg.replace(ecc_downsample_min_px=0, unwrap_downsample_min_px=0,
                                polyfit_kernel=False, ecc_loop_kernel=False),
                    cfg.replace(ecc_sampler="gather", ecc_stride=1),

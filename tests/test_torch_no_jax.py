@@ -2,7 +2,7 @@
 
 In a fresh interpreter with ``jax``, ``jaxlib`` and ``vistaf_tpu`` blocked
 in ``sys.modules`` (an import of any of them raises), every module of
-``vistaf_torch`` and ``chip_smoke.py`` import, and ``python -m
+``vistaf_torch``, ``chip_smoke.py`` and ``chip_limb_ranks.py`` import, and ``python -m
 vistaf_torch.runner.cli --help`` runs.  Imports made inside functions do
 not run then, so every import statement of those files is also read from
 its syntax tree.
@@ -24,7 +24,7 @@ for name in {BLOCKED!r}:
     sys.modules[name] = None
 import vistaf_torch
 names = sorted(m.name for m in pkgutil.walk_packages(vistaf_torch.__path__, "vistaf_torch."))
-for name in names + ["chip_smoke"]:
+for name in names + ["chip_smoke", "chip_limb_ranks"]:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)
@@ -43,7 +43,7 @@ def _modules():
 
 
 def _sources():
-    return [*_modules(), PKG.parent / "chip_smoke.py"]
+    return [*_modules(), PKG.parent / "chip_smoke.py", PKG.parent / "chip_limb_ranks.py"]
 
 
 def test_every_module_imports_with_jax_blocked():

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from vistaf_tpu.pipelines import streaming as jax_streaming
 from vistaf_tpu.utils.synthetic import scaled_ftp_config
@@ -26,7 +27,7 @@ from vistaf_tpu.utils.synthetic import scaled_ftp_config
 from vistaf_torch import kernels
 from vistaf_torch.config import ftp_config_from_dict
 from vistaf_torch.ftp.pipeline import FTPPipeline
-from vistaf_torch.parallel.mesh import BatchedForce
+from vistaf_torch.parallel.mesh import BatchedForce, make_stream_mesh
 from vistaf_torch.pipelines import streaming
 from vistaf_torch.utils.synthetic import synthetic_pair
 
@@ -134,10 +135,22 @@ def test_run_overlapped_matches_serialized_and_jax():
 
 
 def test_run_overlapped_empty_sequence_and_mesh():
+    """An empty sequence gives no outputs; a stream mesh (world 1, gloo) is
+    accepted, and a step over it gives the meshless step's outputs."""
     sf = streaming.StreamingForce(_FakeBatched(), 2, window=4)
     assert sf.run_overlapped(np.zeros((2, 4, 4, 3), np.uint8), []) == []
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        streaming.StreamingForce(_FakeBatched(), 2, mesh=object())
+    frames = np.random.default_rng(1).integers(0, 255, size=(2, 4, 4, 3)).astype(np.uint8)
+    mesh = make_stream_mesh(device="cpu")
+    try:
+        on_mesh = streaming.StreamingForce(_FakeBatched(), 2, window=4, mesh=mesh)
+        assert on_mesh.run_overlapped(frames, []) == []
+        got = on_mesh(frames, frames)
+    finally:
+        dist.destroy_process_group()
+    want = sf(frames, frames)
+    assert set(got) == set(want)
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.fixture(scope="module")

@@ -30,7 +30,8 @@ from vistaf_torch.ops.filters import gaussian_blur, gradient_magnitude, hann_pat
 from vistaf_torch.ops.inpaint import inpaint_diffusion
 from vistaf_torch.ops.morphology import dilate, ellipse_kernel
 from vistaf_torch.ops.padding import pad_last2
-from vistaf_torch.ops.percentile import get_percentile_fn, masked_mean
+from vistaf_torch.ops.percentile import (get_percentile_fn, masked_mean,
+                                        masked_percentile_hist_rows)
 
 
 class DemodResult(NamedTuple):
@@ -67,10 +68,18 @@ def preprocess(gray: torch.Tensor, apo: Optional[torch.Tensor], cfg: FTPConfig,
     img = gray.to(torch.float32)
     valid = apo > 1e-6 if apo is not None else torch.ones_like(img[0], dtype=torch.bool)
     if cfg.bad_pixel_enable:
-        pctl = get_percentile_fn(cfg.percentile_method)
         grad = gradient_magnitude(img)
-        hi_thr = pctl(img, valid, cfg.bad_intensity_percentile)[..., None, None]
-        g_thr = pctl(grad, valid, cfg.bad_gradient_percentile)[..., None, None]
+        qs = (cfg.bad_intensity_percentile, cfg.bad_gradient_percentile)
+        if cfg.percentile_method == "hist":
+            # the JAX route: one 64-bin rows call over each frame's image
+            # and gradient
+            rows = torch.stack([img, grad], dim=-3).flatten(-2)
+            thr = masked_percentile_hist_rows(rows, valid.reshape(-1), qs, bins=64)
+            hi_thr, g_thr = thr[..., 0, None, None], thr[..., 1, None, None]
+        else:
+            pctl = get_percentile_fn(cfg.percentile_method)
+            hi_thr = pctl(img, valid, qs[0])[..., None, None]
+            g_thr = pctl(grad, valid, qs[1])[..., None, None]
         bad = ((img >= hi_thr) | (grad >= g_thr)) & valid
         if cfg.bad_dilate_ksize and cfg.bad_dilate_ksize > 1:
             ksz = max(3, cfg.bad_dilate_ksize | 1)

@@ -7,14 +7,15 @@ K4; the gather sampler's host loop), demodulation of the pair (percentile
 thresholds, K3), the reliable mask (a percentile, close, dominant or
 largest component, distance erode), wrapped phase difference, WLS unwrap
 (K6, or the PCG, pooled or not), the unfolded plane removal, two-pass IRLS
-detrend (K7, or the IRLS with K2 or sort percentiles), smoothing, sign
-flip, the internal-hole fill (K3), frontier taper, unreliable-region fill,
-clamp, mm conversion and the contact-blob filter.  Percentiles are K1 under
-``hist_pallas`` and sorts under ``sort``.  Each kernel is taken where the
-JAX package takes its Pallas kernel on a TPU, by shape (the routing rule in
-``kernels/__init__.py``).  The pipeline owns its static geometry (circle
-mask, eroded ROI, apodization, Hann window) and blur/DCT/DFT matrices as
-tensors on its device, built once.
+detrend (K7, or the IRLS with K2, histogram or sort percentiles),
+smoothing, sign flip, the internal-hole fill (K3), frontier taper,
+unreliable-region fill, clamp, mm conversion and the contact-blob filter.
+Percentiles are K1 under ``hist_pallas``, sorts under ``sort`` and the
+histogram ladders of ``ops/percentile.py`` under ``hist``.  Each kernel is
+taken where the JAX package takes its Pallas kernel on a TPU, by shape (the
+routing rule in ``kernels/__init__.py``).  The pipeline owns its static
+geometry (circle mask, eroded ROI, apodization, Hann window) and
+blur/DCT/DFT matrices as tensors on its device, built once.
 
 It runs the JAX package's parity preset, the CLI's default numerics
 (``FTPConfig()`` at native 2160x3840 and ``scaled_ftp_config(h, w)``: sort
@@ -22,7 +23,9 @@ percentiles, the gather-sampler ECC, the full-``fft2`` demod with the
 'topk' carrier search and median DC removal, the largest component, the
 hole fill, the unfolded plane removal, the full-resolution unwrap with the
 FFT-based DCT from 512 px; K3 is its only kernel), and its deploy preset as
-shipped (``scaled_ftp_config(480, 640).deploy()``, ``FTPConfig().deploy()``).
+shipped (``scaled_ftp_config(480, 640).deploy()``, ``FTPConfig().deploy()``),
+and the parity preset with ``percentile_method="hist"`` (the configuration
+of the JAX package's whole-limb tests; K3 is its only kernel too).
 Configurations the port does not run yet raise at construction: see
 ``FTPPipeline.check_config``.
 """
@@ -171,11 +174,14 @@ class FTPPipeline:
         outside the ported paths.  The parity preset runs (``FTPConfig()``,
         ``scaled_ftp_config(h, w)``: sort percentiles, the gather-sampler
         ECC, the full-``fft2`` demod, the largest component, the hole fill,
-        the unfolded plane removal, the FFT-based DCT), and so do both deploy
-        presets as shipped.  Still unported: the Gaussian sideband, the
-        unlocked demod and the Hann window (``demod.check_config``), the
-        ECC's translation and affine modes and its gather sampler at a
-        stride, the ``hist``/``hist_rows``/``bisect`` percentiles, the
+        the unfolded plane removal, the FFT-based DCT), so does it with the
+        ``hist`` percentiles (the JAX package's whole-limb test
+        configuration), and so do both deploy presets as shipped.  The
+        percentile methods are the JAX package's: ``sort``, ``hist`` and
+        ``hist_pallas`` (``hist_rows`` and ``bisect`` are not methods there
+        either).  Still unported: the Gaussian sideband, the unlocked demod
+        and the Hann window (``demod.check_config``), the ECC's translation
+        and affine modes and its gather sampler at a stride, the
         single-pass detrend and the grating-band prealignment.  Never
         ported: the pooled and the windowed global shift
         (``global_shift_downsample``, ``global_shift_pc_eps``,
@@ -184,7 +190,7 @@ class FTPPipeline:
         incident and the rejected round-5 experiments)."""
         demod.check_config(cfg)
         unported = {
-            "percentile_method": cfg.percentile_method not in ("sort", "hist_pallas"),
+            "percentile_method": cfg.percentile_method not in ("sort", "hist", "hist_pallas"),
             "ecc_warp_mode/ecc_sampler": cfg.use_ecc_crop_alignment and (
                 cfg.ecc_warp_mode != "euclidean" or cfg.ecc_sampler not in ("shear", "gather")
                 or (cfg.ecc_sampler == "gather" and cfg.ecc_stride != 1)),

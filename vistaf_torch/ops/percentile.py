@@ -1,12 +1,13 @@
 """Masked percentile and mean/min/max reductions (JAX ``ops/percentile.py``).
 
-Three methods are ported: ``sort`` (the parity presets': NumPy's linear
-interpolation over a full sort, the JAX ``masked_percentile``, bit-equal to
-it on the CPU), ``hist`` (the JAX histogram refinement,
-``masked_percentile_hist`` and ``_hist_multi``) and ``hist_pallas`` (the
-deploy presets': the K1 kernel, ``kernels/quantile_kernel.py``).  The
-histogram-rows and bisection XLA paths are no preset's route and are not
-ported.  Reductions run over the trailing (H, W) dimensions, so a (2, H, W)
+The JAX package's three methods are ported: ``sort`` (the parity presets':
+NumPy's linear interpolation over a full sort, the JAX ``masked_percentile``,
+bit-equal to it on the CPU), ``hist`` (the JAX histogram refinement,
+``masked_percentile_hist``, ``_hist_multi`` and ``_hist_rows``, the last the
+force demod's bad-pixel thresholds) and ``hist_pallas`` (the deploy presets':
+the K1 kernel, ``kernels/quantile_kernel.py``).  The bisection ladder is
+only the JAX kernels' above-budget fallback, which the port's kernels do not
+need.  Reductions run over the trailing (H, W) dimensions, so a (2, H, W)
 pair gives one value per plane.
 """
 from __future__ import annotations
@@ -79,6 +80,20 @@ def _hist_bin(counts: torch.Tensor, target: torch.Tensor, bins: int) -> torch.Te
     return torch.clamp(b, 0, bins - 1).to(torch.float32)
 
 
+def _hist_passes(x: torch.Tensor, m: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                 target: torch.Tensor, bins: int, passes: int):
+    """``passes`` narrowings of each bracket [lo, hi] to the bin of ``bins``
+    equal steps whose count of ``m`` elements of ``x`` <= its upper edge
+    first exceeds the target rank."""
+    steps = torch.arange(1, bins + 1, dtype=torch.float32, device=x.device)
+    for _ in range(passes):
+        span = torch.clamp(hi - lo, min=1e-30)
+        edges = lo[..., None] + span[..., None] * steps / bins
+        b = _hist_bin(_hist_counts(x, m, edges), target, bins)
+        lo, hi = lo + span * b / bins, lo + span * (b + 1.0) / bins
+    return lo, hi
+
+
 def masked_percentile_hist(arr: torch.Tensor, mask, q: float, bins: int = 128,
                            refine: int = 2, fallback: float = 0.0) -> torch.Tensor:
     """The JAX ``masked_percentile_hist``: a bracket [lo, hi] from the masked
@@ -90,12 +105,7 @@ def masked_percentile_hist(arr: torch.Tensor, mask, q: float, bins: int = 128,
     # q / 100 as XLA compiles it: q times the float32 reciprocal of 100
     target = float(np.float32(q) * (np.float32(1.0) / np.float32(100.0))) \
         * torch.clamp(n - 1.0, min=0.0)
-    steps = torch.arange(1, bins + 1, dtype=torch.float32, device=x.device)
-    for _ in range(1 + refine):
-        span = torch.clamp(hi - lo, min=1e-30)
-        edges = lo[..., None] + span[..., None] * steps / bins
-        b = _hist_bin(_hist_counts(x, m, edges), target, bins)
-        lo, hi = lo + span * b / bins, lo + span * (b + 1.0) / bins
+    lo, hi = _hist_passes(x, m, lo, hi, target, bins, 1 + refine)
     return torch.where(n > 0, 0.5 * (lo + hi), float(fallback))
 
 
@@ -113,14 +123,30 @@ def masked_percentile_hist_multi(arr: torch.Tensor, mask, qs: tuple, bins: int =
     b = _hist_bin(counts[..., None, :], targets, bins)
     lo = glo[..., None] + span[..., None] * b / bins
     hi = glo[..., None] + span[..., None] * (b + 1.0) / bins
-    for _ in range(refine):
-        span = torch.clamp(hi - lo, min=1e-30)
-        edges = lo[..., None] + span[..., None] * steps / bins
-        counts = torch.stack([_hist_counts(x, m, edges[..., k, :].contiguous())
-                              for k in range(len(qs))], dim=-2)
-        b = _hist_bin(counts, targets, bins)
-        lo, hi = lo + span * b / bins, lo + span * (b + 1.0) / bins
+    rows = (*x.shape[:-1], len(qs), x.shape[-1])
+    lo, hi = _hist_passes(x[..., None, :].expand(rows).contiguous(),
+                          m[..., None, :].expand(rows), lo, hi, targets, bins, refine)
     return torch.where((n > 0)[..., None], 0.5 * (lo + hi), float(fallback))
+
+
+def masked_percentile_hist_rows(X: torch.Tensor, M: torch.Tensor, qs: tuple, bins: int = 128,
+                                refine: int = 2, fallback: float = 0.0) -> torch.Tensor:
+    """The JAX ``masked_percentile_hist_rows``: (..., K, N) rows ``X`` under
+    (..., K, N) masks ``M``, one quantile of ``qs`` per row, each row's
+    bracket narrowed ``1 + refine`` times as ``masked_percentile_hist``
+    narrows it, with the targets float32(q / 100) * (n - 1) of
+    ``_hist_multi``; returns (..., K), ``fallback`` for an empty row."""
+    if len(qs) != X.shape[-2]:
+        raise ValueError(f"{len(qs)} quantiles for {X.shape[-2]} rows")
+    x = X.to(torch.float32).contiguous()
+    m = M.expand(x.shape) & torch.isfinite(x)
+    n = m.to(torch.float32).sum(dim=-1)
+    lo = torch.where(m, x, _BIG).amin(dim=-1)
+    hi = torch.where(m, x, -_BIG).amax(dim=-1)
+    targets = (torch.tensor([q / 100.0 for q in qs], dtype=torch.float32, device=x.device)
+               * torch.clamp(n - 1.0, min=0.0))
+    lo, hi = _hist_passes(x, m, lo, hi, targets, bins, 1 + refine)
+    return torch.where(n > 0, 0.5 * (lo + hi), float(fallback))
 
 
 def get_percentile_fn(method: str):

@@ -5,7 +5,8 @@ K7 kernel (``kernels/polyfit_kernel.py``) while ``polyfit_kernel.fits``
 holds; otherwise, and for ``fused=False``, the IRLS of the JAX
 ``_robust_polyfit2d_xla`` with the robust scale of its ``percentile_method``:
 ``hist_pallas`` takes the K2 median/MAD kernel
-(``kernels/quantile_kernel.py``), ``sort`` two sort percentiles.
+(``kernels/quantile_kernel.py``), ``hist`` two histogram percentiles
+refined once, ``sort`` two sort percentiles.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 from vistaf_torch.kernels import polyfit_kernel
 from vistaf_torch.kernels.polyfit_kernel import basis, robust_polyfit2d_coef
 from vistaf_torch.kernels.quantile_kernel import masked_median_mad
-from vistaf_torch.ops.percentile import get_percentile_fn
+from vistaf_torch.ops.percentile import get_percentile_fn, masked_percentile_hist
 
 
 def eval_poly2d(h: int, w: int, coef: torch.Tensor, order: int) -> torch.Tensor:
@@ -35,9 +36,9 @@ def robust_polyfit2d_irls(z: torch.Tensor, mask: torch.Tensor, order: int = 2,
     w^2-weighted normal equations (``linalg.solve`` of H + 1e-9 I), the
     median/MAD of the residual in the first ``resigma_iters`` rounds (scale
     1.4826 (MAD + 1e-6); K2 for ``hist_pallas``, else the median of the
-    residual and of its distance from that median by ``percentile_method``)
-    and Cauchy reweighting.  Returns the coefficients, zeros for masks under
-    200 px.  No host sync."""
+    residual and of its distance from that median by ``percentile_method``,
+    ``hist`` refined once as in JAX) and Cauchy reweighting.  Returns the
+    coefficients, zeros for masks under 200 px.  No host sync."""
     h, w = z.shape
     ncoef = 6 if order >= 2 else 3
     m = mask & torch.isfinite(z)
@@ -48,7 +49,11 @@ def robust_polyfit2d_irls(z: torch.Tensor, mask: torch.Tensor, order: int = 2,
     wts = torch.ones_like(zv)
     coef = torch.zeros(ncoef, dtype=torch.float32, device=z.device)
     sigma = torch.tensor(1.0, device=z.device)
-    pctl = None if percentile_method == "hist_pallas" else get_percentile_fn(percentile_method)
+    if percentile_method == "hist":
+        # the JAX IRLS refines the robust scale's brackets once, not twice
+        pctl = lambda a, mm, q: masked_percentile_hist(a, mm, q, refine=1)  # noqa: E731
+    else:
+        pctl = None if percentile_method == "hist_pallas" else get_percentile_fn(percentile_method)
     for i in range(iters):
         w2 = (wts * mv) ** 2
         Bw = B * w2[None, :]

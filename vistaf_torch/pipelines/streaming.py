@@ -15,6 +15,8 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from vistaf_torch.parallel.mesh import gather_streams, mesh_device
+
 
 class StreamState(NamedTuple):
     ring: torch.Tensor        # (n_streams, window) recent force readings
@@ -94,17 +96,25 @@ def _to_host(outs: List[Dict[str, torch.Tensor]]) -> List[Dict[str, np.ndarray]]
 class StreamingForce:
     """Batched force forward + temporal smoothing over a stream batch, on
     the device of ``batched_force`` (the card unless its pipeline was built
-    for another).  ``mesh`` (sharding over several cards) is not ported yet:
-    ROADMAP Queue 1 item 7."""
+    for another).
+
+    With a ``mesh`` (``parallel.make_stream_mesh``) each rank is given its
+    own n_streams / world streams (``shard_batch``) and runs them on its
+    device; their raw forces and depths are gathered over the mesh, and
+    every rank keeps the same replicated smoothing state of all
+    ``n_streams`` and returns the same outputs."""
 
     def __init__(self, batched_force, n_streams: int, window: int = 8,
                  ema_alpha: float = 0.2, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("StreamingForce over a mesh is not ported yet "
-                                      "(ROADMAP Queue 1 item 7)")
         self.n_streams = n_streams
         self.ema_alpha = ema_alpha
-        self.device = torch.device(batched_force.device)
+        self._mesh = mesh
+        if mesh is None:
+            self.device = torch.device(batched_force.device)
+        else:
+            if n_streams % mesh.size():
+                raise ValueError(f"{n_streams} streams do not split over {mesh.size()} ranks")
+            self.device = mesh_device(mesh)
         self._inner = batched_force.batched()
         self._state = init_state(n_streams, window, self.device)
 
@@ -115,14 +125,19 @@ class StreamingForce:
 
     def _step(self, refs: torch.Tensor, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         res = self._inner(refs, frames)
-        self._state, out = update(self._state, res["force_N"], self.ema_alpha)
-        out["force_raw_N"] = res["force_N"]
-        out["max_depth_mm"] = res["max_depth_mm"]
+        forces, depths = res["force_N"], res["max_depth_mm"]
+        if self._mesh is not None:
+            forces = gather_streams(self._mesh, forces.to(self.device))
+            depths = gather_streams(self._mesh, depths.to(self.device))
+        self._state, out = update(self._state, forces, self.ema_alpha)
+        out["force_raw_N"] = forces
+        out["max_depth_mm"] = depths
         return out
 
     def __call__(self, refs, frames) -> Dict[str, np.ndarray]:
         """One batch of (n_streams, H, W, 3) uint8 frames against the
-        streams' reference frames; returns the step's outputs as numpy."""
+        streams' reference frames (this rank's block of both over a mesh);
+        returns the step's outputs, of every stream, as numpy."""
         return _to_host([self._step(self._upload(refs), self._upload(frames))])[0]
 
     def reset(self, window: Optional[int] = None) -> None:
