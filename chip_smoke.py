@@ -108,7 +108,30 @@ Phases, one line each, any failure raises and exits non-zero:
      the kernel table, each command's wall time split by ``StageTimer``
      (setup, decode, forward, writers); a probe line says whether
      matplotlib, joblib and sklearn are present, and where they are the
-     phase also runs ``force --debug`` and ``temperature``.
+     phase also runs ``force --debug`` and ``temperature``;
+  12. trainers at 2160x3840 (``vistaf_torch/trainers``), on seeded series
+     written as JPEGs to a temporary directory: ``train-p2h`` through
+     ``cli.main`` on the four calibration indentations (K3 exactly 1 a
+     frame, no other kernel; the first minimum within 1e-3 of the port's
+     CPU run given the card's alignment) and ``train-h2f`` on the ten
+     loading frames with the p2h model just written (K3 exactly 2 a frame;
+     each row's volume bit-equal to ``ForcePipeline``'s; a second run
+     resumes, launches nothing and writes the same model JSON); the
+     temperature trainers (7 temperatures x 2 frames a run, the real
+     annulus, degrees, CV splits, Huber constants and 4000 px an image) on
+     the card and on the port's CPU (the same degrees, metrics within 1e-6,
+     each final fit that reached a minimizer, within its 500 rounds and
+     with its scale above the 1e-10 floor, with the same rounds, weights
+     within 1e-7 and objective within 1e-8; the others reported); the
+     black trainer's global fit at its real
+     sample count (1.44 M, degree 3), timed, against the CPU fit (the same
+     iterations, weights within 1e-6); the trained global models through
+     ``TemperaturePipeline`` under both presets (K1 1, K3 2, K8 1 and K3 2
+     a frame) against the CPU under the deploy contract; ``pretest``
+     through ``cli.main`` on a settling series of 30 frames (the CPU's
+     stabilization index, mean L within 1e-3).  Each trainer's file set is
+     checked (figures recorded where matplotlib is missing), and its wall
+     time split into setup, decode, forward_fit and writers.
 Then the card line, one JSON line with the kernel table and, last, the
 device line.
 """
@@ -197,6 +220,74 @@ RUNNER_LAUNCHES = {
 }
 PATH_KERNELS.update({k: tuple(v) for k, v in RUNNER_LAUNCHES.items()})
 PATH_EXACT_LAUNCHES.update(RUNNER_LAUNCHES)
+# the trainers phase at 2160x3840: the p2h indentations (the four
+# DEFAULT_CALIBRATION_SAMPLES), the h2f loading frames (sphere-{1 + 5k}.jpg,
+# the first frame of each of the first ten force levels: the trainer's
+# minimum of 10 rows), the temperature trainers' 7 temperatures x 2 frames a
+# run (the real series: 27 or 36 x 5), the pretest's settling series, and
+# the black trainer's real global fit size (36 temperatures x 5 frames x
+# 4000 px x 2 runs = 1.44 M samples, degree 3)
+P2H_DENTS_RAD = (0.4, 0.6, 0.8, 1.0)
+H2F_DENTS_RAD = tuple(0.1 * (k + 1) for k in range(10))
+TRAIN_TEMPS, TRAIN_FRAMES = tuple(range(20, 27)), 2
+PRETEST_LEVELS = tuple(20.0 + 6.0 * (1.0 - np.exp(-i / 4.0)) for i in range(30))
+HUBER_TEMPS, HUBER_FRAMES, HUBER_PX, HUBER_DEGREE = tuple(range(20, 56)), 5, 4000, 3
+# each trainer's whole launch count a frame: K3 in the p2h variant's demod
+# only (its hole fill is off), in the demod and the hole fill of h2f's
+# parity forward; none on a resumed h2f run and in the temperature trainers
+# and the pretest (cv2 LAB, masked means, Huber fits, the unfused LAB); the
+# trained models served through TemperaturePipeline as on temp4k (deploy)
+# and temp4k_parity
+TRAINER_LAUNCHES = {
+    "train_p2h": {"inpaint_diffusion": 1}, "train_h2f": {"inpaint_diffusion": 2},
+    "train_h2f_resume": {}, "train_temp_color": {}, "train_temp_black": {}, "pretest": {},
+    "roundtrip_deploy": {"masked_quantiles": 1, "inpaint_diffusion": 2,
+                         "fused_temperature": 1},
+    "roundtrip_parity": {"inpaint_diffusion": 2},
+}
+PATH_KERNELS.update({k: tuple(v) for k, v in TRAINER_LAUNCHES.items()})
+PATH_EXACT_LAUNCHES.update(TRAINER_LAUNCHES)
+# the trainers' gates against the port's CPU run: p2h's first minimum given
+# the card's alignment; the temperature trainers' degrees and metrics, and
+# each final fit that met its stop within the round cap: the same rounds,
+# its weights (the determined coefficients relative to the largest, coef[0]
+# + intercept relative, the split between them, which rounding sets,
+# absolute: calib/huber.py) and its Huber objective.  A fit the cap stopped
+# (500 rounds, the JAX trainer's cap), or whose scale a Newton step threw
+# onto its 1e-10 floor, where the scale loop can no longer move it, has
+# reached no minimizer, and rounding decides which run does that: its gaps
+# are reported, not held (ROADMAP Queue 3 items 3 and 4).  The 1.44
+# M-sample fit's rounds and weights; the pretest's mean L
+TRAINER_MIN_RTOL, TRAINER_METRIC_ATOL, TRAINER_COEF_RTOL = 1e-3, 1e-6, 1e-7
+TRAINER_OBJECTIVE_RTOL, HUBER_MAX_ROUNDS, HUBER_SIGMA_FLOOR = 1e-8, 500, 1e-10
+HUBER_COEF_RTOL, SPLIT_ATOL, MEAN_L_ATOL = 1e-6, 1e-4, 1e-3
+# each trainer's file set, as the JAX trainers write it (tests/
+# test_torch_trainers_{force,temp}.py hold these to the JAX trainers'
+# outputs); the temperature trainers also write three .npz, and three
+# .joblib where joblib and sklearn are present, named by the chosen degrees
+P2H_FILES = ("calibration_model.json", "calibration_results.csv", "calibration_plot.png")
+H2F_FILES = ("calibration_model.json", "per_image_results.csv", "per_image_results.jsonl",
+             "volume_by_force_boxplot.png", "force_vs_volume_fit.png")
+COLOR_TRAINER_FILES = (
+    "00_roi_overlay.png", "01_heating_L_vs_T_modelcurve.png",
+    "02_cooling_L_vs_T_modelcurve.png", "03_hysteresis_L_vs_T_models.png",
+    "05_global_true_vs_pred.png", "06_global_L_vs_T_all_trend.png",
+    "07_global_per_temp_error.csv", "08_global_mae_vs_T.png",
+    "models_final_summary_metrics.json", "equations_color_models_final.txt")
+BLACK_TRAINER_FILES = (
+    "00_roi_overlay.png", "01_heating_gray_vs_T_modelcurve.png",
+    "02_cooling_gray_vs_T_modelcurve.png", "03_hysteresis_gray_vs_T_models.png",
+    "05_global_true_vs_pred.png", "06_global_gray_vs_T_all_modelcurve.png",
+    "models_final_summary_metrics.json", "equations_black_models_final.txt")
+# the figure writers of vistaf_torch.trainers.plots and the files each call
+# writes (its first argument: an output directory or a file path)
+FIGURE_WRITERS = {
+    "save_h2f_plots": ("volume_by_force_boxplot.png", "force_vs_volume_fit.png"),
+    "save_p2h_plot": ("calibration_plot.png",),
+    "save_annulus_roi_overlay": None, "plot_feat_vs_T_run": None, "plot_hysteresis": None,
+    "plot_true_vs_pred": None, "plot_feat_vs_T_all": None, "plot_per_temp_mae": None,
+    "save_pretest_figure": None,
+}
 # the multimodal gates of tests/test_multimodal_fused.py: step_fused(maps)
 # against __call__, step_fused(scalars) against step_fused(maps)
 MM_HEIGHT_RTOL, MM_HEIGHT_ATOL, MM_SCALAR_REL = 1e-5, 1e-6, 1e-4
@@ -1368,6 +1459,29 @@ def staged(timer, patches):
             setattr(owner, attr, raw)
 
 
+def drive_counted(device, fn, patches):
+    """fn() with the launches counted from 0 and the stages timed: (its
+    result, its stdout, the launches, {stage: ms}); the wall time that no
+    stage took is the writers'."""
+    from io import StringIO
+    import torch
+    from vistaf_torch import kernels
+    from vistaf_torch.utils.profiling import StageTimer
+    timer = StageTimer(device)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with staged(timer, patches), contextlib.redirect_stdout(StringIO()) as text:
+        out = fn()
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    ms = {k: v * 1e3 for k, v in timer.totals.items()}
+    ms["writers"] = total_ms - sum(ms.values())
+    ms["total"] = total_ms
+    return out, text.getvalue(), launches, ms
+
+
 def file_tree(root) -> set:
     return {os.path.relpath(os.path.join(d, f), root)
             for d, _, files in os.walk(root) for f in files}
@@ -1436,9 +1550,6 @@ def run_runner(device, rows, card, force_pipes, sessions, temp_parity):
     its wall time split by ``StageTimer``; where matplotlib is present also
     ``force --debug``, and with joblib and sklearn the ``temperature``
     command."""
-    from io import StringIO
-    import torch
-    from vistaf_torch import kernels
     from vistaf_torch.calib import artifacts
     from vistaf_torch.config import (HEIGHT_TO_FORCE_JSON, PHASE_TO_HEIGHT_JSON, FTPConfig,
                                      SessionConfig)
@@ -1446,7 +1557,6 @@ def run_runner(device, rows, card, force_pipes, sessions, temp_parity):
     from vistaf_torch.pipelines.multimodal import MultimodalPipeline
     from vistaf_torch.runner import cli, io
     from vistaf_torch.runner.session import run_session
-    from vistaf_torch.utils.profiling import StageTimer
     from vistaf_torch.utils.synthetic import synthetic_deploy_temp_weights, synthetic_pair
 
     libs = probe_host_libraries()
@@ -1454,22 +1564,7 @@ def run_runner(device, rows, card, force_pipes, sessions, temp_parity):
     figures = libs["matplotlib"]
 
     def drive(fn, patches):
-        """fn() with the launches counted from 0 and the stages timed: (its
-        result, its stdout, the launches, {stage: ms}); the wall time that no
-        stage took is the writers'."""
-        timer = StageTimer(device)
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        with staged(timer, patches), contextlib.redirect_stdout(StringIO()) as text:
-            out = fn()
-        torch.cuda.synchronize()
-        total_ms = (time.perf_counter() - t0) * 1e3
-        launches = dict(kernels.LAUNCHES)
-        ms = {k: v * 1e3 for k, v in timer.totals.items()}
-        ms["writers"] = total_ms - sum(ms.values())
-        ms["total"] = total_ms
-        return out, text.getvalue(), launches, ms
+        return drive_counted(device, fn, patches)
 
     cli_stages = [(ForcePipeline, "from_artifacts", "setup"), (io, "imread_bgr", "decode"),
                   (ForcePipeline, "__call__", "forward")]
@@ -1555,6 +1650,422 @@ def run_runner(device, rows, card, force_pipes, sessions, temp_parity):
                 files_differ=bad)
             assert not bad, bad
 
+
+
+@contextlib.contextmanager
+def figure_recorders(enabled: bool, sink: list):
+    """Where matplotlib is missing (``enabled``), the figure writers of
+    ``vistaf_torch.trainers.plots`` (``FIGURE_WRITERS``) record the paths
+    they would write into ``sink`` instead of drawing, for this block only."""
+    from vistaf_torch.trainers import plots
+    saved = {name: getattr(plots, name) for name in FIGURE_WRITERS} if enabled else {}
+
+    def recorder(names):
+        def record(target, *a, **k):
+            sink.extend([os.path.join(target, n) for n in names] if names else [target])
+        return record
+    try:
+        for name, names in FIGURE_WRITERS.items() if enabled else ():
+            setattr(plots, name, recorder(names))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(plots, name, fn)
+
+
+def trained_tree(out, recorded):
+    """The files a trainer left under ``out`` and the figures it recorded."""
+    return file_tree(out) | {os.path.relpath(p, out) for p in recorded
+                             if os.path.dirname(os.path.abspath(p)) == os.path.abspath(out)}
+
+
+def huber_objective(model, X, y, epsilon, alpha):
+    """The sklearn Huber objective a trainer's fit minimizes, at the fit's
+    (coef, intercept, sigma), on its own scaled polynomial features of
+    ``X`` (``calib/huber.py``), in float64 on the CPU."""
+    import torch
+    from vistaf_torch.calib import huber
+    Xs = (torch.as_tensor(np.asarray(X, np.float64)) - torch.as_tensor(model.scaler_mean)) \
+        / torch.as_tensor(model.scaler_scale)
+    P = huber.poly_features(Xs, model.powers)
+    f = model.fit_
+    return huber._objective(P, torch.as_tensor(np.asarray(y, np.float64)),
+                            torch.as_tensor(f.coef), f.intercept, f.sigma, epsilon, alpha)
+
+
+def weight_gaps(a, b):
+    """(the determined coefficients' largest gap relative to the largest
+    coefficient, the gap of coef[0] + intercept relative to it, the gap of
+    the split between them): the polynomial's bias column duplicates the
+    intercept, so only their sum is determined (``calib/huber.py``)."""
+    ca, cb = np.asarray(a.coef, float), np.asarray(b.coef, float)
+    scale = float(np.abs(cb).max())
+    s_a, s_b = ca[0] + a.intercept, cb[0] + b.intercept
+    return (float(np.abs(ca[1:] - cb[1:]).max(initial=0.0)) / scale,
+            abs(s_a - s_b) / abs(s_b), abs(a.intercept - b.intercept))
+
+
+def temperature_series(root, stem, temps, frames, seed, t_span=None, jitter=1.0):
+    """``synthetic_tlc_series`` at 2160x3840 as JPEGs ``{stem}-{i}.jpg``."""
+    import cv2
+    from vistaf_torch.utils.synthetic import synthetic_tlc_series
+    os.makedirs(root, exist_ok=True)
+    per = [t for t in temps for _ in range(frames)]
+    for i, img in enumerate(synthetic_tlc_series(H4K, W4K, per, t_span=t_span, jitter=jitter,
+                                                 seed=seed), 1):
+        assert cv2.imwrite(os.path.join(root, f"{stem}-{i}.jpg"), img)
+    return os.path.join(root, f"{stem}-*.jpg")
+
+
+def run_force_trainers(device, rows, card, root, route, figures):
+    """``train-p2h`` and ``train-h2f`` (twice: the second resumes) through
+    ``cli.main`` on a 2160x3840 indentation series written as JPEGs."""
+    import csv
+    import cv2
+    import torch
+    from vistaf_torch.calib import artifacts, fitting
+    from vistaf_torch.config import ForceConfig, FTPConfig
+    from vistaf_torch.ftp.pipeline import FTPPipeline
+    from vistaf_torch.pipelines.force import ForcePipeline
+    from vistaf_torch.runner import cli, io
+    from vistaf_torch.trainers import phase_to_height
+    from vistaf_torch.utils.synthetic import synthetic_indentation_series
+
+    data = os.path.join(root, "force")
+    os.makedirs(data)
+    ref, defs = synthetic_indentation_series(H4K, W4K, FTPConfig(),
+                                             P2H_DENTS_RAD + H2F_DENTS_RAD, seed=SEED)
+    ref_p = os.path.join(data, "reference.jpg")
+    assert cv2.imwrite(ref_p, ref)
+    p2h_names = [n for n, _ in phase_to_height.DEFAULT_CALIBRATION_SAMPLES]
+    h2f_names = [f"sphere-{1 + 5 * k}.jpg" for k in range(len(H2F_DENTS_RAD))]
+    for name, im in zip(p2h_names + h2f_names, defs):
+        assert cv2.imwrite(os.path.join(data, name), im)
+    del defs
+    stages = [(FTPPipeline, "__init__", "setup"), (io, "imread_bgr", "decode"),
+              (FTPPipeline, "forward", "forward_fit"), (fitting, "fit_best_model", "forward_fit")]
+
+    # --- train-p2h
+    out_p2h, recorded = os.path.join(root, "p2h"), []
+    with figure_recorders(not figures, recorded):
+        rc, text, launches, ms = drive_counted(device, lambda: cli.main(
+            ["train-p2h", "--ref", ref_p, "--deformed-dir", data, "--out", out_p2h]), stages)
+    record_launches("train_p2h", rows, launches, frames=len(p2h_names))
+    with open(os.path.join(out_p2h, "calibration_results.csv"), newline="") as f:
+        p2h_rows = list(csv.DictReader(f))
+    # the first frame against the port's CPU run given the card's alignment
+    ref_u8, de_u8 = io.imread_bgr(ref_p), io.imread_bgr(os.path.join(data, p2h_names[0]))
+    args = (phase_to_height.trainer_ftp_config(), ForceConfig(),
+            {"type": "linear0", "params": {"a": 1.0}}, FORCE_MODEL)
+    dbg = ForcePipeline(*args, debug_outputs=True, device=device)(ref_u8, de_u8)
+    same, _, same_s = same_alignment(args, ref_u8, de_u8, dbg)
+    mins = [phase_to_height.compute_min_height(torch.as_tensor(r["height_map_unitless_crop"]),
+                                               torch.as_tensor(r["roi_eroded_crop"]))
+            for r in (dbg, same)]
+    got = float(p2h_rows[0]["min_height_unitless"])
+    gap = abs(got - mins[1][0]) / abs(mins[1][0])
+    files = trained_tree(out_p2h, recorded)
+    model = artifacts.load_json(os.path.join(out_p2h, "calibration_model.json"))
+    say("trainers", trainer="train-p2h", frames=len(p2h_names), decode_route=route,
+        launches=launches, rows=p2h_rows, best_model=model["best_model"]["type"],
+        min_height_first=got, min_height_first_card_debug=mins[0][0],
+        min_height_first_cpu_same_alignment=mins[1][0], min_xy_cpu=mins[1][1],
+        min_height_gap=gap, cpu_seconds=same_s, files=sorted(files),
+        figures_recorded=not figures, stdout_lines=len(text.splitlines()))
+    say("trainers_timing", trainer="train-p2h", frames=len(p2h_names), ms=ms, card=card)
+    assert rc == 0 and files == set(P2H_FILES), (rc, files)
+    assert len(p2h_rows) == len(p2h_names) and all(
+        float(r["min_height_unitless"]) < 0 for r in p2h_rows), p2h_rows
+    assert gap <= TRAINER_MIN_RTOL, (got, mins)
+
+    # --- train-h2f on the p2h model just written, then resumed
+    p2h_json = os.path.join(out_p2h, "calibration_model.json")
+    out_h2f = os.path.join(root, "h2f")
+    argv = ["train-h2f", "--ref", ref_p, "--deformed-dir", data, "--p2h-json", p2h_json,
+            "--out", out_h2f]
+    recorded = []
+    with figure_recorders(not figures, recorded):
+        rc, _, launches, ms = drive_counted(device, lambda: cli.main(argv), stages)
+    record_launches("train_h2f", rows, launches, frames=len(h2f_names))
+    files = trained_tree(out_h2f, recorded)
+    with open(os.path.join(out_h2f, "per_image_results.csv"), newline="") as f:
+        h2f_rows = list(csv.DictReader(f))
+    with open(os.path.join(out_h2f, "calibration_model.json"), "rb") as f:
+        first_json = f.read()
+    p2h, use_neg = artifacts.load_phase_to_height(p2h_json)
+    direct = ForcePipeline(FTPConfig(), ForceConfig(), p2h, FORCE_MODEL, use_neg, device=device)
+    volumes = [direct(ref_u8, io.imread_bgr(os.path.join(data, r["file"])))["volume_cm3"]
+               for r in h2f_rows]
+    equal = [float(r["volume_cm3"]) == v for r, v in zip(h2f_rows, volumes)]
+    with figure_recorders(not figures, []):
+        rc2, _, launches2, ms2 = drive_counted(device, lambda: cli.main(argv), stages)
+    record_launches("train_h2f_resume", rows, launches2)
+    with open(os.path.join(out_h2f, "calibration_model.json"), "rb") as f:
+        same_json = f.read() == first_json
+    model = json.loads(first_json)
+    say("trainers", trainer="train-h2f", frames=len(h2f_names), decode_route=route,
+        launches=launches, volumes_cm3=[float(r["volume_cm3"]) for r in h2f_rows],
+        volumes_equal_force_pipeline=equal, best_model=model["best_model"]["type"],
+        rmse=model["best_model"]["rmse"], files=sorted(files), figures_recorded=not figures,
+        resume_launches=launches2, resume_same_model_json=same_json)
+    say("trainers_timing", trainer="train-h2f", frames=len(h2f_names), ms=ms, card=card)
+    say("trainers_timing", trainer="train-h2f (resume)", frames=0, ms=ms2, card=card)
+    assert rc == rc2 == 0 and files == set(H2F_FILES), (rc, rc2, files)
+    assert [r["file"] for r in h2f_rows] == h2f_names, h2f_rows
+    assert all(equal), (h2f_rows, volumes)
+    assert same_json
+
+
+def temperature_trainer_files(kind, summary, joblib_too):
+    names = set(COLOR_TRAINER_FILES if kind == "color" else BLACK_TRAINER_FILES)
+    for variant, v in summary["models_final"].items():
+        stem = f"{kind}_model_{variant}_huber_deg{v['degree']}"
+        names |= {stem + ".npz"} | ({stem + ".joblib"} if joblib_too else set())
+    return names
+
+
+def run_temperature_trainers(device, rows, card, root, route, figures, joblib_too):
+    """``temperature_color.train`` and ``temperature_black.train`` at
+    2160x3840 with the real annulus, degrees, CV splits, Huber constants and
+    4000 px an image, on 7 temperatures x 2 frames a run, on the card and on
+    the port's CPU; returns the card's output directories."""
+    from vistaf_torch.calib import huber
+    from vistaf_torch.runner import io, native
+    from vistaf_torch.trainers import temperature_black, temperature_color
+    from vistaf_torch.trainers import temperature_common as tc
+
+    heat = temperature_series(os.path.join(root, "heat"), "heating", TRAIN_TEMPS,
+                              TRAIN_FRAMES, SEED + 1)
+    cool = temperature_series(os.path.join(root, "cool"), "cooling", TRAIN_TEMPS[::-1],
+                              TRAIN_FRAMES, SEED + 2, t_span=(TRAIN_TEMPS[0], TRAIN_TEMPS[-1]))
+    frames = 2 * len(TRAIN_TEMPS) * TRAIN_FRAMES
+    outs = {}
+    for kind, mod in (("color", temperature_color), ("black", temperature_black)):
+        stages = [(tc, "annulus_roi", "setup"), (io, "imread_bgr", "decode"),
+                  (native, "decode_jpeg_batch", "decode"),
+                  (tc, "feature_planes_u8", "forward_fit"),
+                  (tc, "masked_means_f32", "forward_fit"),
+                  (tc, "fit_huber_poly", "forward_fit"), (mod, "fit_huber_poly", "forward_fit")]
+
+        def train(dev, out):
+            return mod.train(heat, cool, out, temps_heating=TRAIN_TEMPS,
+                             frames_per_temp=TRAIN_FRAMES, inner_circle=mod.INNER_CIRCLE,
+                             outer_circle=mod.OUTER_CIRCLE, device=dev)
+        outs[kind] = out = os.path.join(root, f"temp_{kind}")
+        recorded, fits = [], {device.type: [], "cpu_run": []}
+        final_fit = mod.fit_huber_poly
+
+        def keep(sink):
+            def fit(X, y, *a, **k):
+                sink.append((X, y, final_fit(X, y, *a, **k)))
+                return sink[-1][2]
+            return fit
+        mod.fit_huber_poly = keep(fits[device.type])
+        try:
+            with figure_recorders(not figures, recorded):
+                summary, _, launches, ms = drive_counted(device, lambda: train(device, out),
+                                                         stages)
+            record_launches(f"train_temp_{kind}", rows, launches)
+            mod.fit_huber_poly = keep(fits["cpu_run"])
+            t0 = time.perf_counter()
+            with figure_recorders(not figures, []):
+                summary_cpu = train("cpu", out + "_cpu")
+            cpu_s = time.perf_counter() - t0
+        finally:
+            mod.fit_huber_poly = final_fit
+        degrees = {k: v["degree"] for k, v in summary["models_final"].items()}
+        degrees_cpu = {k: v["degree"] for k, v in summary_cpu["models_final"].items()}
+        metric_gap = max(abs(float(m[k]) - float(mc[k]))
+                         for v, vc in zip(summary["models_final"].values(),
+                                          summary_cpu["models_final"].values())
+                         for part in ("metrics_frames", "metrics_means")
+                         for m, mc in ((v[part], vc[part]),) for k in m)
+        # the final fits (heating, cooling, global), card against CPU: the
+        # objective each minimizes, its predictions on its samples, rounds
+        fit_report = {}
+        for variant, (X, y, fc), (_, _, fp) in zip(("heating", "cooling", "global"),
+                                                   fits[device.type], fits["cpu_run"]):
+            oc, op = (huber_objective(f, X, y, mod.HUBER_EPSILON, mod.HUBER_ALPHA)
+                      for f in (fc, fp))
+            fit_report[variant] = {
+                "rounds": [fc.fit_.n_iter, fp.fit_.n_iter], "sigma": [fc.fit_.sigma, fp.fit_.sigma],
+                "objective": [oc, op], "objective_gap": abs(oc - op) / abs(op),
+                "predict_gap_C": float(np.abs(fc.predict(X) - fp.predict(X)).max()),
+                "weight_gaps": weight_gaps(fc.fit_, fp.fit_),
+                "samples": int(len(y))}
+        files = trained_tree(out, recorded)
+        want = temperature_trainer_files(kind, summary, joblib_too)
+        say("trainers", trainer=f"train-temp-{kind}", frames=frames, decode_route=route,
+            launches=launches, degrees=degrees, degrees_cpu=degrees_cpu,
+            metrics_global_frames=summary["models_final"]["global"]["metrics_frames"],
+            metric_gap_cpu=metric_gap, final_fits_vs_cpu=fit_report, cpu_seconds=cpu_s,
+            files=sorted(files), missing=sorted(want - files), figures_recorded=not figures)
+        say("trainers_timing", trainer=f"train-temp-{kind}", frames=frames, ms=ms, card=card)
+        assert degrees == degrees_cpu, (degrees, degrees_cpu)
+        assert metric_gap <= TRAINER_METRIC_ATOL, metric_gap
+        assert len(fit_report) == 3, fit_report
+        for variant, r in fit_report.items():
+            if max(r["rounds"]) >= HUBER_MAX_ROUNDS or min(r["sigma"]) <= HUBER_SIGMA_FLOOR:
+                continue        # no minimizer reached: reported, not held
+            g = r["weight_gaps"]
+            assert r["rounds"][0] == r["rounds"][1], (variant, r)
+            assert g[0] <= TRAINER_COEF_RTOL and g[1] <= TRAINER_COEF_RTOL \
+                and g[2] <= SPLIT_ATOL and r["objective_gap"] <= TRAINER_OBJECTIVE_RTOL, \
+                (variant, r)
+        assert files == want, (sorted(files), sorted(want))
+
+    # --- the black trainer's global fit at its real sample count
+    rng = np.random.default_rng(SEED)
+    T = np.repeat(np.asarray(HUBER_TEMPS, float), HUBER_FRAMES * HUBER_PX)
+    T = np.concatenate([T, T])                  # heating and cooling runs
+    d = T - 45.0
+    X = np.stack([120.0 + 1.5 * d + 0.01 * d * d, 128.0 + 0.2 * d, 125.0 - 0.15 * d,
+                  110.0 + 1.4 * d], axis=1) + rng.normal(scale=[3.0, 2.0, 2.0, 3.0],
+                                                         size=(T.size, 4))
+    X = np.round(np.clip(X, 0, 255)).astype(np.float32)   # 8-bit features, as cv2's
+    X[::97] = rng.integers(0, 256, size=X[::97].shape)    # outlier pixels
+    eps, alpha = temperature_black.HUBER_EPSILON, temperature_black.HUBER_ALPHA
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = huber.fit_huber_poly(X, T, HUBER_DEGREE, eps, alpha, device=device)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fit_cpu = huber.fit_huber_poly(X, T, HUBER_DEGREE, eps, alpha, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    gaps = weight_gaps(fit.fit_, fit_cpu.fit_)
+    say("trainers", trainer="huber_fit", samples=int(T.size), terms=int(fit.powers.shape[0]),
+        degree=HUBER_DEGREE, iterations=fit.fit_.n_iter, iterations_cpu=fit_cpu.fit_.n_iter,
+        sigma=fit.fit_.sigma, sigma_cpu=fit_cpu.fit_.sigma, weight_gaps_cpu=gaps)
+    say("trainers_timing", trainer="huber_fit", samples=int(T.size),
+        iterations=fit.fit_.n_iter, ms=fit_ms, ms_per_iteration=fit_ms / fit.fit_.n_iter,
+        cpu_ms=cpu_ms, card=card)
+    assert fit.fit_.n_iter == fit_cpu.fit_.n_iter, (fit.fit_.n_iter, fit_cpu.fit_.n_iter)
+    assert gaps[0] <= HUBER_COEF_RTOL and gaps[1] <= HUBER_COEF_RTOL \
+        and gaps[2] <= SPLIT_ATOL, gaps
+    return outs
+
+
+def run_roundtrip(device, rows, outs):
+    """The trained global models (``color_model_global_huber_deg*.npz``,
+    ``black_model_global_huber_deg*.npz``) loaded with
+    ``TempModelWeights.load_npz`` and served by ``TemperaturePipeline`` on
+    the card under ``TempConfig().deploy()`` (K1, K3, K8) and
+    ``TempConfig()`` (K3), each held to the port's CPU run under the
+    deploy contract."""
+    import glob
+    import torch
+    from vistaf_torch import kernels
+    from vistaf_torch.calib.temp_weights import TempModelWeights
+    from vistaf_torch.config import TempConfig
+    from vistaf_torch.temperature.inference import TemperaturePipeline
+    from vistaf_torch.utils.synthetic import synthetic_tlc_frame
+
+    (cp,) = glob.glob(os.path.join(outs["color"], "color_model_global_huber_deg*.npz"))
+    (wp,) = glob.glob(os.path.join(outs["black"], "black_model_global_huber_deg*.npz"))
+    color, wide = TempModelWeights.load_npz(cp), TempModelWeights.load_npz(wp)
+    frame = synthetic_tlc_frame(H4K, W4K, TempConfig(), SEED)
+    for path, cfg in (("roundtrip_deploy", TempConfig().deploy()),
+                      ("roundtrip_parity", TempConfig())):
+        gpu = TemperaturePipeline(cfg, color, wide, device=device)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = gpu(frame)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        record_launches(path, rows, launches)
+        st = gpu.stats(frame)
+        t0 = time.perf_counter()
+        st_cpu = TemperaturePipeline(cfg, color, wide, device="cpu").stats(frame)
+        cpu_s = time.perf_counter() - t0
+        gaps = {k: abs(float(st[k]) - float(st_cpu[k])) for k in ("t_mean", "t_min", "t_max")}
+        valid, valid_cpu = int(st["valid_pixels"]), int(st_cpu["valid_pixels"])
+        valid_gap = abs(valid - valid_cpu) / max(valid_cpu, 1)
+        say("trainers", trainer="roundtrip", path=path, color_model=os.path.basename(cp),
+            wide_model=os.path.basename(wp), launches=launches,
+            **{k: float(st[k]) for k in ("t_mean", "t_min", "t_max")},
+            **{f"{k}_cpu": float(st_cpu[k]) for k in ("t_mean", "t_min", "t_max")},
+            **{f"{k}_gap": v for k, v in gaps.items()}, valid_pixels=valid,
+            valid_pixels_cpu=valid_cpu, valid_pixels_gap=valid_gap,
+            iso_knots=0 if color.iso_x is None else len(color.iso_x), cpu_seconds=cpu_s)
+        assert res["temperature_map_final"].shape == (H4K, W4K)
+        assert valid_cpu > 0 and np.isfinite([float(st[k]) for k in gaps]).all(), st
+        assert gaps["t_mean"] <= T_MEAN_ATOL, gaps
+        assert gaps["t_min"] <= T_EXTREME_ATOL and gaps["t_max"] <= T_EXTREME_ATOL, gaps
+        assert valid_gap <= VALID_RTOL, (valid, valid_cpu)
+
+
+def run_pretest(device, rows, card, root, route, figures):
+    """``pretest`` through ``cli.main`` on a settling 2160x3840 series, the
+    outer-circle ROI, against the port's CPU run of the same analysis."""
+    import cv2
+    from vistaf_torch.config import TempConfig
+    from vistaf_torch.ops import color as color_ops
+    from vistaf_torch.ops import geometry
+    from vistaf_torch.runner import cli
+    from vistaf_torch.trainers import pretest
+    from vistaf_torch.trainers import temperature_common as tc
+
+    pattern = temperature_series(os.path.join(root, "pretest"), "frame", PRETEST_LEVELS, 1,
+                                 SEED + 3, jitter=0.0)
+    out, recorded, got = os.path.join(root, "pretest_out"), [], []
+    analyze = pretest.analyze
+
+    def keep(*a, **k):
+        got.append(analyze(*a, **k))
+        return got[-1]
+    stages = [(cv2, "imread", "decode"), (color_ops, "bgr_to_lab_u8", "forward_fit"),
+              (tc, "masked_means_f32", "forward_fit")]
+    pretest.analyze = keep
+    try:
+        with figure_recorders(not figures, recorded):
+            rc, _, launches, ms = drive_counted(device, lambda: cli.main(
+                ["pretest", "--pattern", pattern, "--out", out, "--label", "settle"]), stages)
+    finally:
+        pretest.analyze = analyze
+    record_launches("pretest", rows, launches)
+    cfg = TempConfig()
+    c = geometry.circle_from_3_points_exact(cfg.outer_circle_p1, cfg.outer_circle_p2,
+                                            cfg.outer_circle_p3)
+    t0 = time.perf_counter()
+    cpu = pretest.analyze(pattern, geometry.circular_mask(H4K, W4K, *c), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    (res,) = got
+    gap = float(np.abs(np.subtract(res["mean_L"], cpu["mean_L"])).max())
+    files = trained_tree(out, recorded)
+    say("trainers", trainer="pretest", frames=res["n_frames"], decode_route="cv2",
+        launches=launches, stabilization=res["stabilization"],
+        stabilization_cpu=cpu["stabilization"], mean_L_first_last=[res["mean_L"][0],
+                                                                   res["mean_L"][-1]],
+        mean_L_gap_cpu=gap, cpu_seconds=cpu_s, files=sorted(files),
+        figures_recorded=not figures)
+    say("trainers_timing", trainer="pretest", frames=res["n_frames"], ms=ms, card=card)
+    assert rc == 0 and res["n_frames"] == len(PRETEST_LEVELS)
+    assert res["stabilization"] is not None and cpu["stabilization"] is not None
+    assert res["stabilization"]["index"] == cpu["stabilization"]["index"], \
+        (res["stabilization"], cpu["stabilization"])
+    assert gap <= MEAN_L_ATOL, gap
+    assert files == {"Figure_1_pretest_settle.png"}, files
+
+
+def run_trainers(device, rows, card):
+    """The trainers phase at 2160x3840 (``vistaf_torch/trainers``): the
+    force trainers through ``cli.main``, the temperature trainers and the
+    real-size Huber fit against the port's CPU, the trained models served
+    through ``TemperaturePipeline``, and ``pretest`` through ``cli.main``;
+    each with the launch counts set to 0 just before it."""
+    from vistaf_torch.runner import native
+    libs = probe_host_libraries()
+    route = "native" if native.native_available() else "cv2"
+    say("trainers_probe", decode_route=route, **libs)
+    figures = libs["matplotlib"]
+    with tempfile.TemporaryDirectory() as root:
+        run_force_trainers(device, rows, card, root, route, figures)
+        outs = run_temperature_trainers(device, rows, card, root, route, figures,
+                                        libs["joblib"] and libs["sklearn"])
+        run_roundtrip(device, rows, outs)
+        run_pretest(device, rows, card, root, route, figures)
 
 
 def phase_timing(path, fn, card, frames: int, warmup: int):
@@ -1718,6 +2229,8 @@ def main() -> int:
                {"parity": (mmp, False, mmp_ref, mmp_def), "deploy": (mm, True, mm_ref, mm_def)},
                temp_p)
     lap("runner")
+    run_trainers(device, rows, card)
+    lap("trainers")
     import torch.distributed as dist
     dist.destroy_process_group()
     say("clock", seconds=clock, total=time.perf_counter() - t0)

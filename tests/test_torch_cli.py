@@ -1,10 +1,17 @@
 """The port's CLI (``vistaf_torch/runner/cli.py``) against the JAX CLI on the
 CPU.
 
-- The surface: every subcommand's ``--help`` exits 0 and missing arguments
-  exit non-zero (as ``tests/test_cli.py``); ``_cfgs`` builds the port's
-  copies of the two presets; the trainer subcommands raise
-  NotImplementedError; ``--device cuda`` without a card raises.
+- The surface: every subcommand's ``--help`` exits 0 and names
+  ``--device``, and missing arguments exit non-zero (as
+  ``tests/test_cli.py``); ``_cfgs`` builds the port's copies of the two
+  presets; on missing inputs each trainer subcommand raises the exception
+  type the JAX CLI raises on the same arguments; ``--device cuda`` without
+  a card raises.
+- ``train-temp-color --device cpu`` through both CLIs on the 64x64 series
+  of ``tests/test_torch_trainers_temp.py``, both packages' trainer given
+  that file's small annulus, temperatures and degrees (the CLI's defaults
+  are the 4K annulus and the real series), compared as that file compares
+  the trainers' outputs.
 - ``main()`` of both packages runs ``force --export-heightmaps --debug``,
   ``temperature --debug`` and ``multimodal`` on a reference-layout data
   root written by ``test_torch_artifacts._write_root`` (joblib bundles made
@@ -49,13 +56,18 @@ from torch_threads import single_torch_thread  # noqa: F401  (autouse)
 H, W = 240, 320
 SUBCOMMANDS = ["force", "temperature", "multimodal", "train-p2h", "train-h2f",
                "train-temp-color", "train-temp-black", "pretest"]
+# each trainer subcommand on inputs that do not exist (under a temporary
+# directory) and the exception the JAX CLI raises there
 TRAINERS = {
-    "train-p2h": ["--ref", "r.png", "--deformed-dir", "d", "--out", "o"],
-    "train-h2f": ["--ref", "r.png", "--deformed-dir", "d", "--p2h-json", "p.json",
-                  "--out", "o"],
-    "train-temp-color": ["--heating", "h", "--cooling", "c", "--out", "o"],
-    "train-temp-black": ["--heating", "h", "--cooling", "c", "--out", "o"],
-    "pretest": ["--pattern", "*.jpg"],
+    "train-p2h": (["--ref", "{d}/r.jpg", "--deformed-dir", "{d}", "--out", "{d}/o"],
+                  RuntimeError),
+    "train-h2f": (["--ref", "{d}/r.jpg", "--deformed-dir", "{d}", "--p2h-json",
+                   "{d}/p.json", "--out", "{d}/o"], FileNotFoundError),
+    "train-temp-color": (["--heating", "{d}/h-*.jpg", "--cooling", "{d}/c-*.jpg",
+                          "--out", "{d}/o"], RuntimeError),
+    "train-temp-black": (["--heating", "{d}/h-*.jpg", "--cooling", "{d}/c-*.jpg",
+                          "--out", "{d}/o"], RuntimeError),
+    "pretest": (["--pattern", "{d}/*.jpg"], RuntimeError),
 }
 
 
@@ -64,8 +76,7 @@ def test_cli_help_exits_zero(cmd, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main([cmd, "--help"])
     assert e.value.code == 0
-    assert ("--device" in capsys.readouterr().out) == (cmd in ("force", "temperature",
-                                                              "multimodal"))
+    assert "--device" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("argv", [["force"], ["temperature"], ["multimodal", "--ref", "r"],
@@ -91,9 +102,42 @@ def test_cfgs_are_the_jax_presets(preset):
 
 
 @pytest.mark.parametrize("cmd", sorted(TRAINERS))
-def test_trainer_subcommands_raise_not_implemented(cmd):
-    with pytest.raises(NotImplementedError, match="Queue 1, the trainers item"):
-        cli.main([cmd, *TRAINERS[cmd]])
+def test_trainer_subcommands_raise_as_jax_on_missing_inputs(cmd, tmp_path):
+    argv, exc = TRAINERS[cmd]
+    for tag, mod, extra in (("jax", jcli, []), ("torch", cli, ["--device", "cpu"])):
+        d = tmp_path / tag
+        d.mkdir()
+        with pytest.raises(exc) as e:
+            mod.main([cmd, *(a.format(d=d) for a in argv), *extra])
+        assert type(e.value) is exc, (tag, e.value)
+
+
+def test_train_temp_color_command_matches_jax(tmp_path, monkeypatch):
+    import functools
+    from vistaf_tpu.trainers import temperature_color as jcolor
+    from vistaf_torch.trainers import temperature_color as tcolor
+    import test_torch_trainers_temp as tt
+    heat, cool = str(tmp_path / "heat"), str(tmp_path / "cool")
+    tt.write_series(heat, "heating", tt.TEMPS, tt.FRAMES, seed=1)
+    tt.write_series(cool, "cooling", tt.TEMPS[::-1], tt.FRAMES, seed=2,
+                    t_span=(tt.TEMPS[0], tt.TEMPS[-1]))
+    small = dict(temps_heating=tt.TEMPS, frames_per_temp=tt.FRAMES,
+                 fit_temp_range=(tt.TEMPS[0], tt.TEMPS[-1]), degree_candidates=(1, 2),
+                 inner_circle=tt.INNER, outer_circle=tt.OUTER)
+    for mod in (jcolor, tcolor):
+        monkeypatch.setattr(mod, "train", functools.partial(mod.train, **small))
+    outs = {}
+    for tag, mod, extra in (("jax", jcli, []), ("torch", cli, ["--device", "cpu"])):
+        outs[tag] = str(tmp_path / tag)
+        assert mod.main(["train-temp-color", "--heating", os.path.join(heat, "heating-*.jpg"),
+                         "--cooling", os.path.join(cool, "cooling-*.jpg"),
+                         "--out", outs[tag], *extra]) == 0
+    j, t = outs["jax"], outs["torch"]
+    assert tt.trained_files(t) == tt.trained_files(j)
+    tt._assert_numbers_close(tt._summary(t), tt._summary(j), tt.METRIC_ATOL)
+    for name in sorted(n for n in os.listdir(j) if n.endswith(".npz")):
+        tt._assert_weights(tt.TempModelWeights.load_npz(os.path.join(t, name)),
+                           tt.JaxWeights.load_npz(os.path.join(j, name)))
 
 
 def test_device_cuda_without_a_card_raises(tmp_path):

@@ -55,7 +55,7 @@ def test_every_module_imports_with_jax_blocked():
     # every module file but the package __init__ (imported as the root)
     assert n == len(_modules()) - 1, (n, len(_modules()))
     assert "usage: vistaf-torch" in out.stdout
-    assert "runner" in {p.parent.name for p in _modules()}
+    assert {"runner", "trainers"} <= {p.parent.name for p in _modules()}
 
 
 def test_no_import_statement_names_jax_or_the_jax_package():

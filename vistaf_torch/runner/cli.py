@@ -1,27 +1,25 @@
 """Command-line entry points of the port (JAX ``runner/cli.py``).
 
 The same subcommands, arguments and defaults as the JAX CLI, run by the
-port's pipelines; each pipeline subcommand also takes ``--device`` (default
-``cuda``, the card; ``cpu`` runs the kernels' plain versions):
+port's pipelines and trainers; each subcommand also takes ``--device``
+(default ``cuda``, the card; ``cpu`` runs the kernels' plain versions):
 
     python -m vistaf_torch.runner.cli force --ref R.jpg --def D.jpg --out out/
     python -m vistaf_torch.runner.cli temperature --image D.jpg --out out/
     python -m vistaf_torch.runner.cli multimodal --ref R.jpg --def D.jpg
-    python -m vistaf_torch.runner.cli train-p2h / train-h2f / train-temp-color /
-        train-temp-black / pretest
-
-The trainer subcommands (``train-*``, ``pretest``) parse their arguments
-and raise NotImplementedError: the trainers are not ported yet.
+    python -m vistaf_torch.runner.cli train-p2h --ref R.jpg --deformed-dir D --out out/
+    python -m vistaf_torch.runner.cli train-h2f --ref R.jpg --deformed-dir D \
+        --p2h-json out/calibration_model.json --out out2/
+    python -m vistaf_torch.runner.cli train-temp-color --heating 'H/heating-*.jpg' \
+        --cooling 'C/cooling-*.jpg' --out out/      (also train-temp-black)
+    python -m vistaf_torch.runner.cli pretest --pattern 'S/*.jpg' --out out/
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
-
-TRAINERS_NOT_PORTED = ("the trainers are not ported to vistaf_torch yet "
-                       "(ROADMAP.md, Queue 1, the trainers item); run this "
-                       "subcommand with python -m vistaf_tpu.runner.cli")
 
 
 def _add_data_root(p):
@@ -39,8 +37,8 @@ def _add_preset(p):
 
 def _add_device(p):
     p.add_argument("--device", default="cuda",
-                   help="PyTorch device the pipelines run on (default: cuda, "
-                        "the card; cpu runs the kernels' plain versions)")
+                   help="PyTorch device the pipelines and trainers run on (default: "
+                        "cuda, the card; cpu runs the kernels' plain versions)")
 
 
 def _cfgs(args):
@@ -163,8 +161,59 @@ def cmd_multimodal(args) -> int:
     return 0
 
 
-def cmd_trainer(args) -> int:
-    raise NotImplementedError(f"{args.cmd}: {TRAINERS_NOT_PORTED}")
+def cmd_train_p2h(args) -> int:
+    from vistaf_torch.trainers import phase_to_height as t
+    out = t.train(args.ref, t.DEFAULT_CALIBRATION_SAMPLES, args.deformed_dir, args.out,
+                  device=_device(args))
+    print(json.dumps(out["best_model"], indent=2))
+    return 0
+
+
+def cmd_train_h2f(args) -> int:
+    from vistaf_torch.calib.artifacts import load_phase_to_height
+    from vistaf_torch.trainers import height_to_force as t
+    device = _device(args)
+    p2h, use_neg = load_phase_to_height(args.p2h_json)
+    out = t.train(args.ref, args.deformed_dir, args.out, p2h, use_neg, device=device)
+    print(json.dumps(out["best_model"], indent=2))
+    return 0
+
+
+def cmd_train_temp_color(args) -> int:
+    from vistaf_torch.trainers import temperature_color as t
+    out = t.train(args.heating, args.cooling, args.out, device=_device(args))
+    print(json.dumps({k: v["metrics_means"] for k, v in out["models_final"].items()}, indent=2))
+    return 0
+
+
+def cmd_train_temp_black(args) -> int:
+    from vistaf_torch.trainers import temperature_black as t
+    out = t.train(args.heating, args.cooling, args.out, device=_device(args))
+    print(json.dumps({k: v["metrics_means"] for k, v in out["models_final"].items()}, indent=2))
+    return 0
+
+
+def cmd_pretest(args) -> int:
+    import cv2
+    import numpy as np
+    from vistaf_torch.trainers import pretest
+    device = _device(args)
+    files = pretest.load_series_sorted(args.pattern)
+    img = cv2.imread(files[0], cv2.IMREAD_COLOR)
+    h, w = img.shape[:2]
+    if args.roi == "full":
+        mask = np.ones((h, w), bool)
+    else:
+        from vistaf_torch.config import TempConfig
+        from vistaf_torch.ops import geometry
+        cfg = TempConfig()
+        c = geometry.circle_from_3_points_exact(cfg.outer_circle_p1, cfg.outer_circle_p2,
+                                                cfg.outer_circle_p3)
+        mask = geometry.circular_mask(h, w, *c)
+    out = pretest.analyze(args.pattern, mask, dt_s=args.dt, out_dir=args.out,
+                          label=args.label, device=device)
+    print(json.dumps(out["stabilization"], indent=2))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -215,26 +264,30 @@ def main(argv=None) -> int:
     p.add_argument("--ref", required=True)
     p.add_argument("--deformed-dir", required=True)
     p.add_argument("--out", required=True)
-    p.set_defaults(fn=cmd_trainer)
+    _add_device(p)
+    p.set_defaults(fn=cmd_train_p2h)
 
     p = sub.add_parser("train-h2f", help="volume->force calibration (height_to_force.py)")
     p.add_argument("--ref", required=True)
     p.add_argument("--deformed-dir", required=True)
     p.add_argument("--p2h-json", required=True)
     p.add_argument("--out", required=True)
-    p.set_defaults(fn=cmd_trainer)
+    _add_device(p)
+    p.set_defaults(fn=cmd_train_h2f)
 
     p = sub.add_parser("train-temp-color", help="colored-TLC models (temperature_color_model.py)")
     p.add_argument("--heating", required=True)
     p.add_argument("--cooling", required=True)
     p.add_argument("--out", required=True)
-    p.set_defaults(fn=cmd_trainer)
+    _add_device(p)
+    p.set_defaults(fn=cmd_train_temp_color)
 
     p = sub.add_parser("train-temp-black", help="black-TLC models (temperature_black_model.py)")
     p.add_argument("--heating", required=True)
     p.add_argument("--cooling", required=True)
     p.add_argument("--out", required=True)
-    p.set_defaults(fn=cmd_trainer)
+    _add_device(p)
+    p.set_defaults(fn=cmd_train_temp_black)
 
     p = sub.add_parser("pretest", help="thermal stabilization time (pretest_*.py)")
     p.add_argument("--pattern", required=True)
@@ -243,7 +296,8 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None,
                    help="directory for Figure_1_pretest_<label>.png")
     p.add_argument("--label", default="series")
-    p.set_defaults(fn=cmd_trainer)
+    _add_device(p)
+    p.set_defaults(fn=cmd_pretest)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -5,8 +5,9 @@ Keeps the reference's on-disk contract byte-compatible where consumers exist:
 ``result.json`` / ``result.csv`` (``force_sensor.py:264-295``),
 ``height_map_*.npy/.csv`` + ``_bundle.npz`` (``shape_ftp.py:260-310``).
 Every writer takes numpy arrays and Python numbers, as the pipelines'
-``__call__`` returns them.  The trainers' batch decoder (``iter_images_bgr``)
-goes with the trainers.
+``__call__`` returns them.  The trainers stream their series through
+``iter_images_bgr``: chunks through the native batch JPEG decoder where
+``runner/native.py`` loads it, else file by file with cv2.
 """
 from __future__ import annotations
 
@@ -142,3 +143,44 @@ def crop2d(arr: np.ndarray, bbox) -> np.ndarray:
 def write_mask_png(path: str, mask: np.ndarray, bbox=None) -> None:
     import cv2
     cv2.imwrite(path, crop2d(mask, bbox).astype(np.uint8) * 255)
+
+
+def iter_images_bgr(paths, chunk: int = 8, threads: int = 0):
+    """Yield (path, BGR uint8) over ``paths``, decoding JPEG chunks
+    concurrently through the native libjpeg batch decoder when available
+    (bit-identical to cv2.imread: tests/test_torch_native.py); any failure
+    or size mismatch falls back to per-file cv2 decode, and without the
+    library (``native.native_available()`` False, e.g. no libjpeg) every
+    file is decoded with cv2.  Calibration trainers stream hundreds of
+    native-4K frames through this (the reference decodes them serially
+    inside its batch loops, height_to_force.py:384-394,
+    temperature_black_model.py:271-305)."""
+    paths = list(paths)
+    if not paths:
+        return
+    try:
+        from vistaf_torch.runner import native
+        use_native = native.native_available()
+    except Exception:
+        use_native = False
+    if not use_native:
+        for p in paths:
+            yield p, imread_bgr(p)
+        return
+
+    first = imread_bgr(paths[0])
+    h, w = first.shape[:2]
+    yield paths[0], first
+    rest = paths[1:]
+    for i in range(0, len(rest), chunk):
+        batch = rest[i:i + chunk]
+        try:
+            stack, status = native.decode_jpeg_batch(batch, h, w, threads)
+        except Exception:
+            stack, status = None, None
+        for j, p in enumerate(batch):
+            if stack is not None and status[j] == 0:
+                # copy: stack[j] is a view pinning the whole chunk buffer
+                yield p, stack[j].copy()
+            else:
+                yield p, imread_bgr(p)

@@ -5,12 +5,14 @@
 the frames are byte-identical and the configs and weights equal for the same
 arguments, so the port and the reference run the same scene.
 ``synthetic_tlc_frame`` and ``synthetic_deploy_temp_weights`` are the
-port's own test inputs for the temperature path.
+port's own test inputs for the temperature path; ``synthetic_indentation_series``
+and ``synthetic_tlc_series`` its seeded calibration series for the trainers
+(the tests and ``chip_smoke.py`` write them to files; no pipeline reads them).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -221,3 +223,65 @@ def synthetic_tlc_frame(height: int, width: int, cfg: TempConfig,
         spot = (yy[y0:y1, x0:x1] - sy) ** 2 + (xx[y0:y1, x0:x1] - sx) ** 2 <= rad * rad
         img[y0:y1, x0:x1][spot] = 255.0
     return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+
+def synthetic_indentation_series(height: int, width: int, cfg: FTPConfig,
+                                 dent_depths_rad: Sequence[float], period_px: float = 12.0,
+                                 seed: int = 0) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """(ref_bgr, [def_bgr, ...]) uint8: ``synthetic_pair``'s scene (carrier
+    grating, Gaussian dent at the ROI centre, illumination falloff) with the
+    dent at each of ``dent_depths_rad`` in turn, for the force trainers.
+    Each frame draws its own float32 noise (scale 1.5, as
+    ``synthetic_pair``'s): windows of one shared field would be shifted
+    copies of each other, which the phase correlation aligns on."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    carrier = 2.0 * np.pi * xx / period_px
+    cx, cy, r = circle_from_3_points(cfg.outer_circle_p1, cfg.outer_circle_p2,
+                                     cfg.outer_circle_p3)
+    dent = np.exp(-(((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * (0.25 * r) ** 2)))
+    illum = 160.0 + 30.0 * np.exp(-(((xx - width / 2) ** 2 + (yy - height / 2) ** 2)
+                                    / (2 * (0.8 * max(height, width)) ** 2)))
+    del yy, xx
+
+    def frame(phase_extra):
+        sig = illum * (1.0 + 0.35 * np.cos(carrier + phase_extra))
+        sig += 1.5 * rng.standard_normal(sig.shape, dtype=np.float32)
+        g = np.clip(sig, 0, 255).astype(np.uint8)
+        return np.stack([g, g, g], axis=-1)
+
+    return frame(0.0), [frame(d * dent) for d in dent_depths_rad]
+
+
+def synthetic_tlc_series(height: int, width: int, temps: Sequence[float],
+                         t_span: Optional[Tuple[float, float]] = None,
+                         jitter: float = 1.0, seed: int = 0) -> Iterator[np.ndarray]:
+    """Seeded BGR uint8 frames of one colour each, one per entry of
+    ``temps``, the colour following the temperature, as
+    ``tests/test_trainer_plots.py::_write_series`` draws them, for the
+    temperature trainers and the pretest: the colour moves linearly in LAB
+    (L 65 -> 45, a -10 -> 40, b 35 -> -15) from the low end of ``t_span``
+    (default: the range of ``temps``) to the high end, so the temperature is
+    a linear function of the mean LAB features; each frame adds a seeded
+    colour jitter (scale ``jitter`` LAB units, a frame's lighting; 0 for a
+    series that settles, as the pretest's), which keeps the
+    trainers' cross-validated fits of many terms on few frames from
+    beating the linear model by their rounding; and per-pixel noise (scale
+    2) from one field drawn for the series, read at a seeded offset a frame:
+    a 4K series draws 25 M normals once, not once a frame."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    lo, hi = t_span if t_span is not None else (min(temps), max(temps))
+    pad = 16
+    field = rng.standard_normal((height + pad, width + pad, 3), dtype=np.float32)
+    field *= np.float32(2.0)
+    offs = rng.integers(0, pad + 1, size=(len(temps), 2))
+    shake = rng.normal(scale=1.0, size=(len(temps), 3)) * jitter
+    lab_lo, lab_hi = np.array([65.0, -10.0, 35.0]), np.array([45.0, 40.0, -15.0])
+    for k, t in enumerate(temps):
+        u = float(np.clip((t - lo) / (hi - lo), 0.0, 1.0)) if hi > lo else 0.0
+        lab = (lab_lo + u * (lab_hi - lab_lo) + shake[k]).astype(np.float32)
+        bgr = cv2.cvtColor(lab.reshape(1, 1, 3), cv2.COLOR_LAB2BGR).reshape(3) * 255.0
+        oy, ox = offs[k]
+        img = np.float32(bgr) + field[oy:oy + height, ox:ox + width]
+        yield np.clip(np.round(img), 0, 255).astype(np.uint8)
