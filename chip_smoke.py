@@ -131,7 +131,23 @@ Phases, one line each, any failure raises and exits non-zero:
      through ``cli.main`` on a settling series of 30 frames (the CPU's
      stabilization index, mean L within 1e-3).  Each trainer's file set is
      checked (figures recorded where matplotlib is missing), and its wall
-     time split into setup, decode, forward_fit and writers.
+     time split into setup, decode, forward_fit and writers;
+  13. knobs (``KNOBS_4K``, ``KNOBS_640``): the FTPConfig knobs off the
+     presets' path through ForcePipeline, each with its exact launches
+     (``KNOB_LAUNCHES``).  At 2160x3840 ``takeda4k`` (FTPConfig() with the
+     Gaussian sideband, the unlocked per-frame demod and its dk ramp, the
+     translation ECC on the stride-2 gather grid), ``window4k``
+     (FTPConfig() with the Hann window, no DC removal, the affine ECC) and
+     ``prealign4k`` (FTPConfig().deploy() with the grating-band
+     prealignment and the single-pass detrend; K1, K2, K3, K4), each held to
+     the port's CPU run given the card's alignment (its prealignment warp
+     too): force within 1%, the CPU's own ECC and prealignment solves
+     within 0.05 px of the card's unless ``ALIGNMENT_UNDETERMINED`` names
+     them; at 640x480 ``prealign640`` (the deploy preset with the
+     prealignment, whose ECC is K4's loop) and the nine knobs alone on the
+     parity preset (``knob_*``), each held to the free-running CPU run
+     (force 1%, ECC 0.05 px); then timing and profile lines for the 4K
+     paths and prealign640.
 Then the card line, one JSON line with the kernel table and, last, the
 device line.
 """
@@ -163,15 +179,27 @@ ECC_ATOL_PX = 0.05         # ECC warp translation, card vs CPU
 # FFT rounding (pocketfft against XLA's FFT: 0.006 px, tests/test_torch_slice.py)
 SHIFT_ATOL_PX = 0.02
 # paths also held to the port's CPU run given the card's alignment
-# (``same_alignment``), and the one whose free-running comparison is only
-# reported: on the native-4K synthetic pair the parity ECC's ty is not
-# determined to ECC_ATOL_PX (the vertical grating leaves it nearly flat, and
-# a 0.003 px change of the global shift moves the CPU's own stop from 15 to
-# 19-23 iterations and ty by 0.1-0.2 px), so the card's and the CPU's
-# global shifts, ~0.006 px apart, end 0.4 px apart in ty and 3.6% apart in
-# force (x17 through the 4K growth model)
-SAME_ALIGNMENT_PATHS = ("parity640", "hist640", "parity4k", "mm4k_parity")
-ALIGNMENT_UNDETERMINED = ("parity4k", "mm4k_parity")
+# (``same_alignment``), and the solves the synthetic scene leaves
+# undetermined on a path, which are then reported, not gated: 'free', the
+# free-running comparison; 'ecc', the crop ECC's warp (free-running, and the
+# CPU's own solve given the card's shift); 'prealign', the CPU's own
+# prealignment solve given the card's warps.  On the native-4K synthetic
+# pair the parity ECC's ty is not determined to ECC_ATOL_PX (the vertical
+# grating leaves it nearly flat, and a 0.003 px change of the global shift
+# moves the CPU's own stop from 15 to 19-23 iterations and ty by 0.1-0.2
+# px), so the card's and the CPU's global shifts, ~0.006 px apart, end 0.4
+# px apart in ty and 3.6% apart in force (x17 through the 4K growth model).
+# cv2's translation ECC at 640x480 (knob_translation) has no rotation to
+# hold ty either: the card stopped after 20 iterations at ty 0.1691 px, the
+# CPU after 13 at 0.1082, 0.061 px apart, force 0.018% apart.  Its affine
+# ECC (knob_affine) diverges along y, which the grating does not fix (in
+# the JAX package too, tests/test_torch_knobs.py): a11 150 and ty -17470
+# px on the card, -17663 px on the CPU, after 73 and 80 iterations, force
+# 15.6% apart free-running (measured on an NVIDIA H100 80GB HBM3, 700.00 W)
+SAME_ALIGNMENT_PATHS = ("parity640", "hist640", "parity4k", "mm4k_parity", "takeda4k",
+                        "window4k", "prealign4k", "knob_affine")
+ALIGNMENT_UNDETERMINED = {"parity4k": ("free",), "mm4k_parity": ("free",),
+                          "knob_translation": ("ecc",), "knob_affine": ("free", "ecc")}
 # the temperature deploy contract (the JAX TempConfig.deploy): scene mean
 # within 0.1 degC, hottest/coldest pixel within 0.75 degC
 T_MEAN_ATOL, T_EXTREME_ATOL, VALID_RTOL, COLOR_MIN_SHARE = 0.1, 0.75, 0.005, 0.01
@@ -220,6 +248,54 @@ RUNNER_LAUNCHES = {
 }
 PATH_KERNELS.update({k: tuple(v) for k, v in RUNNER_LAUNCHES.items()})
 PATH_EXACT_LAUNCHES.update(RUNNER_LAUNCHES)
+# the knobs phase: the FTPConfig knobs off the presets' path.  At 2160x3840
+# three combinations, each on its base preset: the classical FTP route (the
+# Gaussian sideband, the unlocked carrier with its dk ramp, cv2's
+# translation ECC on the strided gather grid), the Hann window without the
+# DC removal under the affine ECC, and the grating-band prealignment with
+# the single-pass detrend under deploy
+KNOBS_4K = {
+    "takeda4k": (False, dict(sideband_method="gauss", lock_carrier_to_reference=False,
+                             ecc_warp_mode="translation", ecc_stride=2)),
+    "window4k": (False, dict(use_hann_window=True, remove_mean_after_apod=False,
+                             ecc_warp_mode="affine")),
+    "prealign4k": (True, dict(use_grating_band_prealign=True, use_two_pass_detrend=False)),
+}
+# at 640x480 each knob alone on the parity preset (scaled_ftp_config)
+KNOBS_640 = {
+    "knob_gauss": dict(sideband_method="gauss"),
+    "knob_unlocked": dict(lock_carrier_to_reference=False),
+    "knob_hann": dict(use_hann_window=True),
+    "knob_no_dc": dict(remove_mean_after_apod=False),
+    "knob_translation": dict(ecc_warp_mode="translation"),
+    "knob_affine": dict(ecc_warp_mode="affine"),
+    "knob_stride2": dict(ecc_stride=2),
+    "knob_single_pass": dict(use_two_pass_detrend=False),
+    "knob_prealign": dict(use_grating_band_prealign=True),
+}
+# each knob path's whole launch count a frame, from the code.  Parity: K3 in
+# each demod call (two one-frame calls unlocked, one pair call more for the
+# prealignment's pass-1 demod) and in the hole fill.  prealign4k: the 4K
+# deploy frame (K1 7, K2 4, K3 1, K4 1 for the coarse ECC) plus the pass-1
+# demod (K1 2, K3 1), its reliable mask (K1 1) and the high-pass
+# percentiles (K1 2), the prealignment's ECC on the host above K4's budget,
+# and the single-pass detrend: the plane fit no longer folded (K2 2), the
+# quadratic fit (K2 2), its median (K1 1), where the two-pass detrend took
+# K2 4 and K1 2.  prealign640: the 640 deploy frame (K1 7, K3 1, K5 1, K6 1,
+# K7 2) plus the pass-1 demod and mask and the high-pass (K1 5, K3 1) and
+# the prealignment's ECC, K4's loop (loop_kernel=False, as JAX calls it)
+KNOB_LAUNCHES = {
+    "takeda4k": {"inpaint_diffusion": 3},
+    "window4k": {"inpaint_diffusion": 2},
+    "prealign4k": {"masked_quantiles": 11, "masked_median_mad": 4, "inpaint_diffusion": 2,
+                   "gn_moments_euclidean": 1},
+    "prealign640": {"masked_quantiles": 12, "inpaint_diffusion": 2, "gn_moments_euclidean": 1,
+                    "ecc_loop_euclidean": 1, "unwrap_wls": 1, "robust_polyfit2d": 2},
+    **{k: {"inpaint_diffusion": 3 if k in ("knob_unlocked", "knob_prealign") else 2}
+       for k in KNOBS_640},
+}
+PATH_KERNELS.update({k: tuple(v) for k, v in KNOB_LAUNCHES.items()})
+PATH_EXACT_LAUNCHES.update(KNOB_LAUNCHES)
 # the trainers phase at 2160x3840: the p2h indentations (the four
 # DEFAULT_CALIBRATION_SAMPLES), the h2f loading frames (sphere-{1 + 5k}.jpg,
 # the first frame of each of the first ten force levels: the trainer's
@@ -833,13 +909,15 @@ def record_launches(path: str, rows, launches, frames: int = 1) -> None:
         assert launches == want, f"{path} launches {launches}, expected {want}"
 
 
-def same_alignment(args, ref, de, res, roi_from_finite: bool = False):
+def same_alignment(args, ref, de, res, roi_from_finite: bool = False, prealign=None):
     """The port's CPU run of the pair given the card's alignment: the global
     shift is the card's, the CPU solves its own ECC from there (returned
     beside the result, to hold against the card's warp), and the stages
-    after the ECC take the card's warp; ``roi_from_finite`` as the
-    multimodal path calls the force.  Returns (result, (warp, rho,
-    iterations) of the CPU's ECC, seconds)."""
+    after the ECC take the card's warp; so does a prealignment, given the
+    card's warp ``prealign`` (its own solve appended to the returned ECC
+    tuple); ``roi_from_finite`` as the multimodal path calls the force.
+    Returns (result, (warp, rho, iterations[, prealignment warp]) of the
+    CPU's solves, seconds)."""
     import torch
     import vistaf_torch.ftp.pipeline as ftp_pipeline
     from vistaf_torch.pipelines.force import ForcePipeline
@@ -848,28 +926,35 @@ def same_alignment(args, ref, de, res, roi_from_finite: bool = False):
     shift = torch.as_tensor(res["dbg_global_shift"])
     card_ecc = tuple(torch.as_tensor(res[k])
                      for k in ("dbg_ecc_warp", "dbg_ecc_rho", "dbg_ecc_iters"))
-    own_ecc, solved = cpu.ftp._ecc, []
+    own_ecc, own_prealign, solved = cpu.ftp._ecc, cpu.ftp._prealign_ecc, []
 
     def ecc(crop01):
         solved.append(own_ecc(crop01))
         return card_ecc
 
+    def prealign_ecc(hp_pair, mask):
+        solved.append(own_prealign(hp_pair, mask))
+        return prealign.cpu()
+
     cpu.ftp._ecc = ecc
+    cpu.ftp._prealign_ecc = prealign_ecc
     phase_correlate = ftp_pipeline.phase_correlate
     ftp_pipeline.phase_correlate = lambda a, b, win: (shift[0], shift[1], torch.zeros(()))
     try:
         t0 = time.perf_counter()
         out = cpu(ref, de, roi_from_finite=roi_from_finite)
-        return out, solved[0], time.perf_counter() - t0
+        own = solved[0] + ((solved[1],) if prealign is not None else ())
+        return out, own, time.perf_counter() - t0
     finally:
         ftp_pipeline.phase_correlate = phase_correlate
 
 
-def run_path(path: str, device, rows, cfg, h: int, w: int):
+def run_path(path: str, device, rows, cfg, h: int, w: int, free_cpu: bool = True):
     """Drive ForcePipeline once on the card with the launch counts set to 0
     just before, check the path's kernels launched and the result against
-    the port's CPU run (and, on the parity paths, against the CPU run given
-    the card's alignment); returns a frame callable for timing."""
+    the port's CPU run (with ``free_cpu``) and, on the paths of
+    ``SAME_ALIGNMENT_PATHS``, against the CPU run given the card's
+    alignment; returns a frame callable for timing."""
     import torch
     from vistaf_torch import kernels
     from vistaf_torch.config import ForceConfig
@@ -879,6 +964,9 @@ def run_path(path: str, device, rows, cfg, h: int, w: int):
     ref, de = synthetic_pair(h, w, cfg, seed=SEED)
     args = (cfg, ForceConfig(), P2H_MODEL, FORCE_MODEL)
     gpu = ForcePipeline(*args, debug_outputs=True, device=device)
+    prealign = []       # the card's prealignment warp, for the CPU given it
+    own_prealign = gpu.ftp._prealign_ecc
+    gpu.ftp._prealign_ecc = lambda *a: prealign.append(own_prealign(*a)) or prealign[-1]
     torch.cuda.synchronize()
     kernels.reset_launches()
     res = gpu(ref, de)
@@ -892,38 +980,82 @@ def run_path(path: str, device, rows, cfg, h: int, w: int):
     assert hm.shape == roi.shape == (gpu.ftp.geom.crop_h, gpu.ftp.geom.crop_w)
     assert np.isfinite(hm[roi]).all()
 
-    t0 = time.perf_counter()
-    res_cpu = ForcePipeline(*args, debug_outputs=True, device="cpu")(ref, de)
-    cpu_s = time.perf_counter() - t0
-    gap = abs(force - res_cpu["force_N"]) / abs(res_cpu["force_N"])
-    agree = float(np.mean(res["reliable_crop"] == res_cpu["reliable_crop"]))
-    warp_gap = float(np.abs(res["dbg_ecc_warp"] - res_cpu["dbg_ecc_warp"])[:, 2].max())
-    shift_gap = float(np.abs(res["dbg_global_shift"] - res_cpu["dbg_global_shift"]).max())
-    say("end_to_end", path=path, force_N=force, force_N_cpu=res_cpu["force_N"],
-        force_gap=gap, reliable_agreement=agree, ecc_warp_gap_px=warp_gap,
-        ecc_warp=res["dbg_ecc_warp"].tolist(), ecc_warp_cpu=res_cpu["dbg_ecc_warp"].tolist(),
-        ecc_iters=int(res["dbg_ecc_iters"]), ecc_iters_cpu=int(res_cpu["dbg_ecc_iters"]),
-        global_shift=res["dbg_global_shift"].tolist(),
-        global_shift_cpu=res_cpu["dbg_global_shift"].tolist(), global_shift_gap_px=shift_gap,
-        gated=path not in ALIGNMENT_UNDETERMINED, cpu_seconds=cpu_s, launches=launches)
+    line = dict(path=path, force_N=force, ecc_warp=res["dbg_ecc_warp"].tolist(),
+                ecc_iters=int(res["dbg_ecc_iters"]),
+                global_shift=res["dbg_global_shift"].tolist(), launches=launches)
+    if prealign:
+        line["prealign_warp"] = prealign[0].tolist()
+    gap = warp_gap = None
+    if free_cpu:
+        t0 = time.perf_counter()
+        res_cpu = ForcePipeline(*args, debug_outputs=True, device="cpu")(ref, de)
+        gap = abs(force - res_cpu["force_N"]) / abs(res_cpu["force_N"])
+        warp_gap = float(np.abs(res["dbg_ecc_warp"] - res_cpu["dbg_ecc_warp"])[:, 2].max())
+        line.update(
+            force_N_cpu=res_cpu["force_N"], force_gap=gap,
+            reliable_agreement=float(np.mean(res["reliable_crop"] == res_cpu["reliable_crop"])),
+            ecc_warp_gap_px=warp_gap, ecc_warp_cpu=res_cpu["dbg_ecc_warp"].tolist(),
+            ecc_iters_cpu=int(res_cpu["dbg_ecc_iters"]),
+            global_shift_cpu=res_cpu["dbg_global_shift"].tolist(),
+            global_shift_gap_px=float(np.abs(res["dbg_global_shift"]
+                                             - res_cpu["dbg_global_shift"]).max()),
+            undetermined=list(ALIGNMENT_UNDETERMINED.get(path, ())),
+            cpu_seconds=time.perf_counter() - t0)
+    say("end_to_end", **line)
+    undetermined = ALIGNMENT_UNDETERMINED.get(path, ())
     if path in SAME_ALIGNMENT_PATHS:
-        same, (warp_s, rho_s, it_s), same_s = same_alignment(args, ref, de, res)
+        same, own, same_s = same_alignment(args, ref, de, res,
+                                           prealign=prealign[0] if prealign else None)
         same_gap = abs(force - same["force_N"]) / abs(same["force_N"])
-        same_warp_gap = float(np.abs(res["dbg_ecc_warp"] - warp_s.numpy())[:, 2].max())
+        same_warp_gap = float(np.abs(res["dbg_ecc_warp"] - own[0].numpy())[:, 2].max())
+        extra = {}
+        if prealign:
+            extra = dict(prealign_warp_cpu=own[3].tolist(), prealign_warp_gap_px=float(
+                np.abs(prealign[0].cpu().numpy() - own[3].numpy())[:, 2].max()))
         say("same_alignment", path=path, force_N=force, force_N_cpu=same["force_N"],
             force_gap=same_gap,
             reliable_agreement=float(np.mean(res["reliable_crop"] == same["reliable_crop"])),
-            ecc_warp_cpu=warp_s.tolist(), ecc_rho=float(res["dbg_ecc_rho"]),
-            ecc_rho_cpu=float(rho_s), ecc_iters_cpu=int(it_s), ecc_warp_gap_px=same_warp_gap,
-            cpu_seconds=same_s)
-        assert shift_gap <= SHIFT_ATOL_PX, shift_gap
-        assert same_warp_gap < ECC_ATOL_PX, same_warp_gap
+            ecc_warp_cpu=own[0].tolist(), ecc_rho=float(res["dbg_ecc_rho"]),
+            ecc_rho_cpu=float(own[1]), ecc_iters_cpu=int(own[2]),
+            ecc_warp_gap_px=same_warp_gap, undetermined=list(undetermined),
+            cpu_seconds=same_s, **extra)
+        if free_cpu:
+            assert line["global_shift_gap_px"] <= SHIFT_ATOL_PX, line["global_shift_gap_px"]
         assert same_gap <= FORCE_RTOL, (force, same["force_N"])
-    if path not in ALIGNMENT_UNDETERMINED:
+        if "ecc" not in undetermined:
+            assert same_warp_gap < ECC_ATOL_PX, same_warp_gap
+        if "prealign" not in undetermined:
+            assert extra.get("prealign_warp_gap_px", 0.0) < ECC_ATOL_PX, extra
+    if free_cpu and "free" not in undetermined:
         assert gap <= FORCE_RTOL, (force, res_cpu["force_N"])
-        assert warp_gap < ECC_ATOL_PX, warp_gap
+        if "ecc" not in undetermined:
+            assert warp_gap < ECC_ATOL_PX, warp_gap
     fast = ForcePipeline(*args, device=device)
     return fast, lambda: fast(ref, de)
+
+
+def run_knobs(device, rows, card):
+    """The knobs phase: the three 2160x3840 knob combinations of
+    ``KNOBS_4K`` (held to the CPU run given the card's alignment), the 640
+    deploy preset with the prealignment (``prealign640``) and each knob of
+    ``KNOBS_640`` alone on the 640 parity preset (both held to the
+    free-running CPU run), each with its exact launches; then the 4K paths
+    and prealign640 timed and profiled."""
+    from vistaf_torch.config import FTPConfig, slice_ftp_config
+    from vistaf_torch.utils.synthetic import scaled_ftp_config
+    runs = {}
+    for path, (deploy, change) in KNOBS_4K.items():
+        base = FTPConfig().deploy() if deploy else FTPConfig()
+        runs[path] = run_path(path, device, rows, base.replace(**change), H4K, W4K,
+                              free_cpu=False)[1]
+    runs["prealign640"] = run_path("prealign640", device, rows, slice_ftp_config(H, W).replace(
+        use_grating_band_prealign=True), H, W)[1]
+    for path, change in KNOBS_640.items():
+        run_path(path, device, rows, scaled_ftp_config(H, W).replace(**change), H, W)
+    for path, fn in runs.items():
+        big = path.endswith("4k")
+        phase_timing(path, fn, card, frames=3 if big else 10, warmup=1 if big else 2)
+        phase_profile(path, fn, frames=1 if big else 2)
 
 
 def check_from_artifacts(device, cfg, h: int, w: int) -> None:
@@ -2231,6 +2363,8 @@ def main() -> int:
     lap("runner")
     run_trainers(device, rows, card)
     lap("trainers")
+    run_knobs(device, rows, card)
+    lap("knobs")
     import torch.distributed as dist
     dist.destroy_process_group()
     say("clock", seconds=clock, total=time.perf_counter() - t0)

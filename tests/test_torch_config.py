@@ -99,8 +99,8 @@ def test_pipeline_requires_an_explicit_device_and_a_ported_config():
             FTPPipeline(cfg, P2H)
     with pytest.raises(NotImplementedError, match="unwrap_method"):
         FTPPipeline(cfg.replace(unwrap_method="flood_fill"), P2H, device="cpu")
-    with pytest.raises(NotImplementedError, match="ecc_warp_mode"):
-        FTPPipeline(cfg.replace(ecc_warp_mode="affine"), P2H, device="cpu")
+    with pytest.raises(NotImplementedError, match="global_shift_window_px"):
+        FTPPipeline(cfg.replace(global_shift_window_px=128), P2H, device="cpu")
     with pytest.raises(NotImplementedError, match="percentile_method"):
         FTPPipeline(tcfg.FTPConfig().deploy().replace(unwrap_downsample=1,
                                                       percentile_method="hist_rows"),
@@ -111,7 +111,12 @@ def test_pipeline_requires_an_explicit_device_and_a_ported_config():
                    cfg.replace(ecc_downsample_min_px=0, unwrap_downsample_min_px=0,
                                polyfit_kernel=False, ecc_loop_kernel=False),
                    cfg.replace(ecc_sampler="gather", ecc_stride=1),
-                   tcfg.FTPConfig().deploy().replace(unwrap_downsample=1)):
+                   tcfg.FTPConfig().deploy().replace(unwrap_downsample=1),
+                   cfg.replace(sideband_method="gauss", lock_carrier_to_reference=False,
+                               use_hann_window=True, remove_mean_after_apod=False,
+                               ecc_warp_mode="affine", ecc_sampler="gather", ecc_stride=2,
+                               use_two_pass_detrend=False, use_grating_band_prealign=True),
+                   cfg.replace(ecc_warp_mode="translation")):
         FTPPipeline.check_config(ported)
     with pytest.raises(ValueError, match="percentile method"):
         from vistaf_torch.ops.percentile import get_percentile_fn

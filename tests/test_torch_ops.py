@@ -310,8 +310,18 @@ def test_ecc_align_matches_jax_solver(consts):
     np.testing.assert_allclose(w.numpy()[:, 2], J(jw)[:, 2], atol=5e-3)
     jw = J(jw)
     assert abs(float(torch.atan2(w[1, 0], w[0, 0])) - np.arctan2(jw[1, 0], jw[0, 0])) < 5e-5
-    with pytest.raises(NotImplementedError):
-        treg.ecc_align(T(base), T(moved), T(mask), mode="affine")
+    # the affine motion type on the same scene: the plain moments (JAX
+    # fuses the euclidean mode only), translations within 5e-3 px, the
+    # linear part within 5e-5
+    kw["mode"] = "affine"
+    jw, jrho, _ = jreg.ecc_align(jnp.asarray(base), jnp.asarray(moved), jnp.asarray(mask),
+                                 **kw)
+    w, rho, _ = treg.ecc_align(T(base), T(moved), T(mask), **kw)
+    assert abs(float(rho) - float(jrho)) < 1e-4
+    np.testing.assert_allclose(w.numpy()[:, 2], J(jw)[:, 2], atol=5e-3)
+    np.testing.assert_allclose(w.numpy()[:, :2], J(jw)[:, :2], atol=5e-5)
+    with pytest.raises(ValueError, match="mode"):
+        treg.ecc_align(T(base), T(moved), T(mask), mode="homography")
 
 
 # --------------------------------------------------------------- unwrap / polyfit

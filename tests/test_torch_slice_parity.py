@@ -20,6 +20,9 @@ Measured on a CPU (seed 0):
     99.5%),
   - the global shift within 0.007 px (pocketfft against XLA's FFT under
     the whitened cross-power spectrum).
+The knobs of the preset's neighbourhood that the port runs are each held to
+JAX at 240x320 (``test_ported_parity_knobs_match_jax``); the ones it does
+not run raise (``test_unported_parity_knobs_raise_by_name``).
 """
 import dataclasses
 
@@ -105,28 +108,68 @@ def test_native_4k_parity_route_builds_on_the_cpu():
     assert tuple(pipe.roi.shape) == (1182, 1182) and pipe.device.type == "cpu"
 
 
+def _knob_run(change):
+    """The JAX ForcePipeline and the port's on the 240x320 synthetic pair
+    under ``scaled_ftp_config(240, 320)`` with the JAX prealignment test's
+    reduced budgets and one knob changed: (JAX, the port free-running, the
+    port given JAX's alignment)."""
+    jc = scaled_ftp_config(240, 320).replace(
+        ecc_iters=40, unwrap_cg_iters=8, inpaint_iters=8,
+        grating_prealign_ecc_iters=40).replace(**change)
+    jres, tres, launches = gates.run_both(jc)
+    assert all(v == 0 for v in launches.values()), launches
+    return jres, tres, gates.run_port_given_alignment(jc, jres)
+
+
+# the ids these cases had while their knobs raised
 @pytest.mark.parametrize("knob,change", [
-    ("sideband_method", dict(sideband_method="gauss")),
-    ("lock_carrier_to_reference", dict(lock_carrier_to_reference=False)),
-    ("use_hann_window", dict(use_hann_window=True)),
-    ("ecc_warp_mode", dict(ecc_warp_mode="translation")),
-    ("ecc_warp_mode", dict(ecc_warp_mode="affine")),
-    ("ecc_sampler", dict(ecc_stride=2)),
-    ("percentile_method", dict(percentile_method="hist")),
-    ("percentile_method", dict(percentile_method="hist_rows")),
-    ("percentile_method", dict(percentile_method="bisect")),
-    ("use_two_pass_detrend", dict(use_two_pass_detrend=False)),
-    ("use_grating_band_prealign", dict(use_grating_band_prealign=True)),
-    ("global_shift_downsample", dict(global_shift_downsample=2,
-                                     global_shift_downsample_min_px=0)),
-    ("global_shift_window_px", dict(global_shift_window_px=128)),
+    pytest.param("sideband_method", dict(sideband_method="gauss"),
+                 id="sideband_method-change0"),
+    pytest.param("lock_carrier_to_reference", dict(lock_carrier_to_reference=False),
+                 id="lock_carrier_to_reference-change1"),
+    pytest.param("use_hann_window", dict(use_hann_window=True), id="use_hann_window-change2"),
+    pytest.param("ecc_warp_mode", dict(ecc_warp_mode="translation"), id="ecc_warp_mode-change3"),
+    pytest.param("ecc_warp_mode", dict(ecc_warp_mode="affine"), id="ecc_warp_mode-change4"),
+    pytest.param("ecc_sampler", dict(ecc_stride=2), id="ecc_sampler-change5"),
+    pytest.param("use_two_pass_detrend", dict(use_two_pass_detrend=False),
+                 id="use_two_pass_detrend-change9"),
+    pytest.param("use_grating_band_prealign", dict(use_grating_band_prealign=True),
+                 id="use_grating_band_prealign-change10"),
+])
+def test_ported_parity_knobs_match_jax(knob, change):
+    """Each knob of the parity preset's neighbourhood that once raised here
+    now builds, and its pipeline is held to JAX's at 240x320 with the gates
+    of ``tests/test_torch_knobs.py``: the ECC warp free-running
+    (translations 0.05 px, the rotation 5e-5 rad, an affine warp's linear
+    part 5e-5 of each entry), the carrier peaks within 1e-3 bins, and given
+    JAX's alignment (the grating leaves the ECC's ty nearly flat) force
+    within 0.1% and the reliable mask equal on 99.9% of the pixels."""
+    from test_torch_knobs import assert_pipeline_close
+    jres, tres, given = _knob_run(change)
+    assert_pipeline_close(jres, tres, given)
+    if knob == "lock_carrier_to_reference":     # each frame keeps its own carrier
+        assert not np.array_equal(tres["carrier_k_ref"], tres["carrier_k_def"])
+
+
+@pytest.mark.parametrize("knob,change", [
+    pytest.param("percentile_method", dict(percentile_method="hist"),
+                 id="percentile_method-change6"),
+    pytest.param("percentile_method", dict(percentile_method="hist_rows"),
+                 id="percentile_method-change7"),
+    pytest.param("percentile_method", dict(percentile_method="bisect"),
+                 id="percentile_method-change8"),
+    pytest.param("global_shift_downsample", dict(global_shift_downsample=2,
+                                                 global_shift_downsample_min_px=0),
+                 id="global_shift_downsample-change11"),
+    pytest.param("global_shift_window_px", dict(global_shift_window_px=128),
+                 id="global_shift_window_px-change12"),
 ])
 def test_unported_parity_knobs_raise_by_name(knob, change):
-    """What of the parity preset's neighbourhood is still not ported raises
-    at construction, naming the knob; the rejected global-shift knobs stay
-    excluded.  The ``hist`` percentiles are ported (the JAX whole-limb
-    tests' configuration): that case builds; ``hist_rows`` and ``bisect``,
-    which are not JAX percentile methods either, keep raising."""
+    """What of the parity preset's neighbourhood is not ported raises at
+    construction, naming the knob: the rejected global-shift knobs, and
+    ``hist_rows`` and ``bisect``, which are not JAX percentile methods
+    either.  The ``hist`` percentiles are ported (the JAX whole-limb tests'
+    configuration): that case builds."""
     cfg = tcfg.ftp_config_from_dict(dataclasses.asdict(scaled_ftp_config(480, 640)))
     if change == {"percentile_method": "hist"}:
         pipe = FTPPipeline(cfg.replace(**change), gates.P2H, device="cpu")

@@ -40,6 +40,31 @@ def run_both(jcfg, seed=0):
     return jres, tres, dict(kernels.LAUNCHES)
 
 
+def run_port_given_alignment(jcfg, jres, seed=0):
+    """The port's result on the same pair given JAX's alignment: the global
+    shift and the crop ECC's warp are JAX's (``phase_correlate`` and
+    ``FTPPipeline._ecc`` return them, as ``chip_smoke.same_alignment`` gives
+    the CPU the card's); every later stage, a prealignment's own ECC
+    included, runs as it runs.  On the synthetic grating the ECC's ty is
+    nearly flat, so free-running ports and JAX stop up to 0.05 px apart
+    there, which the force then follows."""
+    import torch
+    from vistaf_torch.ftp import pipeline as tpipe
+    ref, de = synthetic_pair(jcfg.image_height, jcfg.image_width, jcfg, seed=seed)
+    shift = torch.as_tensor(np.array(jres["dbg_global_shift"]))
+    ecc = tuple(torch.as_tensor(np.array(jres[k])) for k in ("dbg_ecc_warp", "dbg_ecc_rho",
+                                                    "dbg_ecc_iters"))
+    saved = tpipe.phase_correlate, tpipe.FTPPipeline._ecc
+    tpipe.phase_correlate = lambda a, b, win: (shift[0], shift[1], torch.zeros(()))
+    tpipe.FTPPipeline._ecc = lambda self, crop01: ecc
+    try:
+        tcfg = ftp_config_from_dict(dataclasses.asdict(jcfg))
+        fcfg = force_config_from_dict(dataclasses.asdict(JaxForceConfig()))
+        return ForcePipeline(tcfg, fcfg, P2H, FORCE, debug_outputs=True, device="cpu")(ref, de)
+    finally:
+        tpipe.phase_correlate, tpipe.FTPPipeline._ecc = saved
+
+
 def force_gap(jres, tres) -> float:
     assert np.isfinite(tres["force_N"]) and tres["force_N"] > 0
     return abs(tres["force_N"] - jres["force_N"]) / jres["force_N"]

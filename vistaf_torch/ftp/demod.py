@@ -1,25 +1,31 @@
-"""FTP complex demodulation of a frame pair (JAX ``ftp/demod.py``).
+"""FTP complex demodulation (JAX ``ftp/demod.py``).
 
-The port runs ``ftp_complex_demod_pair``: bad-pixel repair (percentile
-thresholds, K3 inpaint) and illumination normalization batched over the
-pair, the DC removal by the masked mean or median, symmetric FFT padding,
-then one of the JAX package's two tails, chosen as it chooses them:
+``ftp_complex_demod_pair`` demodulates a reference/deformed pair with the
+carrier locked to the reference peak, every frame-independent stage batched
+over the pair; ``ftp_complex_demod`` demodulates one frame on its own
+spectrum (the unlocked per-frame demod) or at a given carrier.  Both run the
+preprocessing (``preprocess``: bad-pixel repair by percentile thresholds
+and K3, illumination normalization, the DC removal by the masked mean or
+median unless ``remove_mean_after_apod`` is off, the optional Hann window),
+symmetric FFT padding, the carrier search and one of the JAX package's
+sideband tails, chosen as it chooses them:
 
 - the half-spectrum path (``_demod_pair_rfft``: ``rfft2``, the carrier
   cascade on the reference half spectrum, the Hermitian-extended sideband
-  patch) for the cascade search on even FFT sizes, as the deploy presets
-  run it;
-- the full-``fft2`` path (``_demod_pair_fft2``: ``fftshift``ed spectrum,
-  the 'topk' or cascade carrier search, the sideband patch) otherwise, as
-  the parity preset runs it.
+  patch) for the pair under the patch shift and the cascade search on even
+  FFT sizes, as the deploy presets run it;
+- the full-``fft2`` path (``fftshift``ed spectrum, the 'topk' or cascade
+  carrier search) otherwise, as the parity preset runs it, with the patch
+  shift (the Hann-windowed patch inverted by a sparse inverse DFT and the
+  fractional-bin ramp) or the Gaussian sideband (a dense ``ifft2`` of the
+  spectrum under a truncated Gaussian with a DC notch, and the full-carrier
+  ramp).
 
-Both refine the carrier by a parabola in the log magnitude and invert the
-Hann-windowed patch by a sparse inverse DFT.  The Gaussian sideband,
-unlocked per-frame demodulation and the Hann window are not ported yet.
+The carrier is refined by a parabola in the log magnitude.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,30 +49,15 @@ class DemodResult(NamedTuple):
     i_norm: torch.Tensor             # (h, w) normalized image
 
 
-def check_config(cfg: FTPConfig) -> None:
-    """Raise NotImplementedError, naming the knobs, for a configuration whose
-    demodulation is not ported: the Gaussian sideband
-    (``sideband_method='gauss'``), the unlocked per-frame demodulation
-    (``lock_carrier_to_reference=False``), the Hann window and a
-    preprocessing without the DC removal."""
-    unported = {
-        "sideband_method (Gaussian sideband)": cfg.sideband_method != "patch_shift",
-        "lock_carrier_to_reference (unlocked demod)": not cfg.lock_carrier_to_reference,
-        "use_hann_window": cfg.use_hann_window,
-        "remove_mean_after_apod": not cfg.remove_mean_after_apod,
-        "peak_method": cfg.peak_method not in ("topk", "cascade"),
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"vistaf_torch does not port {bad} yet")
-
-
 def preprocess(gray: torch.Tensor, apo: Optional[torch.Tensor], cfg: FTPConfig,
                consts: DeviceConsts) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Bad-pixel repair, illumination normalization and apodization of the
-    (..., h, w) gray planes: returns (windowed image, I_norm)."""
+    """Bad-pixel repair, illumination normalization, apodization, the DC
+    removal and the Hann window of the (..., h, w) gray planes: returns
+    (windowed image, I_norm)."""
     img = gray.to(torch.float32)
-    valid = apo > 1e-6 if apo is not None else torch.ones_like(img[0], dtype=torch.bool)
+    h, w = img.shape[-2:]
+    valid = apo > 1e-6 if apo is not None else torch.ones((h, w), dtype=torch.bool,
+                                                          device=img.device)
     if cfg.bad_pixel_enable:
         grad = gradient_magnitude(img)
         qs = (cfg.bad_intensity_percentile, cfg.bad_gradient_percentile)
@@ -91,74 +82,115 @@ def preprocess(gray: torch.Tensor, apo: Optional[torch.Tensor], cfg: FTPConfig,
     if cfg.pre_blur_sigma_px and cfg.pre_blur_sigma_px > 0:
         i_norm = gaussian_blur(i_norm, cfg.pre_blur_sigma_px, consts)
     iw = i_norm * apo if apo is not None else i_norm
-    if cfg.dc_remove_stat == "mean":
-        mu = masked_mean(iw, valid)
-    else:
-        mu = get_percentile_fn(cfg.percentile_method)(iw, valid, 50.0)
-    return iw - mu[..., None, None], i_norm
+    if cfg.remove_mean_after_apod:
+        if cfg.dc_remove_stat == "mean":
+            mu = masked_mean(iw, valid)
+        else:
+            mu = get_percentile_fn(cfg.percentile_method)(iw, valid, 50.0)
+        iw = iw - mu[..., None, None]
+    if cfg.use_hann_window:
+        # the plain product of two np.hanning, not cv2's square root
+        iw = iw * consts.get(("hann_patch", h, w), lambda: hann_patch(h, w))
+    return iw, i_norm
 
 
-def _patch_tail(peak_f: torch.Tensor, px_i, py_i, patch: torch.Tensor,
-                i_norm_pair: torch.Tensor, fft_shape: Tuple[int, int], cfg: FTPConfig,
-                consts: DeviceConsts) -> Tuple[DemodResult, DemodResult]:
-    """Hann window on the (2, psz, psz) sideband patch, its sparse inverse
-    DFT from the spectrum's centre, the fractional-bin ramp and the crop."""
+def _results(field: torch.Tensor, peak_f: torch.Tensor, i_norm: torch.Tensor,
+             fft_shape: Tuple[int, int], cfg: FTPConfig) -> List[DemodResult]:
+    """One DemodResult a frame of the (n, hf, wf) padded field, cropped to
+    the (n, h, w) frames of ``i_norm``."""
     hf, wf = fft_shape
-    h, w = i_norm_pair.shape[-2:]
-    cy, cx = hf // 2, wf // 2
+    h, w = i_norm.shape[-2:]
     pad = int(max(0, cfg.fft_pad_px))
-    psz = patch.shape[-1]
-    if cfg.patch_window == "hann":
-        patch = patch * consts.get(("hann_patch", psz), lambda: hann_patch(psz, psz))
-    field = fftops.ifft2_sparse_patch(patch, hf, wf, cy - psz // 2, cx - psz // 2, consts)
-    dpx = peak_f[0] - px_i.to(torch.float32)
-    dpy = peak_f[1] - py_i.to(torch.float32)
-    field = field * fftops.frac_ramp(hf, wf, dpx, dpy, consts, sign=-1.0)
     if pad > 0:
         field = field[:, pad:pad + h, pad:pad + w]
     amp = torch.abs(field)
-    k = torch.stack([peak_f[0] - cx, peak_f[1] - cy])
-    return (DemodResult(field[0], amp[0], peak_f, k, (hf, wf), i_norm_pair[0]),
-            DemodResult(field[1], amp[1], peak_f, k, (hf, wf), i_norm_pair[1]))
+    k = torch.stack([peak_f[0] - wf // 2, peak_f[1] - hf // 2])
+    return [DemodResult(field[i], amp[i], peak_f, k, (hf, wf), i_norm[i])
+            for i in range(field.shape[0])]
 
 
-def _demod_pair_fft2(iw_fft: torch.Tensor, cfg: FTPConfig):
-    """Full-spectrum carrier search on the reference: ``fft2`` of the pair,
-    ``fftshift``, the 'topk' search (or the cascade) and parabolic
-    refinement; returns (peak (x, y), rounded x, rounded y, the pair's
-    (2, psz, psz) sideband patch around it)."""
-    _, hf, wf = iw_fft.shape
-    F_shift = torch.fft.fftshift(torch.fft.fft2(iw_fft), dim=(-2, -1))
-    ref_mag = torch.abs(F_shift[0])
+def _patch_field(peak_f: torch.Tensor, px_i, py_i, patch: torch.Tensor,
+                 fft_shape: Tuple[int, int], cfg: FTPConfig,
+                 consts: DeviceConsts) -> torch.Tensor:
+    """Hann window on the (n, psz, psz) sideband patch, its sparse inverse
+    DFT from the spectrum's centre and the fractional-bin ramp: the (n, hf,
+    wf) padded field."""
+    hf, wf = fft_shape
+    psz = patch.shape[-1]
+    if cfg.patch_window == "hann":
+        patch = patch * consts.get(("hann_patch", psz, psz), lambda: hann_patch(psz, psz))
+    field = fftops.ifft2_sparse_patch(patch, hf, wf, hf // 2 - psz // 2, wf // 2 - psz // 2,
+                                      consts)
+    dpx = peak_f[0] - px_i.to(torch.float32)
+    dpy = peak_f[1] - py_i.to(torch.float32)
+    return field * fftops.frac_ramp(hf, wf, dpx, dpy, consts, sign=-1.0)
+
+
+def _gauss_field(F_shift: torch.Tensor, peak_f: torch.Tensor, cfg: FTPConfig,
+                 consts: DeviceConsts) -> torch.Tensor:
+    """The Gaussian sideband of the (n, hf, wf) shifted spectrum: a
+    Gaussian of ``band_radius`` around the carrier, truncated at
+    ``gauss_trunc_radius``, zero within ``dc_exclusion`` of DC, a dense
+    ``ifft2`` and the full-carrier ramp: the (n, hf, wf) padded field."""
+    hf, wf = F_shift.shape[-2:]
+    cy, cx = hf // 2, wf // 2
+    yy = consts.iota(hf, wf, 0)
+    xx = consts.iota(hf, wf, 1)
+    dist2_peak = (xx - peak_f[0]) ** 2 + (yy - peak_f[1]) ** 2
+    dist2_dc = (xx - cx) ** 2 + (yy - cy) ** 2
+    sigma = max(1e-6, float(cfg.band_radius))
+    gauss = torch.exp(-0.5 * dist2_peak / (sigma * sigma))
+    rcut = max(3.0, float(cfg.gauss_trunc_radius))
+    gauss = gauss * (dist2_peak <= rcut * rcut)
+    gauss = torch.where(dist2_dc <= float(cfg.dc_exclusion) ** 2, 0.0, gauss)
+    field = torch.fft.ifft2(torch.fft.ifftshift(F_shift * gauss, dim=(-2, -1)))
+    return field * fftops.frac_ramp(hf, wf, peak_f[0] - cx, peak_f[1] - cy, consts, sign=-1.0)
+
+
+def _search_carrier(mag: torch.Tensor, cfg: FTPConfig) -> torch.Tensor:
+    """The refined carrier peak (x, y) of the (hf, wf) shifted magnitude: the
+    'topk' search (or the cascade) and the parabolic log refinement."""
+    hf, wf = mag.shape
     if cfg.peak_method == "cascade":
         px, py = fftops.carrier_peak_cascade(
-            ref_mag, cfg.dc_exclusion, force_right_half_plane=cfg.force_right_half_plane,
+            mag, cfg.dc_exclusion, force_right_half_plane=cfg.force_right_half_plane,
             prefer_near_center_row=cfg.prefer_peak_near_center_row,
             peak_max_dy_frac=cfg.peak_max_dy_from_center)
     else:
-        xs, ys, mags = fftops.find_top_peaks(ref_mag, cfg.dc_exclusion, cfg.n_fft_peaks)
+        xs, ys, mags = fftops.find_top_peaks(mag, cfg.dc_exclusion, cfg.n_fft_peaks)
         px, py = fftops.choose_carrier_peak(
             xs, ys, mags, hf, wf, force_right_half_plane=cfg.force_right_half_plane,
             prefer_near_center_row=cfg.prefer_peak_near_center_row,
             peak_max_dy_frac=cfg.peak_max_dy_from_center)
-    fx, fy = fftops.refine_peak_parabolic_log(ref_mag, px, py)
-    peak_f = torch.stack([fx, fy])
+    fx, fy = fftops.refine_peak_parabolic_log(mag, px, py)
+    return torch.stack([fx, fy])
+
+
+def _fft2_field(F_shift: torch.Tensor, peak_f: torch.Tensor, cfg: FTPConfig,
+                consts: DeviceConsts) -> torch.Tensor:
+    """The full-``fft2`` tail of the (n, hf, wf) shifted spectrum at the
+    carrier ``peak_f``: the sideband patch around its rounded bin (the
+    window start clamped into the array, as ``dynamic_slice`` clamps it),
+    or the Gaussian sideband."""
+    if cfg.sideband_method != "patch_shift":
+        return _gauss_field(F_shift, peak_f, cfg, consts)
+    hf, wf = F_shift.shape[-2:]
     px_i = torch.round(peak_f[0]).to(torch.int64)
     py_i = torch.round(peak_f[1]).to(torch.int64)
     bw = int(max(3, cfg.patch_half_width_bins))
     psz = 2 * bw + 1
-    # dynamic_slice semantics: the window start is clamped into the array
-    win = torch.arange(psz, device=iw_fft.device)
+    win = torch.arange(psz, device=F_shift.device)
     rows = torch.clamp(py_i - bw, 0, hf - psz) + win
     cols = torch.clamp(px_i - bw, 0, wf - psz) + win
     patch = F_shift.index_select(-2, rows).index_select(-1, cols)
-    return peak_f, px_i, py_i, patch
+    return _patch_field(peak_f, px_i, py_i, patch, (hf, wf), cfg, consts)
 
 
 def _demod_pair_rfft(iw_fft: torch.Tensor, cfg: FTPConfig):
     """Half-spectrum carrier search in the row-shifted rfft layout
-    ``Rr[r, k] == F_shift[r, cx + k]``; returns what ``_demod_pair_fft2``
-    returns, the patch's negative-kx columns from Hermitian symmetry."""
+    ``Rr[r, k] == F_shift[r, cx + k]``: returns (peak (x, y), rounded x,
+    rounded y, the pair's (2, psz, psz) sideband patch around it), the
+    patch's negative-kx columns from Hermitian symmetry."""
     _, hf, wf = iw_fft.shape
     cy, cx = hf // 2, wf // 2
     bw = int(max(3, cfg.patch_half_width_bins))
@@ -195,19 +227,42 @@ def _demod_pair_rfft(iw_fft: torch.Tensor, cfg: FTPConfig):
     return peak_f, px_i, py_i, patch
 
 
+def _pad_fft(iw: torch.Tensor, cfg: FTPConfig) -> torch.Tensor:
+    """The windowed planes padded by ``fft_pad_px`` with the symmetric
+    (cv2 BORDER_REFLECT) border."""
+    pad = int(max(0, cfg.fft_pad_px))
+    return pad_last2(iw, (pad, pad, pad, pad), "symmetric") if pad > 0 else iw
+
+
 def ftp_complex_demod_pair(gray_ref: torch.Tensor, gray_def: torch.Tensor,
                            apo: Optional[torch.Tensor], cfg: FTPConfig,
                            consts: DeviceConsts) -> Tuple[DemodResult, DemodResult]:
     """Demodulate a reference/deformed pair with the carrier locked to the
     reference peak, every frame-independent stage batched over the pair."""
-    check_config(cfg)
     iw_pair, i_norm_pair = preprocess(torch.stack([gray_ref, gray_def]), apo, cfg, consts)
-    pad = int(max(0, cfg.fft_pad_px))
-    iw_fft = pad_last2(iw_pair, (pad, pad, pad, pad), "symmetric") if pad > 0 else iw_pair
+    iw_fft = _pad_fft(iw_pair, cfg)
     hf, wf = iw_fft.shape[-2:]
-    if (cfg.force_right_half_plane and cfg.peak_method == "cascade" and hf % 2 == 0
-            and wf % 2 == 0 and min(hf, wf) >= cfg.demod_rfft_min_px):
-        peak = _demod_pair_rfft(iw_fft, cfg)
+    if (cfg.sideband_method == "patch_shift" and cfg.force_right_half_plane
+            and cfg.peak_method == "cascade" and hf % 2 == 0 and wf % 2 == 0
+            and min(hf, wf) >= cfg.demod_rfft_min_px):
+        peak_f, px_i, py_i, patch = _demod_pair_rfft(iw_fft, cfg)
+        field = _patch_field(peak_f, px_i, py_i, patch, (hf, wf), cfg, consts)
     else:
-        peak = _demod_pair_fft2(iw_fft, cfg)
-    return _patch_tail(*peak, i_norm_pair, (hf, wf), cfg, consts)
+        F_shift = torch.fft.fftshift(torch.fft.fft2(iw_fft), dim=(-2, -1))
+        peak_f = _search_carrier(torch.abs(F_shift[0]), cfg)
+        field = _fft2_field(F_shift, peak_f, cfg, consts)
+    dref, ddef = _results(field, peak_f, i_norm_pair, (hf, wf), cfg)
+    return dref, ddef
+
+
+def ftp_complex_demod(gray: torch.Tensor, apo: Optional[torch.Tensor], cfg: FTPConfig,
+                      consts: DeviceConsts,
+                      carrier_refined: Optional[torch.Tensor] = None) -> DemodResult:
+    """Demodulate one frame on its own full spectrum: the carrier searched
+    and refined there, or locked to ``carrier_refined`` (x, y) in bins."""
+    iw, i_norm = preprocess(gray[None], apo, cfg, consts)
+    F_shift = torch.fft.fftshift(torch.fft.fft2(_pad_fft(iw, cfg)), dim=(-2, -1))
+    peak_f = (_search_carrier(torch.abs(F_shift[0]), cfg) if carrier_refined is None
+              else carrier_refined.to(torch.float32))
+    field = _fft2_field(F_shift, peak_f, cfg, consts)
+    return _results(field, peak_f, i_norm, tuple(F_shift.shape[-2:]), cfg)[0]

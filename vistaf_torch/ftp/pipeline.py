@@ -3,13 +3,18 @@
 
 Stages in order: gray conversion, full-frame phase-correlation shift, ROI
 crop, ECC crop alignment (K5, or the pooled and coarse-to-fine solves with
-K4; the gather sampler's host loop), demodulation of the pair (percentile
-thresholds, K3), the reliable mask (a percentile, close, dominant or
-largest component, distance erode), wrapped phase difference, WLS unwrap
-(K6, or the PCG, pooled or not), the unfolded plane removal, two-pass IRLS
-detrend (K7, or the IRLS with K2, histogram or sort percentiles),
-smoothing, sign flip, the internal-hole fill (K3), frontier taper,
-unreliable-region fill, clamp, mm conversion and the contact-blob filter.
+K4; the gather sampler's and the translation and affine modes' host loop),
+the optional grating-band prealignment (a pass-1 demod and reliable mask,
+an ECC over the band between the reliable region and the ROI), the
+demodulation (of the pair with the carrier locked to the reference, or of
+each frame on its own spectrum; percentile thresholds, K3), the reliable
+mask (a percentile, close, dominant or largest component, distance erode),
+wrapped phase difference (with the carrier-difference ramp when unlocked),
+WLS unwrap (K6, or the PCG, pooled or not), the unfolded plane removal, the
+two-pass or single-pass IRLS detrend (K7, or the IRLS with K2, histogram or
+sort percentiles), smoothing, sign flip, the internal-hole fill (K3),
+frontier taper, unreliable-region fill, clamp, mm conversion and the
+contact-blob filter.
 Percentiles are K1 under ``hist_pallas``, sorts under ``sort`` and the
 histogram ladders of ``ops/percentile.py`` under ``hist``.  Each kernel is
 taken where the JAX package takes its Pallas kernel on a TPU, by shape (the
@@ -24,13 +29,13 @@ percentiles, the gather-sampler ECC, the full-``fft2`` demod with the
 hole fill, the unfolded plane removal, the full-resolution unwrap with the
 FFT-based DCT from 512 px; K3 is its only kernel), and its deploy preset as
 shipped (``scaled_ftp_config(480, 640).deploy()``, ``FTPConfig().deploy()``),
-and the parity preset with ``percentile_method="hist"`` (the configuration
-of the JAX package's whole-limb tests; K3 is its only kernel too).
-Configurations the port does not run yet raise at construction: see
-``FTPPipeline.check_config``.
+and every other ``FTPConfig`` knob value of the JAX package but the three
+global-shift knobs it measured and rejected, which raise at construction
+(``FTPPipeline.check_config``).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -40,8 +45,7 @@ import torch
 from vistaf_torch import use_full_fp32
 from vistaf_torch.calib import scalar_models
 from vistaf_torch.config import FTPConfig
-from vistaf_torch.ftp import demod
-from vistaf_torch.ftp.demod import ftp_complex_demod_pair
+from vistaf_torch.ftp.demod import ftp_complex_demod, ftp_complex_demod_pair
 from vistaf_torch.kernels import unwrap_kernel
 from vistaf_torch.ops import geometry
 from vistaf_torch.ops.color import bgr_to_gray
@@ -56,7 +60,7 @@ from vistaf_torch.ops.morphology import close as morph_close
 from vistaf_torch.ops.morphology import dilate, ellipse_kernel
 from vistaf_torch.ops.percentile import get_percentile_fn, masked_max
 from vistaf_torch.ops.polyfit import robust_polyfit2d
-from vistaf_torch.ops.registration import ecc_align, phase_correlate
+from vistaf_torch.ops.registration import ECC_MODES, ecc_align, phase_correlate
 from vistaf_torch.ops.unwrap import unwrap_wls
 from vistaf_torch.ops.warp import (translate_bilinear, warp_affine_inverse_map,
                                    warp_affine_inverse_shear)
@@ -171,41 +175,36 @@ class FTPPipeline:
     @staticmethod
     def check_config(cfg: FTPConfig) -> None:
         """Raise NotImplementedError, naming the knobs, for a configuration
-        outside the ported paths.  The parity preset runs (``FTPConfig()``,
-        ``scaled_ftp_config(h, w)``: sort percentiles, the gather-sampler
-        ECC, the full-``fft2`` demod, the largest component, the hole fill,
-        the unfolded plane removal, the FFT-based DCT), so does it with the
-        ``hist`` percentiles (the JAX package's whole-limb test
-        configuration), and so do both deploy presets as shipped.  The
-        percentile methods are the JAX package's: ``sort``, ``hist`` and
-        ``hist_pallas`` (``hist_rows`` and ``bisect`` are not methods there
-        either).  Still unported: the Gaussian sideband, the unlocked demod
-        and the Hann window (``demod.check_config``), the ECC's translation
-        and affine modes and its gather sampler at a stride, the
-        single-pass detrend and the grating-band prealignment.  Never
-        ported: the pooled and the windowed global shift
-        (``global_shift_downsample``, ``global_shift_pc_eps``,
-        ``global_shift_window_px``), measured on the goldens and rejected
-        by the JAX package (its ``docs/PERF.md``, the pooled global-shift
-        incident and the rejected round-5 experiments)."""
-        demod.check_config(cfg)
+        the port does not run.  Every knob value of the JAX package runs but
+        three, never ported: the pooled and the windowed global shift
+        (``global_shift_downsample`` with its ``global_shift_pc_eps``, and
+        ``global_shift_window_px``), measured on the goldens and rejected by
+        the JAX package (its ``docs/PERF.md``, the pooled global-shift
+        incident and the rejected round-5 experiments).  Values outside the
+        JAX package's vocabulary raise too: a percentile method other than
+        ``sort``, ``hist`` and ``hist_pallas`` (``hist_rows`` and ``bisect``
+        are not methods there either), an unwrap method other than the
+        WLS's, an unknown connected-component method, ECC sampler or ECC
+        motion type (``ECC_MODES``), sideband method or carrier search."""
+        pooled_shift = cfg.global_shift_downsample > 1 and min(
+            cfg.image_height, cfg.image_width) >= cfg.global_shift_downsample_min_px
         unported = {
-            "percentile_method": cfg.percentile_method not in ("sort", "hist", "hist_pallas"),
-            "ecc_warp_mode/ecc_sampler": cfg.use_ecc_crop_alignment and (
-                cfg.ecc_warp_mode != "euclidean" or cfg.ecc_sampler not in ("shear", "gather")
-                or (cfg.ecc_sampler == "gather" and cfg.ecc_stride != 1)),
-            "global_shift_downsample": cfg.global_shift_downsample > 1 and min(
-                cfg.image_height, cfg.image_width) >= cfg.global_shift_downsample_min_px,
+            "global_shift_downsample": pooled_shift,
+            "global_shift_pc_eps": pooled_shift and cfg.global_shift_pc_eps > 0,
             "global_shift_window_px": cfg.global_shift_window_px > 0,
-            "use_grating_band_prealign": cfg.use_grating_band_prealign,
+            "percentile_method": cfg.percentile_method not in ("sort", "hist", "hist_pallas"),
             "unwrap_method": cfg.unwrap_method not in ("wls", "wls_pallas"),
             "largest_cc_method": cfg.reliable_keep_largest_cc
             and cfg.largest_cc_method not in ("seed_edt", "label"),
-            "use_two_pass_detrend": not cfg.use_two_pass_detrend,
+            "ecc_sampler": cfg.ecc_sampler not in ("shear", "gather"),
+            "ecc_warp_mode": cfg.ecc_warp_mode not in ECC_MODES,
+            "grating_prealign_ecc_mode": cfg.grating_prealign_ecc_mode not in ECC_MODES,
+            "sideband_method": cfg.sideband_method not in ("patch_shift", "gauss"),
+            "peak_method": cfg.peak_method not in ("topk", "cascade"),
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
-            raise NotImplementedError(f"vistaf_torch does not port {bad} yet")
+            raise NotImplementedError(f"vistaf_torch does not run {bad}")
 
     # ------------------------------------------------------------------
     def __call__(self, ref_bgr, def_bgr) -> Dict[str, Any]:
@@ -303,6 +302,95 @@ class FTPPipeline:
             warp = torch.cat([warp[:, :2], warp[:, 2:] * float(ds)], dim=1)
         return warp, rho, it
 
+    def _demod(self, ref_gray, def_gray):
+        """The pair with the carrier locked to the reference peak, or each
+        frame on its own spectrum (``lock_carrier_to_reference`` off)."""
+        cfg, apo, consts = self.cfg, self.apo, self.consts
+        if cfg.lock_carrier_to_reference:
+            return ftp_complex_demod_pair(ref_gray, def_gray, apo, cfg, consts)
+        return (ftp_complex_demod(ref_gray, apo, cfg, consts),
+                ftp_complex_demod(def_gray, apo, cfg, consts))
+
+    def _grating_band_prealign(self, ref_gray, def_gray, pctl):
+        """The reference's grating prealignment: a pass-1 demod of the pair
+        and its reliable mask, the alignment band (ROI pixels outside the
+        optionally dilated reliable region, within
+        ``grating_prealign_band_px`` of its edge; the whole outside region
+        when the pass-1 mask is empty), the percentile-normalised high-pass
+        of both frames rounded to 8 bits, the ECC over the band
+        (``_prealign_ecc``; the identity for an empty band), and
+        ``def_gray`` warped by it."""
+        cfg, roi = self.cfg, self.roi
+        dref1, ddef1 = self._demod(ref_gray, def_gray)
+        reliable1, _ = self._reliable_mask(dref1, ddef1, roi, pctl)
+        rel = reliable1 & roi
+        if cfg.grating_prealign_dilate_reliable_px > 0:
+            d = int(cfg.grating_prealign_dilate_reliable_px)
+            rel = dilate(rel, ellipse_kernel(2 * d + 1, 2 * d + 1)) & roi
+        align_mask = roi & ~rel
+        band = int(cfg.grating_prealign_band_px)
+        if band > 0:
+            dist = get_distance_fn(cfg.distance_metric)(~rel, max_dist=band + 4)
+            banded = align_mask & (torch.clamp(dist - 1.0, min=0.0) <= float(band))
+            align_mask = torch.where(rel.any(), banded, align_mask)
+
+        def highpass_u8(img):
+            x = img.to(torch.float32)
+            sig = float(cfg.grating_prealign_hp_sigma_px)
+            hp = x - gaussian_blur(x, sig, self.consts) if sig > 0 else x
+            p = pctl(hp, align_mask, (1.0, 99.0))
+            span = torch.clamp(p[1] - p[0], min=1e-6)
+            return torch.round(255.0 * torch.clamp((hp - p[0]) / span, 0.0, 1.0))
+
+        hp_pair = torch.stack([highpass_u8(ref_gray), highpass_u8(def_gray)]) / 255.0
+        if cfg.grating_prealign_ecc_gauss_filt > 0:
+            hp_pair = gaussian_blur(hp_pair, float(cfg.grating_prealign_ecc_gauss_filt),
+                                    self.consts)
+        warp = self._prealign_ecc(hp_pair, align_mask)
+        if cfg.ecc_sampler == "shear":
+            return warp_affine_inverse_shear(def_gray, warp, K=cfg.ecc_shear_k)
+        return warp_affine_inverse_map(def_gray, warp, border="reflect")
+
+    def _prealign_ecc(self, hp_pair, align_mask):
+        """The prealignment's ECC on the high-passed pair, the identity when
+        the band is empty.  ``loop_kernel=False``, as the JAX package calls
+        it: within K4's budget the per-iteration loop, never K5."""
+        cfg = self.cfg
+        warp, _, _ = ecc_align(hp_pair[0], hp_pair[1], align_mask,
+                               mode=cfg.grating_prealign_ecc_mode,
+                               max_iters=cfg.grating_prealign_ecc_iters,
+                               eps=cfg.grating_prealign_ecc_eps, stride=cfg.ecc_stride,
+                               sampler=cfg.ecc_sampler, shear_k=cfg.ecc_shear_k,
+                               stall_patience=cfg.ecc_stall_patience, loop_kernel=False)
+        identity = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], device=warp.device)
+        return torch.where(align_mask.any(), warp, identity)
+
+    def _detrend_two_pass(self, phase_unwrapped, reliable, pctl):
+        """The two-pass detrend: a first fit over the reliable mask, the
+        contact region from its residual's percentiles (dilated), the final
+        fit over the background and its median removed.  Returns
+        (phase_zeroed, contact_d)."""
+        cfg = self.cfg
+        fit0 = self._polyfit(phase_unwrapped, reliable, cfg.poly_order)
+        abs_res = torch.abs(phase_unwrapped - fit0)
+        thrs = pctl(abs_res, reliable, (cfg.contact_percentile, 95.0, 98.0))
+        thr, thr95, thr98 = thrs[0], thrs[1], thrs[2]
+        contact = (abs_res >= thr) & reliable & torch.isfinite(abs_res)
+        frac = contact.sum() / torch.clamp(reliable.sum(), min=1)
+        thr2 = torch.where(frac < cfg.min_contact_frac, thr95,
+                           torch.where(frac > cfg.max_contact_frac, thr98, thr))
+        contact = (abs_res >= thr2) & reliable & torch.isfinite(abs_res)
+        contact_d = dilate(contact, ellipse_kernel(cfg.dilate_kernel_size,
+                                                   cfg.dilate_kernel_size),
+                           iterations=cfg.dilate_iters) & reliable
+        background = reliable & ~contact_d
+        bg_small = background.sum() < 0.15 * reliable.sum()
+        background = torch.where(bg_small, reliable, background)
+        phase_detrended = phase_unwrapped - self._polyfit(phase_unwrapped, background,
+                                                          cfg.poly_order)
+        phase_zeroed = phase_detrended - pctl(phase_detrended, background, 50.0)
+        return phase_zeroed, contact_d
+
     def _unwrap(self, phase_wrapped, reliable):
         """The pooled PCG, K6 or the plain PCG, as ``unwrap_route`` says."""
         cfg = self.cfg
@@ -322,7 +410,7 @@ class FTPPipeline:
         consts = self.consts
         x1, x2, y1, y2 = self.geom.bbox
         pctl = get_percentile_fn(cfg.percentile_method)
-        roi, apo = self.roi, self.apo
+        roi = self.roi
         dev = self.device
 
         gray_pair = bgr_to_gray(torch.stack([ref_bgr, def_bgr]))
@@ -353,11 +441,13 @@ class FTPPipeline:
                 def_gray = warp_affine_inverse_shear(def_gray, ecc_warp, K=cfg.ecc_shear_k)
             else:
                 def_gray = warp_affine_inverse_map(def_gray, ecc_warp, border="reflect")
+        if cfg.use_grating_band_prealign:
+            def_gray = self._grating_band_prealign(ref_gray, def_gray, pctl)
         if self.stop_after == "align":
             return {"x": def_gray}
 
-        # --- demodulation, carrier locked to the reference peak
-        dref, ddef = ftp_complex_demod_pair(ref_gray, def_gray, apo, cfg, consts)
+        # --- demodulation, locked to the reference peak or frame by frame
+        dref, ddef = self._demod(ref_gray, def_gray)
         hf, wf = dref.fft_shape
         if self.stop_after == "demod":
             return {"x": torch.abs(ddef.complex_demod) + dref.amp}
@@ -367,8 +457,15 @@ class FTPPipeline:
         if self.stop_after == "reliable":
             return {"x": reliable.to(torch.float32) * quality}
 
-        # --- wrapped phase difference (the carrier is locked: no dk ramp)
+        # --- wrapped phase difference; unlocked, the carrier-difference ramp
         ratio = ddef.complex_demod * torch.conj(dref.complex_demod)
+        if cfg.apply_dk_ramp_correction and not cfg.lock_carrier_to_reference:
+            h, w = ratio.shape
+            dkx = ddef.k[0] - dref.k[0]
+            dky = ddef.k[1] - dref.k[1]
+            phase = (2.0 * math.pi) * (dkx * consts.iota(h, w, 1) / wf
+                                       + dky * consts.iota(h, w, 0) / hf)
+            ratio = ratio * torch.polar(torch.ones_like(phase), phase)
         phase_wrapped = torch.angle(ratio).to(torch.float32)
 
         # --- unwrap
@@ -376,31 +473,22 @@ class FTPPipeline:
         if self.stop_after == "unwrap":
             return {"x": phase_unwrapped}
 
-        # --- global plane removal, unless the quadratic detrend absorbs it
+        # --- global plane removal, unless the two-pass quadratic detrend
+        # absorbs it
         if cfg.remove_global_plane_before_detrend and not (
-                cfg.detrend_fold_plane and cfg.poly_order >= cfg.plane_order_for_removal):
+                cfg.detrend_fold_plane and cfg.use_two_pass_detrend
+                and cfg.poly_order >= cfg.plane_order_for_removal):
             phase_unwrapped = phase_unwrapped - self._polyfit(
                 phase_unwrapped, reliable, cfg.plane_order_for_removal)
 
-        # --- two-pass detrend
-        fit0 = self._polyfit(phase_unwrapped, reliable, cfg.poly_order)
-        abs_res = torch.abs(phase_unwrapped - fit0)
-        thrs = pctl(abs_res, reliable, (cfg.contact_percentile, 95.0, 98.0))
-        thr, thr95, thr98 = thrs[0], thrs[1], thrs[2]
-        contact = (abs_res >= thr) & reliable & torch.isfinite(abs_res)
-        frac = contact.sum() / torch.clamp(reliable.sum(), min=1)
-        thr2 = torch.where(frac < cfg.min_contact_frac, thr95,
-                           torch.where(frac > cfg.max_contact_frac, thr98, thr))
-        contact = (abs_res >= thr2) & reliable & torch.isfinite(abs_res)
-        contact_d = dilate(contact, ellipse_kernel(cfg.dilate_kernel_size,
-                                                   cfg.dilate_kernel_size),
-                           iterations=cfg.dilate_iters) & reliable
-        background = reliable & ~contact_d
-        bg_small = background.sum() < 0.15 * reliable.sum()
-        background = torch.where(bg_small, reliable, background)
-        phase_detrended = phase_unwrapped - self._polyfit(phase_unwrapped, background,
-                                                          cfg.poly_order)
-        phase_zeroed = phase_detrended - pctl(phase_detrended, background, 50.0)
+        if cfg.use_two_pass_detrend:
+            phase_zeroed, contact_d = self._detrend_two_pass(phase_unwrapped, reliable, pctl)
+        else:
+            # --- single-pass detrend over the whole reliable mask
+            phase_detrended = phase_unwrapped - self._polyfit(phase_unwrapped, reliable,
+                                                              cfg.poly_order)
+            phase_zeroed = phase_detrended - pctl(phase_detrended, reliable, 50.0)
+            contact_d = torch.zeros_like(reliable)
         if self.stop_after == "detrend":
             return {"x": phase_zeroed}
 

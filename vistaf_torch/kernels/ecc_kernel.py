@@ -15,8 +15,9 @@ moment rows are shared with K5 (``moment_rows`` here,
 
 Routing (``kernels/__init__.py``): ``fits`` copies the JAX package's budget
 (``ecc_kernel.py:28,35``).  ``ops/registration.py`` takes
-``gn_loop_euclidean`` for a seeded solve or with ``loop_kernel=False``
-while ``fits`` holds; above it, the same loop (``gn_loop``) with the plain
+``gn_loop_euclidean`` for a euclidean shear-sampler solve that is seeded or
+has ``loop_kernel=False`` while ``fits`` holds; above it, and for every
+other motion type or sampler, the same loop (``gn_loop``) with the plain
 moments, as the JAX package takes plain XLA there.
 
 On the H100 a solve is one cooperative launch with the loop on the card: one
@@ -93,15 +94,16 @@ def gn_moments_euclidean_plain(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Te
 def gn_loop(moments: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tensor,
             max_iters: int, eps: float, stall_patience: int):
     """The Gauss-Newton while loop of the JAX ``ecc_align`` on the host,
-    ``moments(p)`` giving each iteration's (6, 6) matrix: ``linalg.solve``
-    of H + 1e-12 I for both right-hand sides, the lambda step, cv2's
+    ``moments(p)`` giving each iteration's (3 + P, 3 + P) matrix for the P
+    warp parameters of ``p0``: ``linalg.solve`` of H + 1e-12 I for both
+    right-hand sides, the lambda step, cv2's
     StsNoConv failure rule and, with ``stall_patience``, the best-rho
     iterate on a stall.  The step and rho are computed in the matrix's
     dtype, the warp parameters stay in ``p0``'s.  The loop condition costs
     one host sync per iteration.  Returns (p, rho, n_iters, failed) as
     tensors."""
     dev = p0.device
-    eye = 1e-12 * torch.eye(3, dtype=torch.float32, device=dev)
+    eye = 1e-12 * torch.eye(p0.numel(), dtype=torch.float32, device=dev)
     p = p0
     last_rho = torch.tensor(-2.0, device=dev)
     rho = torch.tensor(-1.0, device=dev)

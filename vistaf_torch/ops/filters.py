@@ -129,10 +129,20 @@ _DERIV = np.array([-1.0, 0.0, 1.0], np.float32)
 _SMOOTH = np.array([1.0, 2.0, 1.0], np.float32)
 
 
+def sobel(x: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
+    """cv2.Sobel(x, CV_32F, dx, dy, ksize=3) for (dx, dy) = (1, 0) or
+    (0, 1), REFLECT_101 border."""
+    if (dx, dy) == (1, 0):
+        return _shift_add_conv3(x, _SMOOTH, _DERIV)
+    if (dx, dy) == (0, 1):
+        return _shift_add_conv3(x, _DERIV, _SMOOTH)
+    raise ValueError("sobel supports (1,0) or (0,1)")
+
+
 def gradient_magnitude(x: torch.Tensor) -> torch.Tensor:
     """sqrt(Sobel_x^2 + Sobel_y^2) with cv2's 3x3 Sobel kernels."""
-    gx = _shift_add_conv3(x, _SMOOTH, _DERIV)
-    gy = _shift_add_conv3(x, _DERIV, _SMOOTH)
+    gx = sobel(x, 1, 0)
+    gy = sobel(x, 0, 1)
     return torch.sqrt(gx * gx + gy * gy)
 
 

@@ -4,7 +4,8 @@ The relaxation is the K3 kernel (``kernels/inpaint_kernel.py``) on a CUDA
 tensor and its plain PyTorch version on a CPU tensor; ``inpaint_within_roi``
 is the fill inside a region around it: in float for the force path's hole
 fill (the parity preset's), through 8-bit levels for the temperature path.
-``inpaint_float32``, which no pipeline reaches, is not ported.
+``inpaint_float32`` is the reference's float fill (the median of the finite
+values first); no pipeline reaches it.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import math
 import torch
 
 from vistaf_torch.kernels.inpaint_kernel import inpaint_diffusion as _inpaint_kernel
-from vistaf_torch.ops.percentile import masked_max, masked_min
+from vistaf_torch.ops.percentile import masked_max, masked_median, masked_min
 
 
 def inpaint_diffusion(img: torch.Tensor, fill_mask: torch.Tensor,
@@ -22,6 +23,15 @@ def inpaint_diffusion(img: torch.Tensor, fill_mask: torch.Tensor,
     the rest: known pixels stay clamped, unknown ones relax to the masked
     3x3 neighbourhood average."""
     return _inpaint_kernel(img, fill_mask, iters)
+
+
+def inpaint_float32(img: torch.Tensor, bad_mask: torch.Tensor, iters: int = 64) -> torch.Tensor:
+    """The reference's ``inpaint_float32``: non-finite values replaced by
+    the median of the finite ones, then the ``bad_mask`` pixels filled."""
+    x = img.to(torch.float32)
+    finite = torch.isfinite(x)
+    x = torch.where(finite, x, masked_median(x, finite))
+    return inpaint_diffusion(x, bad_mask, iters=iters)
 
 
 def inpaint_within_roi(z: torch.Tensor, roi: torch.Tensor, fill_mask: torch.Tensor,

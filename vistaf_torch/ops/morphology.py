@@ -1,4 +1,5 @@
-"""Binary morphology as windowed max/min reductions (JAX ``ops/morphology.py``).
+"""Binary and grayscale morphology as windowed max/min reductions (JAX
+``ops/morphology.py``).
 
 Footprints are OpenCV ellipse structuring elements; dilation is one
 horizontal window reduction per footprint row plus a vertical shift.  max
@@ -109,6 +110,25 @@ def close(mask: torch.Tensor, footprint: np.ndarray, iterations: int = 1) -> tor
 def open_(mask: torch.Tensor, footprint: np.ndarray, iterations: int = 1) -> torch.Tensor:
     """cv2.morphologyEx(MORPH_OPEN): erode^n, then dilate^n."""
     return dilate(erode(mask, footprint, iterations), footprint, iterations)
+
+
+def gray_dilate(x: torch.Tensor, footprint: np.ndarray) -> torch.Tensor:
+    """Grayscale dilation (the footprint's maximum) of float32 planes."""
+    return _morph(x.to(torch.float32), footprint, True)
+
+
+def gray_erode(x: torch.Tensor, footprint: np.ndarray) -> torch.Tensor:
+    """Grayscale erosion (the footprint's minimum) of float32 planes."""
+    return _morph(x.to(torch.float32), footprint, False)
+
+
+def dilate_disk_px(mask: torch.Tensor, px: int) -> torch.Tensor:
+    """The reference's ``dilate_mask``: one dilation by the (2 px + 1)
+    ellipse, the mask itself for px <= 0."""
+    if px is None or px <= 0:
+        return mask
+    ksz = int(max(3, 2 * int(px) + 1))
+    return dilate(mask, ellipse_kernel(ksz, ksz))
 
 
 def _dilate3x3(mask: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,14 @@
 """Image registration (JAX ``ops/registration.py``): cv2-style phase
-correlation and the ECC alignment in euclidean mode.  With the shear sampler
-it is routed by shape as the JAX package routes it on a TPU: the whole-solve
-K5 kernel (``kernels/ecc_loop_kernel.py``), else the per-iteration loop of K4
+correlation and the ECC alignment in cv2's translation, euclidean and affine
+motion types.  The euclidean ECC with the shear sampler is routed by shape as
+the JAX package routes it on a TPU: the whole-solve K5 kernel
+(``kernels/ecc_loop_kernel.py``), else the per-iteration loop of K4
 (``kernels/ecc_kernel.py``, the loop on the card), else the same loop on the
-host with the plain moments.  With the bilinear-gather sampler (the parity
-preset's, at stride 1) it is the host loop over the gather moments, as the
-JAX package runs plain XLA for it on a TPU.  The translation and affine
-modes are not ported yet."""
+host with the plain moments.  Every other solve is that host loop over the
+plain moments, as the JAX package runs plain XLA for it on a TPU: the shear
+sampler in translation or affine mode (the stride folded into the mask), and
+the bilinear-gather sampler (the parity preset's) in any mode, at a stride
+on the subsampled grid."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -15,7 +17,10 @@ import torch
 
 from vistaf_torch.kernels import ecc_kernel, ecc_loop_kernel
 from vistaf_torch.kernels.ecc_loop_kernel import ecc_loop_euclidean
-from vistaf_torch.ops.warp import sample_bilinear_stack, shear_warp_stack
+from vistaf_torch.ops.consts import DeviceConsts
+from vistaf_torch.ops.filters import gaussian_blur
+from vistaf_torch.ops.warp import (sample_bilinear_stack, shear_warp_stack,
+                                   warp_affine_inverse_map)
 
 
 def phase_correlate(src1: torch.Tensor, src2: torch.Tensor, window: torch.Tensor
@@ -44,10 +49,53 @@ def phase_correlate(src1: torch.Tensor, src2: torch.Tensor, window: torch.Tensor
     return w / 2.0 - cx, h / 2.0 - cy, s / (h * w)
 
 
-def warp_matrix_euclidean(p: torch.Tensor) -> torch.Tensor:
-    """[[cos t, -sin t, tx], [sin t, cos t, ty]] for p = (t, tx, ty)."""
-    c, s = torch.cos(p[0]), torch.sin(p[0])
-    return torch.stack([torch.stack([c, -s, p[1]]), torch.stack([s, c, p[2]])])
+# parameters per motion type (the JAX package's ``_MODES``); the affine
+# vector is [a00 - 1, a10, a01, a11 - 1, tx, ty], column by column
+ECC_MODES = {"translation": 2, "euclidean": 3, "affine": 6}
+
+
+def warp_matrix(mode: str, p: torch.Tensor) -> torch.Tensor:
+    """The (2, 3) inverse-map matrix of the warp parameters ``p``: [[cos t,
+    -sin t, tx], [sin t, cos t, ty]] for the euclidean p = (t, tx, ty)."""
+    if mode == "euclidean":
+        c, s = torch.cos(p[0]), torch.sin(p[0])
+        return torch.stack([torch.stack([c, -s, p[1]]), torch.stack([s, c, p[2]])])
+    one, zero = torch.ones_like(p[0]), torch.zeros_like(p[0])
+    if mode == "translation":
+        return torch.stack([torch.stack([one, zero, p[0]]), torch.stack([zero, one, p[1]])])
+    return torch.stack([torch.stack([1.0 + p[0], p[2], p[4]]),
+                        torch.stack([p[1], 1.0 + p[3], p[5]])])
+
+
+def _warp_coords(mode: str, p: torch.Tensor, xx: torch.Tensor, yy: torch.Tensor):
+    """(sx, sy) where W(x; p) samples the image, in the JAX package's term
+    order."""
+    if mode == "translation":
+        return xx + p[0], yy + p[1]
+    if mode == "euclidean":
+        c, s = torch.cos(p[0]), torch.sin(p[0])
+        return c * xx - s * yy + p[1], s * xx + c * yy + p[2]
+    return (1.0 + p[0]) * xx + p[2] * yy + p[4], p[1] * xx + (1.0 + p[3]) * yy + p[5]
+
+
+def _moment_matrix(mode: str, p: torch.Tensor, samp: torch.Tensor, mf: torch.Tensor,
+                   T: torch.Tensor, xx: torch.Tensor, yy: torch.Tensor,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Every Gauss-Newton statistic as an entry of A A^T, A the (3 + P, N)
+    rows [m, T m, I m, G_1 .. G_P] of the sampled [I, gx, gy, ...] stack
+    ``samp`` under the 0/1 mask ``mf``, G_k = gx dWx/dp_k + gy dWy/dp_k (the
+    JAX ``_steepest_descent``), the product in ``dtype``."""
+    gxm = samp[1] * mf
+    gym = samp[2] * mf
+    if mode == "translation":
+        G = [gxm, gym]
+    elif mode == "euclidean":
+        c, s = torch.cos(p[0]), torch.sin(p[0])
+        G = [gxm * (-s * xx - c * yy) + gym * (c * xx - s * yy), gxm, gym]
+    else:
+        G = [gxm * xx, gym * xx, gxm * yy, gym * yy, gxm, gym]
+    A = torch.stack([mf, T * mf, samp[0] * mf] + G).reshape(3 + len(G), -1).to(dtype)
+    return A @ A.T
 
 
 def ecc_prepare(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor):
@@ -67,28 +115,33 @@ def ecc_prepare(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor)
     return torch.stack([I, gx, gy, M01]), T
 
 
+def _grid(h: int, w: int, device, stride: int = 1):
+    """(yy, xx) float32 pixel coordinates of the (h, w) plane, every
+    ``stride``-th row and column."""
+    yy = torch.arange(0, h, stride, dtype=torch.float32, device=device)
+    xx = torch.arange(0, w, stride, dtype=torch.float32, device=device)
+    return yy[:, None].expand(len(yy), len(xx)), xx[None, :].expand(len(yy), len(xx))
+
+
 def _plain_moments(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor, p: torch.Tensor,
-                   K: int) -> torch.Tensor:
-    """The JAX package's XLA moments above K4's budget: the shear-sampled
-    stack at W(p), the steepest-descent rows and A A^T as one product."""
-    samp = shear_warp_stack(S_cf, warp_matrix_euclidean(p), K=K)
+                   K: int, mode: str = "euclidean") -> torch.Tensor:
+    """The JAX package's XLA moments with the shear sampler (above K4's
+    budget, or in translation or affine mode): the shear-sampled stack at
+    W(p), the mask thresholded at 0.95 times the stride grid ``sm``, the
+    steepest-descent rows and A A^T as one product."""
+    samp = shear_warp_stack(S_cf, warp_matrix(mode, p), K=K)
     mf = (samp[3] > 0.95).to(torch.float32) * sm
-    gxm = samp[1] * mf
-    gym = samp[2] * mf
-    h, w = T.shape
-    yy = torch.arange(h, dtype=torch.float32, device=T.device)[:, None].expand(h, w)
-    xx = torch.arange(w, dtype=torch.float32, device=T.device)[None, :].expand(h, w)
-    c, s = torch.cos(p[0]), torch.sin(p[0])
-    g_theta = gxm * (-s * xx - c * yy) + gym * (c * xx - s * yy)
-    A = torch.stack([mf, T * mf, samp[0] * mf, g_theta, gxm, gym]).reshape(6, -1)
-    return A @ A.T
+    yy, xx = _grid(*T.shape, T.device)
+    return _moment_matrix(mode, p, samp, mf, T, xx, yy)
 
 
-def _gather_moments(S_cf: torch.Tensor, T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """The JAX package's XLA moments with the bilinear-gather sampler at
-    stride 1: the [I, gx, gy, mask] stack sampled at the euclidean W(x; p)
-    (zeros outside), the mask thresholded at 0.95, the steepest-descent rows
-    and A A^T as one product, accumulated in float64.
+def _gather_moments(S_cf: torch.Tensor, T: torch.Tensor, p: torch.Tensor, xx: torch.Tensor,
+                    yy: torch.Tensor, mode: str = "euclidean") -> torch.Tensor:
+    """The JAX package's XLA moments with the bilinear-gather sampler: the
+    [I, gx, gy, mask] stack sampled at W(x; p) on the statistics grid (xx,
+    yy) (zeros outside), the template ``T`` on that grid, the mask
+    thresholded at 0.95, the steepest-descent rows and A A^T as one product,
+    accumulated in float64.
 
     Float64, where the JAX package sums in float32, as cv2's ECC (the
     reference's) accumulates its dot products and rho in double: the loop
@@ -97,18 +150,10 @@ def _gather_moments(S_cf: torch.Tensor, T: torch.Tensor, p: torch.Tensor) -> tor
     crop (1182^2) with float32 sums the card and the CPU stopped after 31
     and 14 iterations, 0.44 px apart in ty, a direction the synthetic
     grating leaves nearly flat."""
-    h, w = T.shape
-    yy = torch.arange(h, dtype=torch.float32, device=T.device)[:, None].expand(h, w)
-    xx = torch.arange(w, dtype=torch.float32, device=T.device)[None, :].expand(h, w)
-    c, s = torch.cos(p[0]), torch.sin(p[0])
-    samp = sample_bilinear_stack(S_cf, s * xx + c * yy + p[2], c * xx - s * yy + p[1])
+    sx, sy = _warp_coords(mode, p, xx, yy)
+    samp = sample_bilinear_stack(S_cf, sy, sx)
     mf = (samp[3] > 0.95).to(torch.float32)
-    gxm = samp[1] * mf
-    gym = samp[2] * mf
-    g_theta = gxm * (-s * xx - c * yy) + gym * (c * xx - s * yy)
-    A = torch.stack([mf, T * mf, samp[0] * mf, g_theta, gxm, gym]).reshape(6, -1)
-    A = A.to(torch.float64)
-    return A @ A.T
+    return _moment_matrix(mode, p, samp, mf, T, xx, yy, dtype=torch.float64)
 
 
 def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
@@ -119,24 +164,30 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
     """Warp maximizing the enhanced correlation coefficient between
     ``template`` and ``image`` sampled at W(x; p): returns (warp (2, 3),
     rho, n_iters).  On StsNoConv failure the warp is the identity and rho
-    NaN, as the reference falls back to the unaligned image.  ``p_init``
-    (theta, tx, ty) seeds the iteration instead of the identity; a seeded
-    solve takes the per-iteration loop, as in the JAX package."""
-    if mode != "euclidean" or sampler not in ("shear", "gather") \
-            or (sampler == "gather" and stride != 1):
-        raise NotImplementedError("vistaf_torch ports the euclidean ECC with the shear "
-                                  "sampler or the gather sampler at stride 1, got "
-                                  f"mode={mode!r}, sampler={sampler!r}, stride={stride}")
+    NaN, as the reference falls back to the unaligned image.  ``mode`` is
+    cv2's motion type ('translation', 'euclidean' or 'affine'); ``stride``
+    subsamples the statistics grid (the shear sampler folds it into the
+    mask, the gather sampler samples the strided grid).  ``p_init`` (the
+    mode's parameters) seeds the iteration instead of the identity; a seeded
+    solve takes the per-iteration loop, as in the JAX package.  The defaults
+    are the deploy route's (shear sampler, loop kernel); the JAX function
+    defaults to the gather sampler without the loop kernel."""
+    if mode not in ECC_MODES or sampler not in ("shear", "gather"):
+        raise ValueError(f"ecc_align: unknown mode {mode!r} or sampler {sampler!r}")
+    P = ECC_MODES[mode]
     S_cf, T = ecc_prepare(template, image, mask)
-    p0 = (torch.zeros(3, dtype=torch.float32, device=T.device) if p_init is None
-          else p_init.to(torch.float32).reshape(3))
+    p0 = (torch.zeros(P, dtype=torch.float32, device=T.device) if p_init is None
+          else p_init.to(torch.float32).reshape(P))
     if sampler == "gather":
-        p, rho, it, failed = ecc_kernel.gn_loop(lambda q: _gather_moments(S_cf, T, q), p0,
-                                                max_iters, eps, stall_patience)
-        return _result(p, rho.to(torch.float32), it, failed)
+        yy, xx = _grid(*T.shape, T.device, stride)
+        Ts = T[::stride, ::stride]
+        p, rho, it, failed = ecc_kernel.gn_loop(
+            lambda q: _gather_moments(S_cf, Ts, q, xx, yy, mode), p0, max_iters, eps,
+            stall_patience)
+        return _result(mode, p, rho.to(torch.float32), it, failed)
     smask = torch.zeros_like(T)
     smask[::stride, ::stride] = 1.0
-    fused = ecc_kernel.fits(T.shape)
+    fused = mode == "euclidean" and ecc_kernel.fits(T.shape)
     if fused and loop_kernel and p_init is None and ecc_loop_kernel.fits(T.shape):
         p, rho, it, failed = ecc_loop_euclidean(S_cf, T, smask, K=shear_k,
                                                 max_iters=max_iters, eps=eps,
@@ -147,13 +198,30 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
             stall_patience=stall_patience)
     else:
         p, rho, it, failed = ecc_kernel.gn_loop(
-            lambda q: _plain_moments(S_cf, T, smask, q, shear_k), p0, max_iters, eps,
+            lambda q: _plain_moments(S_cf, T, smask, q, shear_k, mode), p0, max_iters, eps,
             stall_patience)
-    return _result(p, rho, it, failed)
+    return _result(mode, p, rho, it, failed)
 
 
-def _result(p, rho, it, failed):
+def _result(mode, p, rho, it, failed):
     """(warp, rho, n_iters): the identity and NaN rho on StsNoConv failure."""
-    identity = warp_matrix_euclidean(torch.zeros_like(p))
-    warp = torch.where(failed, identity, warp_matrix_euclidean(p))
+    identity = warp_matrix(mode, torch.zeros_like(p))
+    warp = torch.where(failed, identity, warp_matrix(mode, p))
     return warp, torch.where(failed, float("nan"), rho), it
+
+
+def ecc_align_and_warp(ref: torch.Tensor, mov: torch.Tensor, mask: torch.Tensor,
+                       consts: DeviceConsts, mode: str = "euclidean", max_iters: int = 300,
+                       eps: float = 1e-7, gauss_filt: float = 5.0):
+    """The reference's ``align_crop_ecc`` (the JAX ``ecc_align_and_warp``):
+    both images scaled to [0, 1] and blurred by ``gauss_filt``, the gather
+    ECC, then ``mov`` warped by the inverse map with the reflect border.
+    Returns (aligned, warp, rho)."""
+    r = ref.to(torch.float32) / 255.0
+    m = mov.to(torch.float32) / 255.0
+    if gauss_filt and gauss_filt > 0:
+        r = gaussian_blur(r, gauss_filt, consts)
+        m = gaussian_blur(m, gauss_filt, consts)
+    warp, rho, _ = ecc_align(r, m, mask, mode=mode, max_iters=max_iters, eps=eps,
+                             sampler="gather", loop_kernel=False)
+    return warp_affine_inverse_map(mov.to(torch.float32), warp, border="reflect"), warp, rho

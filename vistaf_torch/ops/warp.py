@@ -4,7 +4,8 @@ border folds (``sample_bilinear``, ``sample_bilinear_stack``,
 warp), and the gather-free ones: global translation, the two-pass shear
 warp and the Paeth three-shear rotation (``translate_bilinear``,
 ``shear_warp_stack``, ``warp_affine_inverse_shear``, ``line_shift_frac``,
-``rotate_stack_shear``), ``rotation_matrix`` and ``invert_affine``."""
+``rotate_stack_shear``), ``warp_affine_forward``, ``rotation_matrix``,
+``translation_matrix`` and ``invert_affine``."""
 from __future__ import annotations
 
 import math
@@ -278,6 +279,18 @@ def invert_affine(M: torch.Tensor) -> torch.Tensor:
     inv = torch.stack([torch.stack([A[1, 1], -A[0, 1]]),
                        torch.stack([-A[1, 0], A[0, 0]])]) / det
     return torch.cat([inv, (-inv @ t)[:, None]], dim=1)
+
+
+def warp_affine_forward(img: torch.Tensor, M: torch.Tensor,
+                        border: str = "reflect") -> torch.Tensor:
+    """cv2.warpAffine without WARP_INVERSE_MAP: ``M`` maps the source to the
+    destination, so the plane is sampled through its inverse."""
+    return warp_affine_inverse_map(img, invert_affine(M), border=border)
+
+
+def translation_matrix(dx, dy) -> torch.Tensor:
+    """[[1, 0, dx], [0, 1, dy]] as a float32 (2, 3) tensor."""
+    return torch.tensor([[1.0, 0.0, float(dx)], [0.0, 1.0, float(dy)]], dtype=torch.float32)
 
 
 def rotation_matrix(center, angle_deg, scale: float = 1.0) -> torch.Tensor:
