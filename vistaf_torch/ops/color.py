@@ -20,14 +20,24 @@ _XYZ_M = (
 _WHITE = (0.950456, 1.0, 1.088754)
 
 
+def _round_f32(x: torch.Tensor) -> torch.Tensor:
+    """A float64 tensor rounded to the nearest float32 value, kept in float64."""
+    return x.to(torch.float32).to(torch.float64)
+
+
 def bgr_to_gray(bgr: torch.Tensor) -> torch.Tensor:
     """BGR (..., H, W, 3) uint8/float -> float32 gray, rounded half to even
-    like the reference's uint8 gray."""
-    b = bgr[..., 0].float()
-    g = bgr[..., 1].float()
-    r = bgr[..., 2].float()
-    y = _GRAY_W[0] * r + _GRAY_W[1] * g + _GRAY_W[2] * b
-    return torch.round(y)
+    like the reference's uint8 gray, with the JAX package's rounding: its
+    jitted graph evaluates 0.299 r + 0.587 g + 0.114 b as XLA's CPU code
+    contracts it, fma(0.114, b, fma(0.299, r, 0.587 g)).  Each product and
+    sum is exact in float64 for 8-bit inputs, so rounding each step to
+    float32 gives those FMAs: the gray equals JAX's on all 2^24 8-bit BGR
+    values, where three float32 products and two sums differ on 1,166 (one
+    level, where the sum sits on a .5 tie)."""
+    b, g, r = (bgr[..., i].to(torch.float64) for i in range(3))
+    wr, wg, wb = (float(np.float32(w)) for w in _GRAY_W)
+    y = _round_f32(wb * b + _round_f32(wr * r + _round_f32(wg * g)))
+    return torch.round(y).to(torch.float32)
 
 
 def pow_f32(x: torch.Tensor, e: float) -> torch.Tensor:
