@@ -166,7 +166,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
 
 import numpy as np
 
@@ -472,41 +471,6 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn() over ``reps`` runs, CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def device_ms(fn, reps: int = 10) -> float:
-    """Milliseconds of kernel and copy time on the card per call of fn()
-    (``torch.profiler``, device-side events), without the host's enqueue:
-    beside ``cuda_ms`` it tells a kernel bound by its launches from one
-    bound by the card."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def kernel_cases(device):
@@ -906,6 +870,7 @@ def phase_kernels(device):
     at; ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` at the first;
     each shape's numbers under ``shapes``."""
     import torch
+    from vistaf_torch.utils.profiling import cuda_ms, device_ms
     rows = {}
     for case in kernel_cases(device):
         name, source, replaces, kern, plain, args, check = case
@@ -1516,27 +1481,6 @@ def multimodal_inputs(fcfg, tcfg):
     return compose_multimodal_frame(ref_g, tlc), compose_multimodal_frame(de_g, tlc)
 
 
-def d2h_copies(fn):
-    """(count, bytes) of the device-to-host copies one call of fn() makes,
-    from torch.profiler's memcpy events (the trace's ``bytes``)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    finally:
-        os.unlink(path)
-    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
-    return len(copies), [int(e["args"]["bytes"]) for e in copies]
-
-
 def run_multimodal(device, rows, force, temp, path: str, timed_force=None):
     """Drive MultimodalPipeline at 2160x3840 on the card over the 4K force
     and temperature pipelines built above (the deploy presets on the
@@ -1553,6 +1497,7 @@ def run_multimodal(device, rows, force, temp, path: str, timed_force=None):
     from vistaf_torch.pipelines.force import ForcePipeline
     from vistaf_torch.pipelines.multimodal import MultimodalPipeline, temperature_stats
     from vistaf_torch.temperature.inference import TemperaturePipeline
+    from vistaf_torch.utils.profiling import d2h_copies
     from vistaf_torch.utils.synthetic import synthetic_deploy_temp_weights
 
     fcfg, tcfg = force.ftp.cfg, temp.cfg
@@ -1904,6 +1849,7 @@ def time_limb(path, bf, mesh, rs, ds, aux, card, **extra):
     before: everything after the forwards), with the NCCL version."""
     import torch
     from vistaf_torch.parallel import whole_limb_step, whole_limb_step_aux
+    from vistaf_torch.utils.profiling import cuda_ms, event_times, percentiles
     step = whole_limb_step(bf, mesh, map_stride=LIMB_STRIDE)
     step_aux = whole_limb_step_aux(bf, mesh, LIMB_CANVAS, map_stride=LIMB_STRIDE)
     replay = _Replay([bf._single(rs[s], ds[s]) for s in range(rs.shape[0])], bf.depth_eps_mm)
@@ -1912,18 +1858,11 @@ def time_limb(path, bf, mesh, rs, ds, aux, card, **extra):
     for name, fn, fusion in ((path, lambda: step(rs, ds), lambda: fuse(rs, ds)),
                              (f"{path}_aux", lambda: step_aux(rs, ds, aux),
                               lambda: fuse_aux(rs, ds, aux))):
-        times = []
-        for _ in range(2 + 8):
-            a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            e.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(e))
-        p50 = float(np.percentile(times[2:], 50))
+        times = event_times(fn, 8, warmup=2)
+        p50, p90 = percentiles(times, (50, 90))
         say("timing", path=name, streams=STREAMS, local_streams=int(rs.shape[0]),
-            steps_timed=len(times) - 2, p50_ms_per_step=p50,
-            p90_ms_per_step=float(np.percentile(times[2:], 90)), step_hz=1000.0 / p50,
+            steps_timed=len(times), p50_ms_per_step=p50, p90_ms_per_step=p90,
+            step_hz=1000.0 / p50,
             fusion_ms=cuda_ms(fusion, reps=20, warmup=2),
             nccl=".".join(map(str, torch.cuda.nccl.version())), card=card, **extra)
 
@@ -2574,71 +2513,22 @@ def run_trainers(device, rows, card):
 
 
 def phase_timing(path, fn, card, frames: int, warmup: int):
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(frames):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    # every host sync of one frame, as PyTorch's sync debug mode reports them
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            fn()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    p50 = float(np.percentile(times, 50))
-    p90 = float(np.percentile(times, 90))
+    """A ``timing`` line: p50 and p90 of ``frames`` calls of fn() after
+    ``warmup`` (CUDA events), fps, and every host sync of one call."""
+    from vistaf_torch.utils import profiling
+    times = profiling.event_times(fn, frames, warmup)
+    syncs = profiling.host_syncs(fn)
+    p50, p90 = profiling.percentiles(times, (50, 90))
     say("timing", path=path, frames=frames, p50_ms=p50, p90_ms=p90, fps=1000.0 / p50,
         host_syncs_per_frame=syncs, card=card)
 
 
 def phase_profile(path, fn, frames: int):
-    """Device busy share of a steady window: the kernels' self device time
-    (``torch.profiler``) over the window's wall time, profiler on, and the
-    kernels that take the most of it."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(frames):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
-    averages = prof.key_averages()
-    # device-side events only (kernels, copies): host ops report their
-    # kernels' time too and would count it twice
-    events = [e for e in averages
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / frames
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
-    launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel")
-    # cooperative and cluster launches (K4, K5, K6) are counted apart
-    special = sum(e.count for e in averages
-                  if e.key in ("cudaLaunchCooperativeKernel", "cudaLaunchKernelExC"))
-    # the hand-written kernels (csrc/*.cu keeps each in an anonymous namespace)
-    ours = [[e.key.split("(")[1].split("::")[-1] if e.key.startswith("(anon") else e.key[:60],
-             e.self_device_time_total / 1e3 / frames, e.count / frames]
-            for e in events if e.key.startswith("(anonymous namespace)")]
-    say("profile", path=path, frames=frames, wall_ms_per_frame=wall_ms,
-        device_busy_ms_per_frame=busy_ms, device_busy_share=busy_ms / wall_ms,
-        cuda_launches_per_frame=launches / frames,
-        cooperative_or_cluster_launches_per_frame=special / frames,
-        top=[[e.key[:60], e.self_device_time_total / 1e3 / frames, e.count / frames]
-             for e in top],
-        hand_written=ours)
+    """A ``profile`` line: device busy share of a steady window, its
+    launches and the kernels that take the most of it
+    (``profiling.profile_window``)."""
+    from vistaf_torch.utils.profiling import profile_window
+    say("profile", path=path, **profile_window(fn, frames))
 
 
 def main() -> int:

@@ -70,7 +70,8 @@ def test_run_overlapped_two_streams_bit_equal_serialized(dev):
 
 
 def test_fetch_scalars_makes_one_device_to_host_copy(dev, monkeypatch):
-    from chip_smoke import compose_multimodal_frame, d2h_copies
+    from chip_smoke import compose_multimodal_frame
+    from vistaf_torch.utils.profiling import d2h_copies
     fcfg, tcfg = scaled_ftp_config(H, W).deploy(), scaled_temp_config(H, W).deploy()
     ref_g, de_g = synthetic_pair(H, W, fcfg, seed=0)
     tlc = synthetic_tlc_frame(H, W, tcfg, seed=0)
