@@ -74,6 +74,14 @@ call (sync debug mode) and the hand-written kernels it launched
 (``profiling.profile_window``: device busy ms and share, launches, the
 heaviest device work, device-to-host copies), each per call.
 
+Route: every row's line says how its force forward runs: ``route`` is
+``graph`` where it replays one CUDA graph (``FTPPipeline.graph_route``: the
+640x480 deploy rows, configs 2 and 3, the streams and limb rows), else
+``eager``, with ``capturable``, the host-driven loop that keeps a route
+eager (``ecc_loop`` on the 4K and parity rows); rows without a force forward
+say ``eager``.  The profiled window counts the graph replays
+(``graph_launches_per_frame``) apart from the kernel launches.
+
 Correctness: each row holds its output to its gate once, before timing,
 and prints ``correct``; the script exits 1 if any row fails.  Rows on a
 path of the JAX record use ``chip_smoke``'s gates: the inputs' sha256
@@ -140,8 +148,10 @@ class Timing(NamedTuple):
 
 # by the time a call takes: ~0.1 s (640x480, a 4K temperature frame, an
 # upload), ~0.3 s (2160x3840 force and multimodal, a stream batch, a limb
-# step), a whole sequence of stream batches
-FAST, SLOW, SEQUENCE = Timing(5, 20, 3, 3), Timing(5, 6, 2, 1), Timing(4, 2, 1, 1)
+# step), a whole sequence of stream batches.  Every row has a warm-up call
+# past its gate: a graph-routed pipeline's first call captures its graph,
+# and the sequences' gates run on pipelines of their own
+FAST, SLOW, SEQUENCE = Timing(5, 20, 3, 3), Timing(5, 6, 2, 1), Timing(4, 2, 2, 1)
 # what a suite leaves to undo once its rows have run (a temporary directory,
 # the stream mesh's process group)
 CLEANUP: List[Callable[[], None]] = []
@@ -161,6 +171,19 @@ class Row:
     timing: Timing = FAST
     rates: Optional[Callable[[float], Dict[str, Any]]] = None
     group: Optional[str] = None
+    ftp: Optional[Any] = None     # the FTPPipeline of the row's force forward
+
+
+def forward_route(ftp) -> Dict[str, Any]:
+    """``route``: 'graph' where the row's force forward replays a CUDA graph
+    (``FTPPipeline.graph_route``), else 'eager', with what
+    ``FTPPipeline.capturable`` says of it (rows without a force forward:
+    'eager')."""
+    if ftp is None:
+        return {"route": "eager"}
+    shape = (ftp.cfg.image_height, ftp.cfg.image_width)
+    return {"route": "graph" if ftp.graph_route(shape) else "eager",
+            "capturable": ftp.capturable(ftp.cfg, shape)}
 
 
 def fps(p50_ms: float) -> Dict[str, float]:
@@ -242,7 +265,7 @@ def force_row(path: str, device, timing=FAST, what=None) -> Row:
                 "jax": line}
     return Row(path, what or f"frame->force ({path}): forward + volume + force model, frames "
                "on the device, the force fetched", lambda: device_force(pipe, r, d), gate,
-               timing, fps)
+               timing, fps, ftp=pipe.ftp)
 
 
 def suite_default(device) -> List[Row]:
@@ -254,7 +277,7 @@ def suite_default(device) -> List[Row]:
         return {"against": "jax_record", **force_gap("640", pipe(ref, de)["force_N"])}
     call = Row("640_call", "ForcePipeline.__call__ from numpy frames (BASELINE config 1): "
                "uploads, forward, every map to the host", lambda: pipe(ref, de), gate_call,
-               FAST, fps)
+               FAST, fps, ftp=pipe.ftp)
     head = force_row("640", device, what="bench.py: 640x480 frame->force (BASELINE config "
                      "1), frames on the device, the force fetched")
     return [head, call]
@@ -357,15 +380,15 @@ def multimodal_rows(device, path: str, fcfg, tcfg) -> List[Row]:
     return [
         Row(f"{path}_force", "the force alone: forward + volume + force model, frames on the "
             "device, the force fetched", lambda: device_force(force, r, d), gate_force,
-            SLOW, fps),
+            SLOW, fps, ftp=force.ftp),
         Row(f"{path}_temp", "the temperature forward alone, the frame on the device, its "
             "scene scalars fetched", temp_alone, gate_temp, FAST, fps),
         Row(f"{path}_call", "MultimodalPipeline.__call__ from numpy frames (one pinned "
             "upload of the deformed frame), every map to the host", lambda: mm(ref, de),
-            gate_call, SLOW, fps),
+            gate_call, SLOW, fps, ftp=force.ftp),
         Row(f"{path}_scalars", "MultimodalPipeline.step_fused(fetch='scalars') from numpy "
             "frames, one fetch of the scalars", lambda: mm.step_fused(ref, de, fetch="scalars"),
-            gate_scalars, SLOW, fps)]
+            gate_scalars, SLOW, fps, ftp=force.ftp)]
 
 
 def suite_mm(device) -> List[Row]:
@@ -418,15 +441,17 @@ def limb_rows(device) -> List[Row]:
         return {"against": "jax_record", "jax": line}
     return [Row("limb640", "whole_limb_step over 4 streams at 640x480 (BASELINE config 5), "
                 "world-1 mesh, the total force fetched",
-                lambda: float(step(rs, ds)["total_force_N"]), gate, SLOW, limb_rates),
+                lambda: float(step(rs, ds)["total_force_N"]), gate, SLOW, limb_rates,
+                ftp=bf.pipe),
             Row("limb640_aux", "whole_limb_step_aux (poses, IMU gates) over the same streams",
                 lambda: float(step_aux(rs, ds, aux)["total_force_N"]), gate, SLOW,
-                limb_rates)]
+                limb_rates, ftp=bf.pipe)]
 
 
 def suite_streams(device) -> List[Row]:
     cfg, refs, seq = smoke.stream_inputs()
-    sf = streaming(batched_force(cfg, device))
+    bf = batched_force(cfg, device)
+    sf = streaming(bf)
     r, b = torch.as_tensor(refs, device=device), torch.as_tensor(seq[0], device=device)
 
     def gate():
@@ -435,7 +460,7 @@ def suite_streams(device) -> List[Row]:
         return {"against": "jax_record", "jax": line}
     rows = [Row("streams640", "StreamingForce, 4 streams at 640x480, window 8 (BASELINE "
                 "config 4): one batch on the device, its outputs fetched",
-                lambda: sf(r, b), gate, SLOW, stream_rates)]
+                lambda: sf(r, b), gate, SLOW, stream_rates, ftp=bf.pipe)]
     rows += limb_rows(device)
     rows += temperature_rows(device, TempConfig().deploy(), "temp4k")
     rows += temperature_rows(device, TempConfig(), "temp4k_parity")
@@ -470,10 +495,10 @@ def suite_config23(device) -> List[Row]:
                 "force_N_call": want, "gap": gap, "map_sum_gap": map_gap}
     return [Row("config2", "ForcePipeline.contact_classification_device at 640x480 deploy "
                 "(BASELINE config 2), frames on the device, the contact area fetched",
-                lambda: float(c2(r, d)[1]), gate2, FAST, fps),
+                lambda: float(c2(r, d)[1]), gate2, FAST, fps, ftp=pipe.ftp),
             Row("config3", "ForcePipeline.force_map_device at 640x480 deploy (BASELINE "
                 "config 3), frames on the device, the force fetched",
-                lambda: float(c3(r, d)[2]), gate3, FAST, fps)]
+                lambda: float(c3(r, d)[2]), gate3, FAST, fps, ftp=pipe.ftp)]
 
 
 # ---------------------------------------------------------------------------
@@ -538,7 +563,7 @@ def suite_ingest(device) -> List[Row]:
                 "gap": gap}
     rows.append(Row("camera_to_force", "decode, upload, the 2160x3840 deploy forward + "
                     "volume + force model, the force fetched; serialized per frame", camera,
-                    gate_camera, SLOW, fps))
+                    gate_camera, SLOW, fps, ftp=fp.ftp))
 
     color, wide = synthetic_deploy_temp_weights(smoke.SEED)
     mm = MultimodalPipeline(ForcePipeline(*force_args(fcfg), device=device),
@@ -587,11 +612,12 @@ def suite_ingest(device) -> List[Row]:
             ("mm_fused_scalars_1_upload", fused, gate_fused, "MultimodalPipeline.step_fused("
              "fetch='scalars') from the numpy frame: one pinned upload")):
         rows.append(Row(name, f"2160x3840 multimodal deploy, the reference on the device: "
-                        f"{what}", fn, gate, SLOW, fps, group="mm_ingest"))
+                        f"{what}", fn, gate, SLOW, fps, group="mm_ingest",
+                        ftp=mm.force.ftp))
 
     cfg, refs, seq = smoke.stream_inputs()
-    sf_serial, sf_over = streaming(batched_force(cfg, device)), streaming(batched_force(cfg,
-                                                                                       device))
+    bf_serial, bf_over = batched_force(cfg, device), batched_force(cfg, device)
+    sf_serial, sf_over = streaming(bf_serial), streaming(bf_over)
 
     def gate_streams():
         over = streaming(batched_force(cfg, device)).run_overlapped(refs, seq)
@@ -610,11 +636,12 @@ def suite_ingest(device) -> List[Row]:
                 "batch_bytes": int(seq[0].nbytes)}
     rows.append(Row("streams_serialized", "six streams640 batches from numpy, each uploaded, "
                     "stepped and fetched in turn", lambda: [sf_serial(refs, b) for b in seq],
-                    gate_streams, SEQUENCE, seq_rates, group="streams_ingest"))
+                    gate_streams, SEQUENCE, seq_rates, group="streams_ingest",
+                    ftp=bf_serial.pipe))
     rows.append(Row("streams_overlapped", "the same six batches through "
                     "StreamingForce.run_overlapped (pinned double-buffered uploads)",
                     lambda: sf_over.run_overlapped(refs, seq), gate_streams, SEQUENCE,
-                    seq_rates, group="streams_ingest"))
+                    seq_rates, group="streams_ingest", ftp=bf_over.pipe))
     return rows
 
 
@@ -688,7 +715,8 @@ def run_rows(suite: str, rows: List[Row], device, card: Optional[str],
         try:
             for row in members:
                 lines[row.name] = {"row": row.name, "suite": suite, "what": row.what,
-                                   "device": str(device), **run_gate(row)}
+                                   "device": str(device), **forward_route(row.ftp),
+                                   **run_gate(row)}
                 for _ in range(W - 1):
                     row.fn()
             timed = time_in_turns([m.fn for m in members], R, N, cuda)

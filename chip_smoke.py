@@ -5,7 +5,10 @@
 Phases, one line each, any failure raises and exits non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the Hopper kernels from vistaf_torch/csrc;
-  3. kernels: each of the eight kernels against its plain PyTorch version on
+  3. kernels: each of the nine kernels (the eight TPU kernels' ports and
+     the labelling kernel, ``csrc/ccl.cu``, bit-equal at the 236x236 and
+     1182x1182 crops on a random field and a one-pixel spiral) against its
+     plain PyTorch version on
      the card at the shapes its paths give it (K3 also at the parity
      paths': the demod's pair of 236x236 crops, 24 iterations, the pair of
      1182x1182 crops and the hole fill's 1182x1182 plane, 64, and the
@@ -24,8 +27,19 @@ Phases, one line each, any failure raises and exits non-zero:
      one PyTorch call computes the same function (K1: torch.nanquantile),
      that call's time; K8 also with models of no term and no calibrator
      (LAB, gray and chroma only);
+  3a. graph: the paths whose forward ``FTPPipeline.capturable`` admits (the
+     640 deploy force, configs 2 and 3, ``streams640``, ``limb640``,
+     ``prealign640`` and ``irls640``, the 640 deploy preset with the
+     histogram percentiles and the non-fused IRLS) replayed from their CUDA
+     graph against the same forward run op by op (``forward_eager``) on
+     three frame pairs after the capture call: every output bit for bit,
+     the same ECC iterations, the exact launches a frame
+     (``GRAPH_LAUNCHES``) under both; the replayed 640 forward under the sync
+     debug mode "error"; one round of each route's time, the replay's
+     device time and the full-resolution seed's (``graph_timing``, not
+     gated); every path's ``capturable`` answer (``graph_routes``);
   4. end to end at 640x480: ForcePipeline under the deploy preset as
-     shipped, K1, K3, K5, K6 and K7 must launch, force within 1% of the
+     shipped, K1, K3, K5, K6, K7 and the labels must launch, force within 1% of the
      same port run on the CPU;
   5. end to end at 2160x3840: ForcePipeline under FTPConfig().deploy(), K1,
      K2, K3 and K4 must launch, force within 1% and the ECC warp within
@@ -53,7 +67,8 @@ Phases, one line each, any failure raises and exits non-zero:
      ``whole_limb_step_aux`` (map stride 2, a 960x1280 canvas, the poses of
      scripts/bench_streams.py, one stream's gate 0 and one's 0.5) on a
      world-1 NCCL stream mesh; a stream frame launches exactly what a
-     streams640 frame launches (K1 7, K3 1, K5 1, K6 1, K7 2); the forces
+     streams640 frame launches (K1 7, K3 1, K5 1, K6 1, K7 2, the labels
+     2); the forces
      bit-equal to ``BatchedForce.batched()``, the aux head's to them times
      the gates, the gates within 1e-6 of ``motion_gate``, the sums within
      1e-6, the maps the heightmaps' contact depth and the canvas a numpy
@@ -248,42 +263,46 @@ HBM_BPS, FP32_OPS = 3.35e12, 67e12
 # kernels each path must launch (the JAX package's Pallas routes at that size)
 PATH_KERNELS = {
     "640": ("masked_quantiles", "inpaint_diffusion", "ecc_loop_euclidean", "unwrap_wls",
-            "robust_polyfit2d"),
+            "robust_polyfit2d", "label_components"),
     "4k": ("masked_quantiles", "masked_median_mad", "inpaint_diffusion",
-           "gn_moments_euclidean"),
+           "gn_moments_euclidean", "label_components"),
     "temp4k": ("masked_quantiles", "inpaint_diffusion", "fused_temperature"),
     "mm4k": ("masked_quantiles", "masked_median_mad", "inpaint_diffusion",
-             "gn_moments_euclidean", "fused_temperature"),
+             "gn_moments_euclidean", "fused_temperature", "label_components"),
     "streams640": ("masked_quantiles", "inpaint_diffusion", "ecc_loop_euclidean",
-                   "unwrap_wls", "robust_polyfit2d"),
+                   "unwrap_wls", "robust_polyfit2d", "label_components"),
     "limb640": ("masked_quantiles", "inpaint_diffusion", "ecc_loop_euclidean", "unwrap_wls",
-                "robust_polyfit2d"),
-    "parity640": ("inpaint_diffusion",),
-    "hist640": ("inpaint_diffusion",),
-    "parity4k": ("inpaint_diffusion",),
+                "robust_polyfit2d", "label_components"),
+    "parity640": ("inpaint_diffusion", "label_components"),
+    "hist640": ("inpaint_diffusion", "label_components"),
+    "parity4k": ("inpaint_diffusion", "label_components"),
     "temp4k_parity": ("inpaint_diffusion",),
-    "mm4k_parity": ("inpaint_diffusion",),
+    "mm4k_parity": ("inpaint_diffusion", "label_components"),
 }
 # the parity paths' whole launch count a frame: K3 in the demod and in the
 # hole fill of the force path, in the WIDE and COLOR fills of the
-# temperature path, every other kernel none (sort percentiles, the gather
-# ECC, the plain PCG, the non-fused IRLS and the unfused LAB and models are
-# the JAX package's XLA routes on a TPU)
-PATH_EXACT_LAUNCHES = {"parity640": {"inpaint_diffusion": 2},
-                       "hist640": {"inpaint_diffusion": 2},
-                       "parity4k": {"inpaint_diffusion": 2},
+# temperature path; the labels twice a force frame (the reliable mask's
+# largest component and the contact-blob filter's reconstruction), every
+# other kernel none (sort percentiles, the gather ECC, the plain PCG, the
+# non-fused IRLS and the unfused LAB and models are the JAX package's XLA
+# routes on a TPU)
+PATH_EXACT_LAUNCHES = {"parity640": {"inpaint_diffusion": 2, "label_components": 2},
+                       "hist640": {"inpaint_diffusion": 2, "label_components": 2},
+                       "parity4k": {"inpaint_diffusion": 2, "label_components": 2},
                        "temp4k_parity": {"inpaint_diffusion": 2},
-                       "mm4k_parity": {"inpaint_diffusion": 4}}
+                       "mm4k_parity": {"inpaint_diffusion": 4, "label_components": 2}}
 # the runner phase: each command's or session's whole launch count at
 # 2160x3840, the CLI's presets (PERF.md's kernel table: the 4K force, 4K
 # multimodal and their parity columns)
 RUNNER_LAUNCHES = {
-    "cli_force_parity": {"inpaint_diffusion": 2},
+    "cli_force_parity": {"inpaint_diffusion": 2, "label_components": 2},
     "cli_force_deploy": {"masked_quantiles": 7, "masked_median_mad": 4,
-                         "inpaint_diffusion": 1, "gn_moments_euclidean": 1},
-    "session_parity": {"inpaint_diffusion": 4},
+                         "inpaint_diffusion": 1, "gn_moments_euclidean": 1,
+                         "label_components": 2},
+    "session_parity": {"inpaint_diffusion": 4, "label_components": 2},
     "session_deploy": {"masked_quantiles": 8, "masked_median_mad": 4, "inpaint_diffusion": 3,
-                       "gn_moments_euclidean": 1, "fused_temperature": 1},
+                       "gn_moments_euclidean": 1, "fused_temperature": 1,
+                       "label_components": 2},
 }
 PATH_KERNELS.update({k: tuple(v) for k, v in RUNNER_LAUNCHES.items()})
 PATH_EXACT_LAUNCHES.update(RUNNER_LAUNCHES)
@@ -322,15 +341,19 @@ KNOBS_640 = {
 # quadratic fit (K2 2), its median (K1 1), where the two-pass detrend took
 # K2 4 and K1 2.  prealign640: the 640 deploy frame (K1 7, K3 1, K5 1, K6 1,
 # K7 2) plus the pass-1 demod and mask and the high-pass (K1 5, K3 1) and
-# the prealignment's ECC, K4's loop (loop_kernel=False, as JAX calls it)
+# the prealignment's ECC, K4's loop (loop_kernel=False, as JAX calls it).
+# The labels: twice a frame (the reliable mask's component, the contact-blob
+# filter), once more with the prealignment (its pass-1 reliable mask)
 KNOB_LAUNCHES = {
-    "takeda4k": {"inpaint_diffusion": 3},
-    "window4k": {"inpaint_diffusion": 2},
+    "takeda4k": {"inpaint_diffusion": 3, "label_components": 2},
+    "window4k": {"inpaint_diffusion": 2, "label_components": 2},
     "prealign4k": {"masked_quantiles": 11, "masked_median_mad": 4, "inpaint_diffusion": 2,
-                   "gn_moments_euclidean": 1},
+                   "gn_moments_euclidean": 1, "label_components": 3},
     "prealign640": {"masked_quantiles": 12, "inpaint_diffusion": 2, "gn_moments_euclidean": 1,
-                    "ecc_loop_euclidean": 1, "unwrap_wls": 1, "robust_polyfit2d": 2},
-    **{k: {"inpaint_diffusion": 3 if k in ("knob_unlocked", "knob_prealign") else 2}
+                    "ecc_loop_euclidean": 1, "unwrap_wls": 1, "robust_polyfit2d": 2,
+                    "label_components": 3},
+    **{k: {"inpaint_diffusion": 3 if k in ("knob_unlocked", "knob_prealign") else 2,
+           "label_components": 3 if k == "knob_prealign" else 2}
        for k in KNOBS_640},
 }
 PATH_KERNELS.update({k: tuple(v) for k, v in KNOB_LAUNCHES.items()})
@@ -354,7 +377,8 @@ HUBER_TEMPS, HUBER_FRAMES, HUBER_PX, HUBER_DEGREE = tuple(range(20, 56)), 5, 400
 # trained models served through TemperaturePipeline as on temp4k (deploy)
 # and temp4k_parity
 TRAINER_LAUNCHES = {
-    "train_p2h": {"inpaint_diffusion": 1}, "train_h2f": {"inpaint_diffusion": 2},
+    "train_p2h": {"inpaint_diffusion": 1, "label_components": 1},
+    "train_h2f": {"inpaint_diffusion": 2, "label_components": 2},
     "train_h2f_resume": {}, "train_temp_color": {}, "train_temp_black": {}, "pretest": {},
     "roundtrip_deploy": {"masked_quantiles": 1, "inpaint_diffusion": 2,
                          "fused_temperature": 1},
@@ -415,9 +439,22 @@ DENTS_RAD = (0.8, 0.0, 0.5, 0.3, 0.7, 0.1)
 # frame launches what a streams640 frame launches (PERF.md's kernel table),
 # the heads add no kernel of the table
 LIMB_STRIDE, LIMB_CANVAS = 2, (2 * H, 2 * W)
+# the graph phase: the capturable paths (FTPPipeline.capturable) on
+# GRAPH_PAIRS frame pairs, and the launches of one frame (one stream frame
+# on streams640 and limb640): the 640 deploy frame, prealign640's, and
+# irls640's (the 640 deploy preset with the histogram percentiles and the
+# non-fused IRLS: K1 and K7 give way to plain PyTorch)
+GRAPH_PAIRS = 3
+FRAME_640 = {"masked_quantiles": 7, "inpaint_diffusion": 1, "ecc_loop_euclidean": 1,
+             "unwrap_wls": 1, "robust_polyfit2d": 2, "label_components": 2}
+GRAPH_LAUNCHES = {"640": FRAME_640, "config2": FRAME_640, "config3": FRAME_640,
+                  "streams640": FRAME_640, "limb640": FRAME_640,
+                  "prealign640": KNOB_LAUNCHES["prealign640"],
+                  "irls640": {"inpaint_diffusion": 1, "ecc_loop_euclidean": 1,
+                              "unwrap_wls": 1, "label_components": 2}}
 PATH_EXACT_LAUNCHES["limb640"] = {"masked_quantiles": 7, "inpaint_diffusion": 1,
                                   "ecc_loop_euclidean": 1, "unwrap_wls": 1,
-                                  "robust_polyfit2d": 2}
+                                  "robust_polyfit2d": 2, "label_components": 2}
 # the runner's file contract without figures (matplotlib), as the JAX runner
 # writes it (tests/test_torch_runner.py and tests/test_torch_cli.py hold
 # these to the JAX trees): the force command with --export-heightmaps, and
@@ -479,7 +516,7 @@ def kernel_cases(device):
     import torch
     from vistaf_torch.config import FTPConfig, TempConfig, slice_ftp_config
     from vistaf_torch.ftp.pipeline import FTPGeometry
-    from vistaf_torch.kernels import (ecc_kernel, ecc_loop_kernel, inpaint_kernel,
+    from vistaf_torch.kernels import (ccl_kernel, ecc_kernel, ecc_loop_kernel, inpaint_kernel,
                                       polyfit_kernel, quantile_kernel, temp_kernel,
                                       unwrap_kernel)
     from vistaf_torch.ops import geometry
@@ -739,6 +776,17 @@ def kernel_cases(device):
             near.float().mean()), unreached_max_abs_err=far)
         return far
 
+    # the labels (drawn last) at the 640 preset's crop and the native-4K
+    # crop: a random field at density 0.5, near 8-connected percolation (many
+    # components, long borders), and a one-pixel-wide spiral, the longest
+    # geodesic a plane holds (the plain version's rounds grow with it)
+    lab_args = [(t(rng.random((n, n)) < 0.5),) for n in (h, n4)]
+    lab_args += [(t(spiral_mask(n, n)),) for n in (h, n4)]
+
+    def lab_check(a, b):
+        assert a.dtype == b.dtype == torch.int64 and torch.equal(a, b)   # bit-equal
+        return float((a - b).abs().max())
+
     k1 = ("masked_quantiles", "vistaf_torch/csrc/quantile.cu",
           "vistaf_tpu/pallas/quantile_kernel.py:91",
           quantile_kernel.masked_quantiles, quantile_kernel.masked_quantiles_plain)
@@ -786,7 +834,29 @@ def kernel_cases(device):
         (*k6, k6_args, k6_check),
         (*k5, k5_big_args, k5_check),
         (*k6, k6_big_args, k6_check),
-    ]
+    ] + [("label_components", "vistaf_torch/csrc/ccl.cu", "vistaf_tpu/ops/components.py:43",
+          ccl_kernel.label_components, ccl_kernel.label_components_plain, args, lab_check)
+         for args in lab_args]
+
+
+def spiral_mask(h: int, w: int):
+    """A one-pixel-wide path winding inwards from the top-left corner, one
+    free pixel between its turns (tests/test_torch_ccl.py's spiral)."""
+    m = np.zeros((h, w), bool)
+    dirs = ((0, 1), (1, 0), (0, -1), (-1, 0))
+    y = x = d = turns = 0
+    m[0, 0] = True
+    while turns < 2:
+        dy, dx = dirs[d]
+        ny, nx, ay, ax = y + dy, x + dx, y + 2 * dy, x + 2 * dx
+        ahead_free = not (0 <= ay < h and 0 <= ax < w) or not m[ay, ax]
+        if 0 <= ny < h and 0 <= nx < w and not m[ny, nx] and ahead_free:
+            y, x = ny, nx
+            m[y, x] = True
+            turns = 0
+        else:
+            d, turns = (d + 1) % 4, turns + 1
+    return m
 
 
 def work(name: str, args, out):
@@ -813,6 +883,8 @@ def work(name: str, args, out):
         return 5 * n + 8, n * (2 + 2 * ml + 2 + 2 * ml)
     if name == "inpaint_diffusion":      # per step: two 3x3 box sums, update
         return 9 * n, n * (2 + 24 * int(args[2]))
+    if name == "label_components":       # the mask in, int64 labels out; 4
+        return 9 * n, 6 * n              # neighbour tests, a find, a write
     hw = args[1].numel()
     taps = 2 * int(args[3] if name == "ecc_loop_euclidean" else args[4]) + 1
     per_iter = hw * (2 * taps * (4 + 4 * 2) + 60)   # two hat passes, moment rows
@@ -875,14 +947,19 @@ def phase_kernels(device):
     for case in kernel_cases(device):
         name, source, replaces, kern, plain, args, check = case
         got = kern(*args)
+        t0 = time.perf_counter()
         ref = plain(*args)
         torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
         err = check(got, ref)
         nbytes, ops = work(name, args, got)
         bms, by = bound_ms(nbytes, ops)
         ms = cuda_ms(lambda: kern(*args))
         dev_ms = device_ms(lambda: kern(*args))
-        plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
+        # a plain version that takes seconds (the labels' loop on a spiral)
+        # is timed once more, warm from the check
+        slow = plain_s > 0.4
+        plain_ms = cuda_ms(lambda: plain(*args), reps=1 if slow else 5, warmup=0 if slow else 1)
         lib = library_call(name, args)
         lib_ms = cuda_ms(lib, reps=10, warmup=2) if lib is not None else None
         shape = list(args[0].shape)
@@ -1351,6 +1428,8 @@ def force_path_configs():
         base = FTPConfig().deploy() if deploy else FTPConfig()
         paths[path] = (base.replace(**change), H4K, W4K)
     paths["prealign640"] = (slice_ftp_config(H, W).replace(use_grating_band_prealign=True), H, W)
+    paths["irls640"] = (slice_ftp_config(H, W).replace(percentile_method="hist",
+                                                       polyfit_kernel=False), H, W)
     for path, change in KNOBS_640.items():
         paths[path] = (scaled_ftp_config(H, W).replace(**change), H, W)
     return paths
@@ -1606,6 +1685,161 @@ def run_multimodal(device, rows, force, temp, path: str, timed_force=None):
     if timed_force is not None:
         mm = MultimodalPipeline(timed_force, temp)
     return mm, ref, de
+
+
+def same_outputs(path: str, got, want) -> None:
+    """Assert two outputs (tensors, or dicts, tuples and lists of them)
+    equal bit for bit: the same shapes, dtypes, NaN pixels and values."""
+    import torch
+    if isinstance(got, dict):
+        assert got.keys() == want.keys(), (path, sorted(got), sorted(want))
+        for k in got:
+            same_outputs(f"{path}.{k}", got[k], want[k])
+        return
+    if isinstance(got, (tuple, list)):
+        assert len(got) == len(want), path
+        for i, (a, b) in enumerate(zip(got, want)):
+            same_outputs(f"{path}[{i}]", a, b)
+        return
+    assert got.shape == want.shape and got.dtype == want.dtype, (path, got.shape, want.shape)
+    if got.is_floating_point():
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan), path
+        got, want = got[~nan], want[~nan]
+    assert torch.equal(got, want), (path, float((got.double() - want.double()).abs().max()))
+
+
+def ecc_probe(ftp) -> list:
+    """Wrap ``ftp._ecc`` to keep each call's iteration count tensor: in a
+    captured forward the graph's own, which each replay rewrites."""
+    seen = []
+    real = ftp._ecc
+
+    def probe(crop01):
+        out = real(crop01)
+        seen.append(out[2])
+        return out
+    ftp._ecc = probe
+    return seen
+
+
+def run_graph(device, rows, card):
+    """The graph phase: every path whose forward ``FTPPipeline.capturable``
+    admits, replayed from its CUDA graph and run op by op (``forward_eager``)
+    on GRAPH_PAIRS frame pairs after the capture call: every output bit for
+    bit, the same ECC iterations, the launches a frame of GRAPH_LAUNCHES
+    under both; the replayed 640 forward under the sync debug mode "error";
+    one round of each route's time and the full-resolution seed's (the
+    ``lax.cond`` branch that ``dominant_component`` always computes)."""
+    import torch
+    from vistaf_torch import kernels
+    from vistaf_torch.config import ForceConfig, FTPConfig
+    from vistaf_torch.ftp.pipeline import FTPGeometry, FTPPipeline
+    from vistaf_torch.ops import geometry
+    from vistaf_torch.ops.components import _fine_seed
+    from vistaf_torch.parallel import (BatchedForce, make_stream_mesh, shard_batch,
+                                       whole_limb_step, whole_limb_step_aux)
+    from vistaf_torch.pipelines.force import ForcePipeline
+    from vistaf_torch.utils import profiling
+    from vistaf_torch.utils.synthetic import synthetic_pair
+
+    cfgs = force_path_configs()
+    say("graph_routes", capturable={p: FTPPipeline.capturable(c, (h, w))
+                                    for p, (c, h, w) in cfgs.items()})
+
+    def pair(c):
+        graph = ForcePipeline(c, ForceConfig(), P2H_MODEL, FORCE_MODEL, device=device)
+        eager = ForcePipeline(c, ForceConfig(), P2H_MODEL, FORCE_MODEL, device=device)
+        eager.ftp.forward = eager.ftp.forward_eager      # op by op, for the comparison
+        return graph, eager
+
+    def frames(c):
+        up = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
+        return [tuple(up(f) for f in synthetic_pair(H, W, c, seed=SEED + 10 + k,
+                                                     dent_depth_rad=DENTS_RAD[k]))
+                for k in range(GRAPH_PAIRS)]
+
+    paths = []     # (path, graph fn, eager fn, inputs, (graph ftp, eager ftp), frames a call)
+    for path in ("640", "prealign640", "irls640"):
+        g, e = pair(cfgs[path][0])
+        paths.append((path, g.ftp.forward, e.ftp.forward, frames(cfgs[path][0]), (g, e), 1))
+    g, e = pair(cfgs["640"][0])
+    paths.append(("config2", g.contact_classification_device(),
+                  e.contact_classification_device(), frames(cfgs["640"][0]), (g, e), 1))
+    g, e = pair(cfgs["640"][0])
+    paths.append(("config3", g.force_map_device(), e.force_map_device(),
+                  frames(cfgs["640"][0]), (g, e), 1))
+    cfg_s, refs, seq = stream_inputs()
+    g, e = pair(cfg_s)
+    bfs = [BatchedForce(p.ftp, FORCE_MODEL) for p in (g, e)]
+    up = lambda a: torch.as_tensor(a, device=device)     # noqa: E731
+    batches = [(up(refs), up(seq[k])) for k in range(GRAPH_PAIRS)]
+    paths.append(("streams640", bfs[0].batched(), bfs[1].batched(), batches, (g, e), STREAMS))
+    mesh = make_stream_mesh()
+    _, _, _, (pose, accel) = limb_inputs()
+    aux = {"pose_px": shard_batch(mesh, pose), "accel_mss": shard_batch(mesh, accel)}
+    g, e = pair(cfg_s)
+    limbs = []
+    for p in (g, e):
+        bf = BatchedForce(p.ftp, FORCE_MODEL)
+        step = whole_limb_step(bf, mesh, map_stride=LIMB_STRIDE)
+        step_aux = whole_limb_step_aux(bf, mesh, LIMB_CANVAS, map_stride=LIMB_STRIDE)
+        limbs.append(lambda r, d, step=step, step_aux=step_aux: (step(r, d),
+                                                                  step_aux(r, d, aux)))
+    paths.append(("limb640", limbs[0], limbs[1], batches, (g, e), 2 * STREAMS))
+
+    for path, fn_g, fn_e, inputs, (g, e), per_call in paths:
+        assert g.ftp.graph_route((H, W)) and not e.ftp.debug_outputs, path
+        probes = [ecc_probe(p.ftp) for p in (g, e)]
+        t0 = time.perf_counter()
+        fn_g(*inputs[0])                     # the capture call: eager, then captured
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        results, iters, launches = [], [], []
+        for fn, probe in ((fn_g, probes[0]), (fn_e, probes[1])):
+            before = dict(kernels.LAUNCHES)
+            outs, its = [], []
+            for inp in inputs:
+                outs.append(fn(*inp))
+                its.append(int(probe[-1]))
+            torch.cuda.synchronize()
+            results.append(outs)
+            iters.append(its)
+            launches.append({k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                             if v != before[k]})
+        for k, (a, b) in enumerate(zip(*results)):
+            same_outputs(f"{path}[pair {k}]", a, b)
+        assert iters[0] == iters[1], (path, iters)
+        want = {k: v * per_call * GRAPH_PAIRS for k, v in GRAPH_LAUNCHES[path].items()}
+        assert launches[0] == launches[1] == want, (path, launches, want)
+        say("graph", path=path, pairs=GRAPH_PAIRS, bit_equal=True, ecc_iters=iters[0],
+            launches=launches[0], launches_eager=launches[1],
+            captured_launches=g.ftp._graph.launches, capture_s=capture_s)
+
+    # the replayed 640 forward and its eager run: host syncs, one round each
+    g, e = pair(cfgs["640"][0])
+    r, d = frames(cfgs["640"][0])[0]
+    g.ftp.forward(r, d)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.ftp.forward(r, d)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ms = {"eager": [], "graph": []}
+    for kind in ("eager", "graph", "graph", "eager"):
+        fn = (e if kind == "eager" else g).ftp.forward
+        ms[kind].append(profiling.cuda_ms(lambda: fn(r, d), reps=10, warmup=2))
+    g4 = FTPGeometry.from_config(FTPConfig().deploy())
+    seed_ms = {}
+    for name, m in (("236", g.ftp.roi), ("1182", torch.as_tensor(geometry.circular_mask(
+            g4.crop_h, g4.crop_w, g4.cx_local, g4.cy_local, g4.r_local), device=device))):
+        seed_ms[name] = profiling.device_ms(lambda: _fine_seed(m))
+    say("graph_timing", path="640", gated=False, host_syncs_graph=0,
+        host_syncs_eager=profiling.host_syncs(lambda: e.ftp.forward(r, d)),
+        eager_ms=ms["eager"], graph_ms=ms["graph"],
+        graph_device_ms=profiling.device_ms(lambda: g.ftp.forward(r, d)),
+        fine_seed_device_ms=seed_ms, card=card)
 
 
 def run_streams(device, rows, card):
@@ -2555,6 +2789,8 @@ def main() -> int:
 
     rows = phase_kernels(device)
     lap("kernels")
+    run_graph(device, rows, card)
+    lap("graph")
     runs = {"640": run_path("640", device, rows, *cfgs["640"])[1]}
     force4k, runs["4k"] = run_path("4k", device, rows, *cfgs["4k"])
     temp, frame = run_temperature(device, rows, TempConfig().deploy(), "temp4k")

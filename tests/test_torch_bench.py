@@ -27,7 +27,7 @@ ROOT = Path(bench_torch.__file__).resolve().parent
 BLOCKED = ("jax", "jaxlib", "vistaf_tpu")
 BENCH_PY_KEYS = ("metric", "value", "unit", "vs_baseline", "reps", "iters_per_rep")
 ROW_KEYS = ("row", "suite", "what", "p50_ms", "tail", "tail_ms", "round_medians_ms",
-            "spread_ms", "samples", "card", "correct", "gate")
+            "spread_ms", "samples", "card", "correct", "gate", "route")
 # the default suite at one round of one call (the gate's call is the only
 # warm-up), one PyTorch thread
 SCRIPT = f"""
@@ -95,7 +95,8 @@ def test_hand_written_kernel_names_are_the_csrc_kernels():
     assert {"ecc_loop_kernel", "gn_loop_kernel", "inpaint_mean_kernel", "inpaint_steps_kernel",
             "polyfit_kernel", "quantile_range_kernel", "quantile_pass_kernel",
             "quantile_finish_kernel", "mad_pass_kernel", "median_mad_finish_kernel",
-            "fused_temp_kernel", "unwrap_kernel"} == names
+            "fused_temp_kernel", "unwrap_kernel", "ccl_tile_kernel", "ccl_border_kernel",
+            "ccl_flatten_kernel"} == names
 
 
 @pytest.fixture(scope="module")
@@ -118,6 +119,8 @@ def test_default_suite_rows_and_their_order(default_run):
         assert set(ROW_KEYS) <= set(line), line["row"]
         assert line["suite"] == "default" and line["device"] == "cpu"
         assert line["clock"] == "host" and line["card"] is None
+        # BASELINE config 1 can be captured; on the CPU it runs op by op
+        assert line["route"] == "eager" and line["capturable"] is True
         assert line["profile"] == "not measured"
         assert line["rounds"] == line["iters_per_round"] == line["samples"] == 1
         assert line["round_medians_ms"] == [line["p50_ms"]] and line["spread_ms"] == 0.0

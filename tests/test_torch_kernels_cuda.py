@@ -1,6 +1,7 @@
-"""The eight Hopper kernels against their plain PyTorch versions on the card,
-and the 640x480 force slice and a small temperature frame on the card
-against the port's CPU run.  Marked ``cuda``:
+"""The eight Hopper kernels and the labelling kernel against their plain
+PyTorch versions on the card, the 640x480 force slice and a small
+temperature frame on the card against the port's CPU run, and the slice's
+CUDA-graph replay against its forward run op by op.  Marked ``cuda``:
 they skip where PyTorch sees no GPU (the decision is made in a fixture, not
 at import).  Run on a GPU machine with
 
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from vistaf_torch import kernels
+from vistaf_torch.kernels import ccl_kernel
 from vistaf_torch.kernels import ecc_kernel as k4
 from vistaf_torch.kernels import ecc_loop_kernel as k5
 from vistaf_torch.kernels import inpaint_kernel as k3
@@ -563,10 +565,53 @@ def test_slice_on_card_launches_every_kernel(dev):
     kernels.reset_launches()
     gpu = ForcePipeline(cfg, ForceConfig(), p2h, fm, device=dev)(ref, de)
     for name in ("masked_quantiles", "inpaint_diffusion", "ecc_loop_euclidean",
-                 "unwrap_wls", "robust_polyfit2d"):
+                 "unwrap_wls", "robust_polyfit2d", "label_components"):
         assert kernels.LAUNCHES[name] > 0, kernels.LAUNCHES
     cpu = ForcePipeline(cfg, ForceConfig(), p2h, fm, device="cpu")(ref, de)
     assert abs(gpu["force_N"] - cpu["force_N"]) <= 0.01 * cpu["force_N"]
+
+
+@pytest.mark.parametrize("n", [236, 1182])     # the 640 and native-4K crops
+@pytest.mark.parametrize("kind", ["random", "spiral"])
+def test_labels_bit_equal_on_card(dev, n, kind):
+    from chip_smoke import spiral_mask
+    m = (np.random.default_rng(n).random((n, n)) < 0.5 if kind == "random"
+         else spiral_mask(n, n))
+    mt = torch.as_tensor(m, device=dev)
+    kernels.reset_launches()
+    got = ccl_kernel.label_components(mt)
+    assert kernels.LAUNCHES["label_components"] == 1
+    assert torch.equal(got, ccl_kernel.label_components_plain(mt))
+
+
+def test_graph_replay_equals_eager_on_card(dev):
+    """The 640 deploy forward replayed from its CUDA graph against the same
+    forward op by op, on two frame pairs after the capture call: every
+    output bit for bit, and each replay counting the captured launches."""
+    from vistaf_torch.config import slice_ftp_config
+    from vistaf_torch.ftp.pipeline import FTPPipeline
+    from vistaf_torch.utils.synthetic import synthetic_pair
+    p2h = {"type": "hinge_saturating", "params": {"a": 2.08, "b": 4.2, "c": 0.0}}
+    cfg = slice_ftp_config(480, 640)
+    pipe = FTPPipeline(cfg, p2h, device=dev)
+    assert pipe.graph_route((480, 640))
+    pairs = [[torch.as_tensor(f, device=dev) for f in synthetic_pair(480, 640, cfg, seed=s)]
+             for s in range(3)]
+    pipe.forward(*pairs[0])                       # eager, then the capture
+    for r, d in pairs[1:]:
+        kernels.reset_launches()
+        got = pipe.forward(r, d)
+        assert dict(kernels.LAUNCHES) == {**dict.fromkeys(kernels.LAUNCHES, 0),
+                                          **pipe._graph.launches}
+        want = pipe.forward_eager(r, d)
+        for k in want:
+            a, b = got[k], want[k]
+            if a.is_floating_point():
+                assert torch.equal(torch.isnan(a), torch.isnan(b)), k
+                a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+            assert torch.equal(a, b), k
+    with pytest.raises(ValueError):
+        pipe.forward(pairs[0][0][:240], pairs[0][1][:240])
 
 
 @pytest.mark.parametrize("kind", ["degree1", "deploy_form"])

@@ -32,12 +32,19 @@ shipped (``scaled_ftp_config(480, 640).deploy()``, ``FTPConfig().deploy()``),
 and every other ``FTPConfig`` knob value of the JAX package but the three
 global-shift knobs it measured and rejected, which raise at construction
 (``FTPPipeline.check_config``).
+
+On the card a pipeline runs its forward the way the JAX package runs its
+jitted one: captured once into a CUDA graph and replayed for every frame,
+wherever the route holds no loop driven from the host
+(``FTPPipeline.capturable``; ``ForwardGraph``).  Debug and ``stop_after``
+pipelines, the CPU, and the routes with a host loop run the forward op by
+op (``forward_eager``).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -60,10 +67,11 @@ from vistaf_torch.ops.morphology import close as morph_close
 from vistaf_torch.ops.morphology import dilate, ellipse_kernel
 from vistaf_torch.ops.percentile import get_percentile_fn, masked_max
 from vistaf_torch.ops.polyfit import robust_polyfit2d
-from vistaf_torch.ops.registration import ECC_MODES, ecc_align, phase_correlate
+from vistaf_torch.ops.registration import ECC_MODES, ecc_align, ecc_route, phase_correlate
 from vistaf_torch.ops.unwrap import unwrap_wls
 from vistaf_torch.ops.warp import (translate_bilinear, warp_affine_inverse_map,
                                    warp_affine_inverse_shear)
+from vistaf_torch.utils.cuda_graph import ForwardGraph
 
 STAGES = ("align", "demod", "reliable", "unwrap", "detrend", "assemble")
 
@@ -138,7 +146,9 @@ class FTPPipeline:
         out = pipe(ref_bgr_u8, def_bgr_u8)     # the kernels' plain versions
 
     ``stop_after`` truncates the forward after a named stage (one of
-    ``STAGES``) and returns ``{'x': ...}``, as the JAX pipeline does."""
+    ``STAGES``) and returns ``{'x': ...}``, as the JAX pipeline does.  On
+    the card, ``forward`` replays one CUDA graph of ``forward_eager`` where
+    ``graph_route`` holds (see ``capturable``)."""
 
     def __init__(self, cfg: FTPConfig, p2h_model: Dict[str, Any],
                  use_negated_height: bool = True, debug_outputs: bool = False,
@@ -171,6 +181,11 @@ class FTPPipeline:
         self.roi = torch.as_tensor(self._roi_eroded, device=dev)
         self.apo = torch.as_tensor(self._apo, device=dev) if self._apo is not None else None
         self.hann_full = torch.as_tensor(self._hann_full, device=dev)
+        # constants of the forward, built here so that no forward builds a
+        # tensor from host values (a CUDA graph cannot capture that copy)
+        self._identity_warp = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], device=dev)
+        self._base = torch.tensor(cfg.unreliable_base_value, dtype=torch.float32, device=dev)
+        self._graph: Optional[ForwardGraph] = None
 
     @staticmethod
     def check_config(cfg: FTPConfig) -> None:
@@ -205,6 +220,54 @@ class FTPPipeline:
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(f"vistaf_torch does not run {bad}")
+
+    @staticmethod
+    def _ecc_plan(cfg: FTPConfig, crop) -> Tuple[bool, bool]:
+        """(use_ds, use_c2f): the crop ECC on the ``ecc_downsample`` pooled
+        crop, and seeded by a coarse solve on the ``ecc_coarse_downsample``
+        grid."""
+        ds = int(cfg.ecc_downsample)
+        use_ds = ds > 1 and min(crop) >= cfg.ecc_downsample_min_px
+        use_c2f = (use_ds and int(cfg.ecc_polish_iters) > 0
+                   and int(cfg.ecc_coarse_downsample) > ds and cfg.ecc_warp_mode == "euclidean")
+        return use_ds, use_c2f
+
+    @staticmethod
+    def capturable(cfg: FTPConfig, shape) -> Union[bool, str]:
+        """True where the forward of a frame of ``shape`` (H, W) runs on the
+        device with no host read, so that it can be captured into one CUDA
+        graph; else the name of the loop on its route that the host drives:
+        'ecc_loop' (the crop ECC's Gauss-Newton loop on the host: the gather
+        sampler, the translation and affine modes, the shear sampler above
+        K4's budget), 'prealign_ecc_loop' (the grating-band prealignment's
+        ECC on that loop) or 'pcg_loop' (the unwrap's PCG, pooled or not,
+        anywhere K6 does not run).  A function of the config and the shape
+        only, as the kernels' routing rule is."""
+        x1, x2, y1, y2 = FTPGeometry.from_config(cfg).bbox
+        crop = (min(y2, int(shape[0])) - y1, min(x2, int(shape[1])) - x1)
+        if cfg.use_ecc_crop_alignment:
+            use_ds, use_c2f = FTPPipeline._ecc_plan(cfg, crop)
+            pooled = lambda d: (crop[0] // d, crop[1] // d)   # noqa: E731
+            solves = [((pooled(int(cfg.ecc_downsample)) if use_ds else crop),
+                       cfg.ecc_loop_kernel, use_c2f)]
+            if use_c2f:
+                solves.append((pooled(int(cfg.ecc_coarse_downsample)), False, False))
+            if any(ecc_route(cfg.ecc_warp_mode, cfg.ecc_sampler, *s) == "host"
+                   for s in solves):
+                return "ecc_loop"
+        if cfg.use_grating_band_prealign and ecc_route(
+                cfg.grating_prealign_ecc_mode, cfg.ecc_sampler, crop, False) == "host":
+            return "prealign_ecc_loop"
+        if unwrap_route(cfg, crop)[0] != "k6":
+            return "pcg_loop"
+        return True
+
+    def graph_route(self, shape) -> bool:
+        """Whether ``forward`` replays a CUDA graph for frames of ``shape``:
+        on the card, with neither ``stop_after`` nor ``debug_outputs``,
+        where ``capturable`` holds."""
+        return (self.device.type == "cuda" and self.stop_after is None
+                and not self.debug_outputs and self.capturable(self.cfg, shape) is True)
 
     # ------------------------------------------------------------------
     def __call__(self, ref_bgr, def_bgr) -> Dict[str, Any]:
@@ -274,11 +337,8 @@ class FTPPipeline:
         cfg, g = self.cfg, self.geom
         kw = dict(mode=cfg.ecc_warp_mode, eps=cfg.ecc_eps, stride=cfg.ecc_stride,
                   sampler=cfg.ecc_sampler, stall_patience=cfg.ecc_stall_patience)
-        ds = int(cfg.ecc_downsample)
-        use_ds = ds > 1 and min(g.crop_h, g.crop_w) >= cfg.ecc_downsample_min_px
-        cds = int(cfg.ecc_coarse_downsample)
-        use_c2f = (use_ds and int(cfg.ecc_polish_iters) > 0 and cds > ds
-                   and cfg.ecc_warp_mode == "euclidean")
+        ds, cds = int(cfg.ecc_downsample), int(cfg.ecc_coarse_downsample)
+        use_ds, use_c2f = self._ecc_plan(cfg, (g.crop_h, g.crop_w))
         p_seed = None
         if use_c2f:
             pooled_c, circ_c, k_c = self._pool_crop(crop01, cds)
@@ -362,8 +422,7 @@ class FTPPipeline:
                                eps=cfg.grating_prealign_ecc_eps, stride=cfg.ecc_stride,
                                sampler=cfg.ecc_sampler, shear_k=cfg.ecc_shear_k,
                                stall_patience=cfg.ecc_stall_patience, loop_kernel=False)
-        identity = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], device=warp.device)
-        return torch.where(align_mask.any(), warp, identity)
+        return torch.where(align_mask.any(), warp, self._identity_warp)
 
     def _detrend_two_pass(self, phase_unwrapped, reliable, pctl):
         """The two-pass detrend: a first fit over the reliable mask, the
@@ -405,7 +464,22 @@ class FTPPipeline:
 
     def forward(self, ref_bgr: torch.Tensor, def_bgr: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
-        """The forward graph on device tensors (BGR uint8 frames)."""
+        """The forward on device tensors (BGR uint8 frames).  Where
+        ``graph_route`` holds, one CUDA graph of ``forward_eager``, captured
+        at the first call for that frame shape and replayed at every later
+        one (``ForwardGraph``: frames of another shape raise); elsewhere
+        ``forward_eager``."""
+        if self.graph_route(ref_bgr.shape[:2]):
+            if self._graph is None:
+                self._graph = ForwardGraph(self.forward_eager, self.device)
+            return self._graph(ref_bgr, def_bgr)
+        return self.forward_eager(ref_bgr, def_bgr)
+
+    def forward_eager(self, ref_bgr: torch.Tensor, def_bgr: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        """The forward op by op on device tensors (BGR uint8 frames): what
+        the CUDA graph captures, and the route of every pipeline that does
+        not replay one."""
         cfg = self.cfg
         consts = self.consts
         x1, x2, y1, y2 = self.geom.bbox
@@ -429,7 +503,7 @@ class FTPPipeline:
         def_gray = def_gray_full[y1:y2, x1:x2]
 
         # --- ECC crop alignment
-        ecc_warp = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], device=dev)
+        ecc_warp = self._identity_warp.clone()
         ecc_rho = torch.full((), float("nan"), device=dev)
         ecc_it = torch.zeros((), dtype=torch.int32, device=dev)
         if cfg.use_ecc_crop_alignment:
@@ -535,8 +609,7 @@ class FTPPipeline:
                 inside, base + (height_rel_filled - base) * wgt, height_rel_filled)
 
         # --- assemble
-        height_final = torch.where(roi, torch.tensor(base, dtype=torch.float32, device=dev),
-                                   float("nan"))
+        height_final = torch.where(roi, self._base, float("nan"))
         height_final = torch.where(output_reliable, height_rel_filled, height_final)
         if cfg.smooth_unreliable_region and cfg.unreliable_smooth_sigma_px > 0:
             smooth_all = masked_gaussian_smooth(height_final, roi,

@@ -6,7 +6,9 @@ fused median/MAD), ``inpaint_kernel`` (K3), ``ecc_kernel`` (K4, the
 per-iteration ECC Gauss-Newton loop), ``ecc_loop_kernel`` (K5, the whole ECC
 solve), ``unwrap_kernel`` (K6, the whole WLS-PCG unwrap) and
 ``polyfit_kernel`` (K7, the whole IRLS fit) and ``temp_kernel`` (K8, the
-fused per-pixel temperature models).  The CUDA sources live in
+fused per-pixel temperature models); and one with no Pallas counterpart,
+``ccl_kernel`` (the connected-component labels, which the JAX package
+computes with an XLA while loop inside its compiled forward).  The CUDA sources live in
 ``vistaf_torch/csrc``; they are compiled by ``nvcc`` into one shared
 library with a plain C interface at first use, into ``vistaf_torch/_build``
 (keyed on a hash of the sources and flags), and loaded with ``ctypes``.
@@ -15,7 +17,9 @@ Every public wrapper dispatches on the device of its input tensor only: a
 CUDA tensor launches the kernel (or raises), a CPU tensor runs the plain
 version, anything else raises.  Nothing catches a build or launch failure
 and carries on.  ``LAUNCHES[name]`` counts the kernel launches of each
-wrapper; nothing else touches it.
+wrapper; nothing else touches it but ``count_replay``, which adds a
+captured forward's launches each time its CUDA graph replays them (the
+capture itself launches nothing).
 
 Routing rule.  At each shape the port takes the route the JAX package
 takes on a TPU, which is what the deploy contract was certified on.  Each
@@ -58,6 +62,7 @@ LAUNCHES: Dict[str, int] = {
     "unwrap_wls": 0,
     "robust_polyfit2d": 0,
     "fused_temperature": 0,
+    "label_components": 0,
 }
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -119,6 +124,8 @@ _SIGNATURES = {
     "vt_fused_temperature": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P),
     # -> sizeof(TempParams)
     "vt_temp_params_size": (),
+    # mask, parent scratch, out, h, w, stream
+    "vt_label_components": (_P, _P, _P, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -207,6 +214,14 @@ def launch(fn_name: str, counter: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err}")
     LAUNCHES[counter] += 1
+
+
+def count_replay(launches: Dict[str, int]) -> None:
+    """Add the launches a CUDA graph captured (``launch`` calls made while
+    it was captured, which ran nothing) once for one replay of it, which
+    runs them."""
+    for k, v in launches.items():
+        LAUNCHES[k] += v
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -1,45 +1,24 @@
-"""Connected components (JAX ``ops/components.py``): neighbour-min label
-propagation with pointer jumping, the largest component (the parity
-preset's), the EDT-seeded dominant component (the deploy presets') and the
-contact-blob peak filter.  Labels are root pixel indices (row-major
-flat), background -1."""
+"""Connected components (JAX ``ops/components.py``): the labels, the
+largest component (the parity preset's), the EDT-seeded dominant component
+(the deploy presets') and the contact-blob peak filter.  Labels are root
+pixel indices (row-major flat), background -1: on the card the labelling
+kernel (``kernels/ccl_kernel.py``), on the CPU its plain version, the JAX
+package's neighbour-min rounds.  Nothing here reads the device from the
+host: the JAX package's ``lax.cond`` on the pooled seed is a
+``torch.where`` between two seeds."""
 from __future__ import annotations
 
 import torch
 
-from vistaf_torch.ops.distance import _shift2, distance_transform_edt
+from vistaf_torch.kernels.ccl_kernel import label_components
+from vistaf_torch.ops.distance import distance_transform_edt
 from vistaf_torch.ops.morphology import reconstruct
-
-_BIG = 2147480000
-
-
-def _neighbor_min(lab: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """8-connected neighbourhood minimum of the labels inside ``mask``."""
-    lb = torch.where(mask, lab, _BIG)
-    out = lb
-    for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (-1, 1), (1, -1), (1, 1)):
-        out = torch.minimum(out, _shift2(lb, dy, dx, _BIG))
-    return torch.where(mask, out, _BIG)
 
 
 def label(mask: torch.Tensor) -> torch.Tensor:
     """8-connected components: each True pixel gets the flat index of its
-    component's root (minimum) pixel, False pixels -1.  Rounds of
-    neighbour-min plus 8 pointer jumps, then a convergence check (one host
-    sync per round)."""
-    h, w = mask.shape
-    n = h * w
-    idx = torch.arange(n, device=mask.device, dtype=torch.int64).reshape(h, w)
-    lab = torch.where(mask, idx, _BIG)
-    while True:
-        flat = _neighbor_min(lab, mask).reshape(-1)
-        for _ in range(8):
-            flat = torch.where(flat < n, flat[torch.clamp(flat, max=n - 1)], flat)
-        new = flat.reshape(h, w)
-        changed = bool((new != lab).any())
-        lab = new
-        if not changed:
-            return torch.where(mask, lab, -1)
+    component's root (minimum) pixel, False pixels -1."""
+    return label_components(mask)
 
 
 def component_areas(labels: torch.Tensor) -> torch.Tensor:
@@ -61,9 +40,12 @@ def largest_component(mask: torch.Tensor) -> torch.Tensor:
 def dominant_component(mask: torch.Tensor, seed_pool: int = 1) -> torch.Tensor:
     """The component holding the mask's deepest interior point (EDT argmax,
     first maximum on ties), by geodesic reconstruction.  ``seed_pool`` > 1
-    takes the seed from the EDT of the min-pooled mask, and falls back to
-    the full-resolution seed when the pooled mask has no interior."""
+    takes the seed from the EDT of the min-pooled mask, and the
+    full-resolution seed where the pooled mask has no interior: the JAX
+    package's ``lax.cond`` between the two, here both seeds computed and one
+    picked with ``torch.where``, so that no value is read on the host."""
     h, w = mask.shape
+    seed = _fine_seed(mask)
     if seed_pool > 1 and min(h, w) >= 8 * seed_pool:
         ds = int(seed_pool)
         hh, ww = (h // ds) * ds, (w // ds) * ds
@@ -74,17 +56,17 @@ def dominant_component(mask: torch.Tensor, seed_pool: int = 1) -> torch.Tensor:
         sx = (sf % mp.shape[1]) * ds + ds // 2
         yy = torch.arange(h, device=mask.device)[:, None]
         xx = torch.arange(w, device=mask.device)[None, :]
-        seed = (yy == sy) & (xx == sx) & mask
-        if bool(seed.any() & (dist[sf] > 0)):
-            return reconstruct(seed, mask)
-    return _dominant_component_fine(mask)
+        pooled = (yy == sy) & (xx == sx) & mask
+        ok = pooled.any() & (dist.amax() > 0)     # dist[sf], the maximum
+        seed = torch.where(ok, pooled, seed)
+    return reconstruct(seed, mask)
 
 
-def _dominant_component_fine(mask: torch.Tensor) -> torch.Tensor:
+def _fine_seed(mask: torch.Tensor) -> torch.Tensor:
+    """The full-resolution seed: the mask's first EDT maximum."""
     dist = distance_transform_edt(mask).reshape(-1)
-    seed = torch.zeros_like(dist, dtype=torch.bool)
-    seed[torch.argmax(dist)] = True
-    return reconstruct(seed.reshape(mask.shape) & mask, mask)
+    flat = torch.arange(dist.numel(), device=mask.device) == torch.argmax(dist)
+    return flat.reshape(mask.shape) & mask
 
 
 def filter_components_by_peak(mask: torch.Tensor, values: torch.Tensor,

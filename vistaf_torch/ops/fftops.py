@@ -55,7 +55,8 @@ def choose_carrier_peak(xs, ys, mags, h: int, w: int,
         m2 = keep & (torch.abs(ys - cy) <= int(peak_max_dy_frac * h))
         keep = torch.where(m2.any(), m2, keep)
     i = torch.argmax(torch.where(keep, mags, -math.inf))
-    return xs[i], ys[i]
+    # gathers: indexing by the 0-dim ``i`` would read it on the host
+    return torch.take(xs, i), torch.take(ys, i)
 
 
 def carrier_peak_cascade(mag: torch.Tensor, dc_exclusion: int,
@@ -95,8 +96,12 @@ def refine_peak_parabolic_log(mag: torch.Tensor, px: torch.Tensor, py: torch.Ten
 
     x = torch.clamp(px, 1, w - 2)
     y = torch.clamp(py, 1, h - 2)
-    dx = sub(lm[y, x - 1], lm[y, x], lm[y, x + 1])
-    dy = sub(lm[y - 1, x], lm[y, x], lm[y + 1, x])
+
+    def at(yy, xx):
+        # a gather: indexing by 0-dim tensors would read them on the host
+        return torch.take(lm, yy * w + xx)
+    dx = sub(at(y, x - 1), at(y, x), at(y, x + 1))
+    dy = sub(at(y - 1, x), at(y, x), at(y + 1, x))
     interior = (px > 0) & (px < w - 1) & (py > 0) & (py < h - 1)
     fx = torch.where(interior, px.to(torch.float32) + dx, px.to(torch.float32))
     fy = torch.where(interior, py.to(torch.float32) + dy, py.to(torch.float32))

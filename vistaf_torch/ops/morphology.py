@@ -15,6 +15,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vistaf_torch import kernels
+from vistaf_torch.kernels.ccl_kernel import label_components
+
 _NEG = -3.0e38
 _POS = 3.0e38
 
@@ -172,10 +175,32 @@ _SWEEP_MIN_PX = 1_000_000
 def reconstruct(seed: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Morphological reconstruction by dilation: grow ``seed`` inside the
     (H, W) ``mask`` (8-connectivity) to its fixed point, i.e. keep the
-    components of ``mask`` that hold a seed pixel.  Below 1 Mpx a round is
-    8 3x3 dilations; from 1 Mpx (the native-4K reliable mask) it is the four
-    axis sweeps and one 3x3 dilation, as in the JAX package.  Each round ends
-    with a convergence check (one host sync)."""
+    components of ``mask`` that hold a seed pixel.  On the card that is what
+    it computes, from the labelling kernel (``reconstruct_by_labels``, no
+    host read); on the CPU the JAX package's loop: below 1 Mpx a round is 8
+    3x3 dilations, from 1 Mpx (the native-4K reliable mask) the four axis
+    sweeps and one 3x3 dilation, each round ending with a convergence check
+    (one host sync).  All three reach the same mask."""
+    if kernels.route(mask) == "cuda":
+        return reconstruct_by_labels(seed, mask)
+    return reconstruct_plain(seed, mask)
+
+
+def reconstruct_by_labels(seed: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The components of ``mask`` that hold a pixel of ``seed & mask``: the
+    labels, a mark on each root a seed pixel reaches (a scatter of one
+    value, so order-free), and ``mask & marked[label]``."""
+    lab = label_components(mask).reshape(-1)
+    n = lab.numel()
+    hit = torch.where((seed & mask).reshape(-1), lab, n)      # n: a slot no root has
+    marked = torch.zeros(n + 1, dtype=torch.uint8, device=mask.device).scatter_(0, hit, 1)
+    keep = torch.take(marked, torch.where(lab >= 0, lab, n)) > 0
+    return keep.reshape(mask.shape) & mask
+
+
+def reconstruct_plain(seed: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The JAX package's reconstruction loop (the CPU route of
+    ``reconstruct``)."""
     s = seed & mask
     use_sweeps = mask.shape[0] * mask.shape[1] >= _SWEEP_MIN_PX
     while True:

@@ -109,14 +109,20 @@ def masked_percentile_hist(arr: torch.Tensor, mask, q: float, bins: int = 128,
     return torch.where(n > 0, 0.5 * (lo + hi), float(fallback))
 
 
+def _fractions(qs: tuple, device) -> torch.Tensor:
+    """float32(q / 100) for each of ``qs``, made on ``device`` by fills
+    rather than copied from the host (a CUDA graph cannot capture the copy)."""
+    return torch.stack([torch.full((), q / 100.0, dtype=torch.float32, device=device)
+                        for q in qs])
+
+
 def masked_percentile_hist_multi(arr: torch.Tensor, mask, qs: tuple, bins: int = 128,
                                  refine: int = 2, fallback: float = 0.0) -> torch.Tensor:
     """The JAX ``masked_percentile_hist_multi``: ``masked_percentile_hist``
     for each of ``qs`` with a shared first pass over the masked range
     (targets float32(q / 100) * (n - 1)); returns (..., Q)."""
     x, m, n, glo, ghi = _hist_setup(arr, mask)
-    targets = (torch.tensor([q / 100.0 for q in qs], dtype=torch.float32, device=x.device)
-               * torch.clamp(n - 1.0, min=0.0)[..., None])
+    targets = _fractions(qs, x.device) * torch.clamp(n - 1.0, min=0.0)[..., None]
     steps = torch.arange(1, bins + 1, dtype=torch.float32, device=x.device)
     span = torch.clamp(ghi - glo, min=1e-30)
     counts = _hist_counts(x, m, glo[..., None] + span[..., None] * steps / bins)
@@ -143,8 +149,7 @@ def masked_percentile_hist_rows(X: torch.Tensor, M: torch.Tensor, qs: tuple, bin
     n = m.to(torch.float32).sum(dim=-1)
     lo = torch.where(m, x, _BIG).amin(dim=-1)
     hi = torch.where(m, x, -_BIG).amax(dim=-1)
-    targets = (torch.tensor([q / 100.0 for q in qs], dtype=torch.float32, device=x.device)
-               * torch.clamp(n - 1.0, min=0.0))
+    targets = _fractions(qs, x.device) * torch.clamp(n - 1.0, min=0.0)
     lo, hi = _hist_passes(x, m, lo, hi, targets, bins, 1 + refine)
     return torch.where(n > 0, 0.5 * (lo + hi), float(fallback))
 

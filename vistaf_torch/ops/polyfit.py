@@ -48,7 +48,7 @@ def robust_polyfit2d_irls(z: torch.Tensor, mask: torch.Tensor, order: int = 2,
     eye = 1e-9 * torch.eye(ncoef, dtype=torch.float32, device=z.device)
     wts = torch.ones_like(zv)
     coef = torch.zeros(ncoef, dtype=torch.float32, device=z.device)
-    sigma = torch.tensor(1.0, device=z.device)
+    sigma = torch.ones((), device=z.device)
     if percentile_method == "hist":
         # the JAX IRLS refines the robust scale's brackets once, not twice
         pctl = lambda a, mm, q: masked_percentile_hist(a, mm, q, refine=1)  # noqa: E731

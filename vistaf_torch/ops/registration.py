@@ -187,12 +187,12 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
         return _result(mode, p, rho.to(torch.float32), it, failed)
     smask = torch.zeros_like(T)
     smask[::stride, ::stride] = 1.0
-    fused = mode == "euclidean" and ecc_kernel.fits(T.shape)
-    if fused and loop_kernel and p_init is None and ecc_loop_kernel.fits(T.shape):
+    route = ecc_route(mode, sampler, tuple(T.shape), loop_kernel, p_init is not None)
+    if route == "k5":
         p, rho, it, failed = ecc_loop_euclidean(S_cf, T, smask, K=shear_k,
                                                 max_iters=max_iters, eps=eps,
                                                 stall_patience=stall_patience)
-    elif fused:
+    elif route == "k4":
         p, rho, it, failed = ecc_kernel.gn_loop_euclidean(
             S_cf, T, smask, p0, K=shear_k, max_iters=max_iters, eps=eps,
             stall_patience=stall_patience)
@@ -201,6 +201,23 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
             lambda q: _plain_moments(S_cf, T, smask, q, shear_k, mode), p0, max_iters, eps,
             stall_patience)
     return _result(mode, p, rho, it, failed)
+
+
+def ecc_route(mode: str, sampler: str, shape, loop_kernel: bool = True,
+              seeded: bool = False) -> str:
+    """The solve ``ecc_align`` takes for a template of ``shape``: 'k5' (the
+    whole euclidean shear solve in one launch, unseeded, while
+    ``ecc_loop_kernel.fits`` and K4's ``fits`` hold), 'k4' (the euclidean
+    per-iteration loop in one cooperative launch, while K4's budget holds)
+    or 'host' (the Gauss-Newton loop on the host, one sync an iteration:
+    the gather sampler, the translation and affine modes and the shear
+    sampler above K4's budget).  The JAX package's routing by shape."""
+    if sampler == "gather":
+        return "host"
+    fused = mode == "euclidean" and ecc_kernel.fits(shape)
+    if fused and loop_kernel and not seeded and ecc_loop_kernel.fits(shape):
+        return "k5"
+    return "k4" if fused else "host"
 
 
 def _result(mode, p, rho, it, failed):

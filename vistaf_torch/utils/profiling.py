@@ -247,10 +247,10 @@ def profile_window(fn, frames: int, copies: bool = False) -> Dict[str, object]:
     """Device busy share of a steady window of ``frames`` calls of fn()
     (one untimed call first): the kernels' self device time
     (``torch.profiler``) over the window's wall time, profiler on; the
-    launches (``cudaLaunchKernel``, and the cooperative and cluster
-    launches apart), the ten heaviest device entries and the hand-written
-    kernels (``csrc/*.cu`` keeps each in an anonymous namespace), each per
-    call; with ``copies`` also the device-to-host copies and their bytes
+    launches (``cudaLaunchKernel``, the cooperative and cluster launches and
+    the CUDA graph replays, ``cudaGraphLaunch``, apart), the ten heaviest
+    device entries and the hand-written kernels (``csrc/*.cu`` keeps each in
+    an anonymous namespace), each per call; with ``copies`` also the device-to-host copies and their bytes
     per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -272,12 +272,14 @@ def profile_window(fn, frames: int, copies: bool = False) -> Dict[str, object]:
     launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel")
     special = sum(e.count for e in averages
                   if e.key in ("cudaLaunchCooperativeKernel", "cudaLaunchKernelExC"))
+    graphs = sum(e.count for e in averages if e.key == "cudaGraphLaunch")
     ours = [[name, e.self_device_time_total / 1e3 / frames, e.count / frames]
             for e in events if (name := _hand_written(e.key))]
     out = dict(frames=frames, wall_ms_per_frame=wall_ms, device_busy_ms_per_frame=busy_ms,
                device_busy_share=busy_ms / wall_ms,
                cuda_launches_per_frame=launches / frames,
                cooperative_or_cluster_launches_per_frame=special / frames,
+               graph_launches_per_frame=graphs / frames,
                top=[[e.key[:60], e.self_device_time_total / 1e3 / frames, e.count / frames]
                     for e in top],
                hand_written=ours)
