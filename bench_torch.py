@@ -75,11 +75,9 @@ call (sync debug mode) and the hand-written kernels it launched
 heaviest device work, device-to-host copies), each per call.
 
 Route: every row's line says how its force forward runs: ``route`` is
-``graph`` where it replays one CUDA graph (``FTPPipeline.graph_route``: the
-640x480 deploy rows, configs 2 and 3, the streams and limb rows), else
-``eager``, with ``capturable``, the host-driven loop that keeps a route
-eager (``ecc_loop`` on the 4K and parity rows); rows without a force forward
-say ``eager``.  The profiled window counts the graph replays
+``graph`` where it replays one CUDA graph (``FTPPipeline.graph_route``:
+every force forward on the card, its ECC and PCG loops and its seed pick as
+conditional nodes), else ``eager`` (the rows without a force forward).  The profiled window counts the graph replays
 (``graph_launches_per_frame``) apart from the kernel launches.
 
 Correctness: each row holds its output to its gate once, before timing,
@@ -176,14 +174,11 @@ class Row:
 
 def forward_route(ftp) -> Dict[str, Any]:
     """``route``: 'graph' where the row's force forward replays a CUDA graph
-    (``FTPPipeline.graph_route``), else 'eager', with what
-    ``FTPPipeline.capturable`` says of it (rows without a force forward:
-    'eager')."""
+    (``FTPPipeline.graph_route``), else 'eager' (on the CPU, and rows without
+    a force forward)."""
     if ftp is None:
         return {"route": "eager"}
-    shape = (ftp.cfg.image_height, ftp.cfg.image_width)
-    return {"route": "graph" if ftp.graph_route(shape) else "eager",
-            "capturable": ftp.capturable(ftp.cfg, shape)}
+    return {"route": "graph" if ftp.graph_route() else "eager"}
 
 
 def fps(p50_ms: float) -> Dict[str, float]:

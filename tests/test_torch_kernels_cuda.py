@@ -1,7 +1,9 @@
 """The eight Hopper kernels and the labelling kernel against their plain
 PyTorch versions on the card, the 640x480 force slice and a small
-temperature frame on the card against the port's CPU run, and the slice's
-CUDA-graph replay against its forward run op by op.  Marked ``cuda``:
+temperature frame on the card against the port's CPU run, the CUDA-graph
+conditional nodes (a WHILE and an IF node against their host forms), and
+the slice's CUDA-graph replay (deploy and parity) against its forward run
+op by op.  Marked ``cuda``:
 they skip where PyTorch sees no GPU (the decision is made in a fixture, not
 at import).  Run on a GPU machine with
 
@@ -594,7 +596,7 @@ def test_graph_replay_equals_eager_on_card(dev):
     p2h = {"type": "hinge_saturating", "params": {"a": 2.08, "b": 4.2, "c": 0.0}}
     cfg = slice_ftp_config(480, 640)
     pipe = FTPPipeline(cfg, p2h, device=dev)
-    assert pipe.graph_route((480, 640))
+    assert pipe.graph_route()
     pairs = [[torch.as_tensor(f, device=dev) for f in synthetic_pair(480, 640, cfg, seed=s)]
              for s in range(3)]
     pipe.forward(*pairs[0])                       # eager, then the capture
@@ -612,6 +614,90 @@ def test_graph_replay_equals_eager_on_card(dev):
             assert torch.equal(a, b), k
     with pytest.raises(ValueError):
         pipe.forward(pairs[0][0][:240], pairs[0][1][:240])
+
+
+def _captured(dev, fn):
+    """``fn`` captured once into a CUDA graph that may hold conditional
+    nodes; returns the graph and the pool its bodies allocate from."""
+    from vistaf_torch.utils import cuda_graph
+    g = torch.cuda.CUDAGraph()
+    with cuda_graph.conditional_bodies(dev) as pool, \
+            torch.cuda.graph(g, capture_error_mode="thread_local"):
+        fn()
+    return g, pool
+
+
+def test_while_node_trip_counts_equal_the_host_loop(dev):
+    """A WHILE node (``device_while`` under a capture) counting up to a
+    device limit under a cap of 9, its body adding a vector each trip: trip
+    counts 0, 1, N and the cap equal to the plain loop's, the sums bit-equal,
+    and the condition setter run once more than the trips."""
+    from vistaf_torch.kernels import graph_cond_kernel
+    from vistaf_torch.utils.cuda_graph import device_while
+    limit = torch.zeros((), dtype=torch.int32, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    acc = torch.zeros(5, device=dev)
+    x = torch.linspace(0.1, 0.5, 5, device=dev)
+
+    def loop():
+        it.zero_()
+        acc.zero_()
+        device_while(lambda s: (s[0] < limit) & (s[0] < 9),
+                     lambda s: (s[1].add_(x * 1.5), s[0].add_(1)), (it, acc))
+    g, pool = _captured(dev, loop)     # the pool lives as long as the graph
+    for n in (0, 1, 5, 30):
+        limit.fill_(n)
+        loop()                                   # the plain form, host reads
+        want = (int(it), acc.clone())
+        graph_cond_kernel.reset_sets(dev)
+        g.replay()
+        assert int(it) == want[0] == min(n, 9)
+        assert torch.equal(acc, want[1])
+        assert graph_cond_kernel.sets(dev) == want[0] + 1
+
+
+def test_if_node_taken_and_not_equal_the_host_branch(dev):
+    from vistaf_torch.kernels import graph_cond_kernel
+    from vistaf_torch.utils.cuda_graph import device_if
+    pred = torch.zeros((), dtype=torch.bool, device=dev)
+    out = torch.zeros(4, device=dev)
+
+    def branch():
+        out.fill_(1.0)
+        device_if(pred, lambda t: t.mul_(3.0).add_(torch.ones(4, device=dev)), out)
+    g, pool = _captured(dev, branch)
+    for taken in (False, True):
+        pred.fill_(taken)
+        branch()
+        want = out.clone()
+        graph_cond_kernel.reset_sets(dev)
+        g.replay()
+        assert torch.equal(out, want) and float(want[0]) == (4.0 if taken else 1.0)
+        assert graph_cond_kernel.sets(dev) == 1
+
+
+def test_parity_graph_replay_equals_eager_on_card(dev):
+    """The 640x480 parity forward (the gather ECC and the plain PCG as WHILE
+    nodes) replayed against the same forward op by op: every output bit for
+    bit, the same ECC iterations."""
+    from vistaf_torch.ftp.pipeline import FTPPipeline
+    from vistaf_torch.utils.synthetic import scaled_ftp_config, synthetic_pair
+    p2h = {"type": "hinge_saturating", "params": {"a": 2.08, "b": 4.2, "c": 0.0}}
+    cfg = scaled_ftp_config(480, 640)
+    pipe = FTPPipeline(cfg, p2h, device=dev)
+    assert pipe.graph_route()
+    pairs = [[torch.as_tensor(f, device=dev) for f in synthetic_pair(480, 640, cfg, seed=s)]
+             for s in range(3)]
+    pipe.forward(*pairs[0])                       # eager, then the capture
+    for r, d in pairs[1:]:
+        got = pipe.forward(r, d)
+        want = pipe.forward_eager(r, d)
+        for k in want:
+            a, b = got[k], want[k]
+            if a.is_floating_point():
+                assert torch.equal(torch.isnan(a), torch.isnan(b)), k
+                a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+            assert torch.equal(a, b), k
 
 
 @pytest.mark.parametrize("kind", ["degree1", "deploy_form"])

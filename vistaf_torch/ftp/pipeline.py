@@ -3,7 +3,7 @@
 
 Stages in order: gray conversion, full-frame phase-correlation shift, ROI
 crop, ECC crop alignment (K5, or the pooled and coarse-to-fine solves with
-K4; the gather sampler's and the translation and affine modes' host loop),
+K4; the gather sampler's and the translation and affine modes' device loop),
 the optional grating-band prealignment (a pass-1 demod and reliable mask,
 an ECC over the band between the reliable region and the ROI), the
 demodulation (of the pair with the carrier locked to the reference, or of
@@ -34,17 +34,17 @@ global-shift knobs it measured and rejected, which raise at construction
 (``FTPPipeline.check_config``).
 
 On the card a pipeline runs its forward the way the JAX package runs its
-jitted one: captured once into a CUDA graph and replayed for every frame,
-wherever the route holds no loop driven from the host
-(``FTPPipeline.capturable``; ``ForwardGraph``).  Debug and ``stop_after``
-pipelines, the CPU, and the routes with a host loop run the forward op by
-op (``forward_eager``).
+jitted one: captured once into a CUDA graph and replayed for every frame
+(``ForwardGraph``), its ECC and PCG loops and its seed pick as conditional
+nodes of that graph (``device_while``, ``device_if``).  Debug and
+``stop_after`` pipelines and the CPU run the forward op by op
+(``forward_eager``).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +67,7 @@ from vistaf_torch.ops.morphology import close as morph_close
 from vistaf_torch.ops.morphology import dilate, ellipse_kernel
 from vistaf_torch.ops.percentile import get_percentile_fn, masked_max
 from vistaf_torch.ops.polyfit import robust_polyfit2d
-from vistaf_torch.ops.registration import ECC_MODES, ecc_align, ecc_route, phase_correlate
+from vistaf_torch.ops.registration import ECC_MODES, ecc_align, phase_correlate
 from vistaf_torch.ops.unwrap import unwrap_wls
 from vistaf_torch.ops.warp import (translate_bilinear, warp_affine_inverse_map,
                                    warp_affine_inverse_shear)
@@ -148,7 +148,7 @@ class FTPPipeline:
     ``stop_after`` truncates the forward after a named stage (one of
     ``STAGES``) and returns ``{'x': ...}``, as the JAX pipeline does.  On
     the card, ``forward`` replays one CUDA graph of ``forward_eager`` where
-    ``graph_route`` holds (see ``capturable``)."""
+    ``graph_route`` holds."""
 
     def __init__(self, cfg: FTPConfig, p2h_model: Dict[str, Any],
                  use_negated_height: bool = True, debug_outputs: bool = False,
@@ -221,53 +221,13 @@ class FTPPipeline:
         if bad:
             raise NotImplementedError(f"vistaf_torch does not run {bad}")
 
-    @staticmethod
-    def _ecc_plan(cfg: FTPConfig, crop) -> Tuple[bool, bool]:
-        """(use_ds, use_c2f): the crop ECC on the ``ecc_downsample`` pooled
-        crop, and seeded by a coarse solve on the ``ecc_coarse_downsample``
-        grid."""
-        ds = int(cfg.ecc_downsample)
-        use_ds = ds > 1 and min(crop) >= cfg.ecc_downsample_min_px
-        use_c2f = (use_ds and int(cfg.ecc_polish_iters) > 0
-                   and int(cfg.ecc_coarse_downsample) > ds and cfg.ecc_warp_mode == "euclidean")
-        return use_ds, use_c2f
-
-    @staticmethod
-    def capturable(cfg: FTPConfig, shape) -> Union[bool, str]:
-        """True where the forward of a frame of ``shape`` (H, W) runs on the
-        device with no host read, so that it can be captured into one CUDA
-        graph; else the name of the loop on its route that the host drives:
-        'ecc_loop' (the crop ECC's Gauss-Newton loop on the host: the gather
-        sampler, the translation and affine modes, the shear sampler above
-        K4's budget), 'prealign_ecc_loop' (the grating-band prealignment's
-        ECC on that loop) or 'pcg_loop' (the unwrap's PCG, pooled or not,
-        anywhere K6 does not run).  A function of the config and the shape
-        only, as the kernels' routing rule is."""
-        x1, x2, y1, y2 = FTPGeometry.from_config(cfg).bbox
-        crop = (min(y2, int(shape[0])) - y1, min(x2, int(shape[1])) - x1)
-        if cfg.use_ecc_crop_alignment:
-            use_ds, use_c2f = FTPPipeline._ecc_plan(cfg, crop)
-            pooled = lambda d: (crop[0] // d, crop[1] // d)   # noqa: E731
-            solves = [((pooled(int(cfg.ecc_downsample)) if use_ds else crop),
-                       cfg.ecc_loop_kernel, use_c2f)]
-            if use_c2f:
-                solves.append((pooled(int(cfg.ecc_coarse_downsample)), False, False))
-            if any(ecc_route(cfg.ecc_warp_mode, cfg.ecc_sampler, *s) == "host"
-                   for s in solves):
-                return "ecc_loop"
-        if cfg.use_grating_band_prealign and ecc_route(
-                cfg.grating_prealign_ecc_mode, cfg.ecc_sampler, crop, False) == "host":
-            return "prealign_ecc_loop"
-        if unwrap_route(cfg, crop)[0] != "k6":
-            return "pcg_loop"
-        return True
-
-    def graph_route(self, shape) -> bool:
-        """Whether ``forward`` replays a CUDA graph for frames of ``shape``:
-        on the card, with neither ``stop_after`` nor ``debug_outputs``,
-        where ``capturable`` holds."""
-        return (self.device.type == "cuda" and self.stop_after is None
-                and not self.debug_outputs and self.capturable(self.cfg, shape) is True)
+    def graph_route(self) -> bool:
+        """Whether ``forward`` replays a CUDA graph: on the card, with
+        neither ``stop_after`` nor ``debug_outputs``.
+        Every route of every config qualifies: its loops and its one branch
+        are ``device_while`` and ``device_if``, and nothing else in the
+        forward reads the device on the host."""
+        return self.device.type == "cuda" and self.stop_after is None and not self.debug_outputs
 
     # ------------------------------------------------------------------
     def __call__(self, ref_bgr, def_bgr) -> Dict[str, Any]:
@@ -337,8 +297,11 @@ class FTPPipeline:
         cfg, g = self.cfg, self.geom
         kw = dict(mode=cfg.ecc_warp_mode, eps=cfg.ecc_eps, stride=cfg.ecc_stride,
                   sampler=cfg.ecc_sampler, stall_patience=cfg.ecc_stall_patience)
-        ds, cds = int(cfg.ecc_downsample), int(cfg.ecc_coarse_downsample)
-        use_ds, use_c2f = self._ecc_plan(cfg, (g.crop_h, g.crop_w))
+        ds = int(cfg.ecc_downsample)
+        use_ds = ds > 1 and min(g.crop_h, g.crop_w) >= cfg.ecc_downsample_min_px
+        cds = int(cfg.ecc_coarse_downsample)
+        use_c2f = (use_ds and int(cfg.ecc_polish_iters) > 0 and cds > ds
+                   and cfg.ecc_warp_mode == "euclidean")
         p_seed = None
         if use_c2f:
             pooled_c, circ_c, k_c = self._pool_crop(crop01, cds)
@@ -469,7 +432,7 @@ class FTPPipeline:
         at the first call for that frame shape and replayed at every later
         one (``ForwardGraph``: frames of another shape raise); elsewhere
         ``forward_eager``."""
-        if self.graph_route(ref_bgr.shape[:2]):
+        if self.graph_route():
             if self._graph is None:
                 self._graph = ForwardGraph(self.forward_eager, self.device)
             return self._graph(ref_bgr, def_bgr)

@@ -6,9 +6,12 @@ fused median/MAD), ``inpaint_kernel`` (K3), ``ecc_kernel`` (K4, the
 per-iteration ECC Gauss-Newton loop), ``ecc_loop_kernel`` (K5, the whole ECC
 solve), ``unwrap_kernel`` (K6, the whole WLS-PCG unwrap) and
 ``polyfit_kernel`` (K7, the whole IRLS fit) and ``temp_kernel`` (K8, the
-fused per-pixel temperature models); and one with no Pallas counterpart,
+fused per-pixel temperature models); and two with no Pallas counterpart,
 ``ccl_kernel`` (the connected-component labels, which the JAX package
-computes with an XLA while loop inside its compiled forward).  The CUDA sources live in
+computes with an XLA while loop inside its compiled forward) and
+``graph_cond_kernel`` (the condition setter of the CUDA-graph conditional
+nodes that stand for the JAX package's ``lax.while_loop`` and ``lax.cond``;
+it counts its runs on the card, not in ``LAUNCHES``).  The CUDA sources live in
 ``vistaf_torch/csrc``; they are compiled by ``nvcc`` into one shared
 library with a plain C interface at first use, into ``vistaf_torch/_build``
 (keyed on a hash of the sources and flags), and loaded with ``ctypes``.
@@ -31,7 +34,7 @@ never on the device, so a CPU run walks the same route as the card.
   port follows it by shape: the ECC takes K5 (whole loop) while
   ``ecc_loop_kernel.fits`` and ``ecc_kernel.fits`` hold and no seed is
   given, else the per-iteration loop of K4 while ``ecc_kernel.fits``
-  holds, else that loop on the host with the plain moments; the polyfit takes K7 while
+  holds, else that loop over the plain moments (a device loop); the polyfit takes K7 while
   ``polyfit_kernel.fits`` holds, else the IRLS with K2 (whose own
   above-budget route is the bisection pair with the |x - med| range as the
   MAD bracket, two K1 launches); ``unwrap_method='wls_pallas'`` takes K6 while
@@ -92,6 +95,7 @@ def padded_elems(shape) -> int:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_ulonglong
 _SIGNATURES = {
     # batch, n, nq, levels -> int32 words of the scratch
     "vt_masked_quantiles_scratch": (_I, _I, _I, _I),
@@ -126,6 +130,17 @@ _SIGNATURES = {
     "vt_temp_params_size": (),
     # mask, parent scratch, out, h, w, stream
     "vt_label_components": (_P, _P, _P, _I, _I, _P),
+    # the graph conditional nodes (graph_cond_kernel): handle out, stream
+    "vt_cond_handle": (_P, _P),
+    # handle, predicate (1 byte), stream
+    "vt_set_conditional": (_U, _P, _P),
+    # handle, kind (0 IF, 1 WHILE), body stream, stream
+    "vt_cond_begin": (_U, _I, _P, _P),
+    # body stream
+    "vt_cond_end": (_P,),
+    # the setter's runs: count out (host)
+    "vt_cond_sets": (_P,),
+    "vt_cond_sets_reset": (),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -40,6 +40,7 @@ import torch
 
 from vistaf_torch import kernels
 from vistaf_torch.ops.warp import hat_resample_axis
+from vistaf_torch.utils.cuda_graph import device_while
 
 # the JAX package's _MAX_ELEMS (pallas/ecc_kernel.py:28)
 _MAX_ELEMS = 200_000
@@ -92,34 +93,38 @@ def gn_moments_euclidean_plain(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Te
 
 
 def gn_loop(moments: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tensor,
-            max_iters: int, eps: float, stall_patience: int):
-    """The Gauss-Newton while loop of the JAX ``ecc_align`` on the host,
-    ``moments(p)`` giving each iteration's (3 + P, 3 + P) matrix for the P
-    warp parameters of ``p0``: ``linalg.solve`` of H + 1e-12 I for both
-    right-hand sides, the lambda step, cv2's
-    StsNoConv failure rule and, with ``stall_patience``, the best-rho
-    iterate on a stall.  The step and rho are computed in the matrix's
-    dtype, the warp parameters stay in ``p0``'s.  The loop condition costs
-    one host sync per iteration.  Returns (p, rho, n_iters, failed) as
+            max_iters: int, eps: float, stall_patience: int,
+            dtype: torch.dtype = torch.float32):
+    """The Gauss-Newton ``lax.while_loop`` of the JAX ``ecc_align``
+    (``vistaf_tpu/ops/registration.py:300-335``) as a ``device_while``,
+    ``moments(p)`` giving each iteration's (3 + P, 3 + P) matrix, in
+    ``dtype``, for the P warp parameters of ``p0``: ``linalg.solve`` of H +
+    1e-12 I for both right-hand sides, the lambda step, cv2's StsNoConv
+    failure rule and, with ``stall_patience``, the best-rho iterate on a
+    stall.  The step and rho are computed in ``dtype``, the warp parameters
+    stay in ``p0``'s.  The state (p, last rho, rho, the int32 trip count,
+    failed, best rho, best p, stall) is made by fills and updated in place;
+    under a capture the loop is a WHILE node, elsewhere its condition is
+    read on the host once a trip.  Returns (p, rho, n_iters, failed) as
     tensors."""
     dev = p0.device
     eye = 1e-12 * torch.eye(p0.numel(), dtype=torch.float32, device=dev)
-    p = p0
-    last_rho = torch.tensor(-2.0, device=dev)
-    rho = torch.tensor(-1.0, device=dev)
-    failed = torch.tensor(False, device=dev)
-    best_rho = torch.tensor(-2.0, device=dev)
-    best_p = p0
-    stall = torch.tensor(0, dtype=torch.int32, device=dev)
-    it = 0
+    state = (p0.clone(), torch.full((), -2.0, dtype=dtype, device=dev),
+             torch.full((), -1.0, dtype=dtype, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             torch.zeros((), dtype=torch.bool, device=dev),
+             torch.full((), -2.0, dtype=dtype, device=dev), p0.clone(),
+             torch.zeros((), dtype=torch.int32, device=dev))
 
-    def going() -> bool:
-        go = (torch.abs(rho - last_rho) >= eps) & ~failed
+    def cond(s):
+        p, last_rho, rho, it, failed, best_rho, best_p, stall = s
+        go = (it < max_iters) & (torch.abs(rho - last_rho) >= eps) & ~failed
         if stall_patience > 0:
             go = go & (stall < stall_patience)
-        return bool(go)
+        return go
 
-    while it < max_iters and going():
+    def body(s):
+        p, last_rho, rho, it, failed, best_rho, best_p, stall = s
         M = moments(p)
         n = torch.clamp(M[0, 0], min=1.0)
         st, si = M[0, 1], M[0, 2]
@@ -140,17 +145,26 @@ def gn_loop(moments: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tensor,
         now_failed = (lam_den <= 0.0) | torch.isnan(new_rho)
         p_new = torch.where(now_failed, p, p_new)
         improved = new_rho > best_rho
-        best_rho = torch.where(improved, new_rho, best_rho)
-        best_p = torch.where(improved, p, best_p)
-        stall = torch.where(improved, 0, stall + 1)
-        p, last_rho, rho = p_new, rho, new_rho
-        failed = failed | now_failed
-        it += 1
+        best_rho_new = torch.where(improved, new_rho, best_rho)
+        best_p_new = torch.where(improved, p, best_p)
+        stall_new = torch.where(improved, 0, stall + 1)
+        # in place, once every read of the old state is done
+        best_rho.copy_(best_rho_new)
+        best_p.copy_(best_p_new)
+        stall.copy_(stall_new)
+        last_rho.copy_(rho)
+        rho.copy_(new_rho)
+        p.copy_(p_new)
+        failed.logical_or_(now_failed)
+        it.add_(1)
+
+    device_while(cond, body, state)
+    p, _, rho, it, failed, best_rho, best_p, stall = state
     if stall_patience > 0:
         stalled = stall >= stall_patience
         p = torch.where(stalled, best_p, p)
         rho = torch.where(stalled, best_rho, rho)
-    return p, rho, torch.tensor(it, dtype=torch.int32, device=dev), failed
+    return p, rho, it, failed
 
 
 def gn_loop_euclidean_plain(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor,

@@ -4,8 +4,8 @@ largest component (the parity preset's), the EDT-seeded dominant component
 pixel indices (row-major flat), background -1: on the card the labelling
 kernel (``kernels/ccl_kernel.py``), on the CPU its plain version, the JAX
 package's neighbour-min rounds.  Nothing here reads the device from the
-host: the JAX package's ``lax.cond`` on the pooled seed is a
-``torch.where`` between two seeds."""
+host but ``device_if``'s plain form: the JAX package's ``lax.cond`` on the
+pooled seed."""
 from __future__ import annotations
 
 import torch
@@ -13,6 +13,7 @@ import torch
 from vistaf_torch.kernels.ccl_kernel import label_components
 from vistaf_torch.ops.distance import distance_transform_edt
 from vistaf_torch.ops.morphology import reconstruct
+from vistaf_torch.utils.cuda_graph import device_if
 
 
 def label(mask: torch.Tensor) -> torch.Tensor:
@@ -41,11 +42,11 @@ def dominant_component(mask: torch.Tensor, seed_pool: int = 1) -> torch.Tensor:
     """The component holding the mask's deepest interior point (EDT argmax,
     first maximum on ties), by geodesic reconstruction.  ``seed_pool`` > 1
     takes the seed from the EDT of the min-pooled mask, and the
-    full-resolution seed where the pooled mask has no interior: the JAX
-    package's ``lax.cond`` between the two, here both seeds computed and one
-    picked with ``torch.where``, so that no value is read on the host."""
+    full-resolution seed only where the pooled mask has no interior: the
+    JAX package's ``lax.cond``, here a ``device_if`` (an IF node in a
+    captured forward), so that the full-resolution transform runs only when
+    the pooled seed fails."""
     h, w = mask.shape
-    seed = _fine_seed(mask)
     if seed_pool > 1 and min(h, w) >= 8 * seed_pool:
         ds = int(seed_pool)
         hh, ww = (h // ds) * ds, (w // ds) * ds
@@ -56,9 +57,11 @@ def dominant_component(mask: torch.Tensor, seed_pool: int = 1) -> torch.Tensor:
         sx = (sf % mp.shape[1]) * ds + ds // 2
         yy = torch.arange(h, device=mask.device)[:, None]
         xx = torch.arange(w, device=mask.device)[None, :]
-        pooled = (yy == sy) & (xx == sx) & mask
-        ok = pooled.any() & (dist.amax() > 0)     # dist[sf], the maximum
-        seed = torch.where(ok, pooled, seed)
+        seed = (yy == sy) & (xx == sx) & mask
+        ok = seed.any() & (dist.amax() > 0)     # dist[sf], the maximum
+        device_if(~ok, lambda s: s.copy_(_fine_seed(mask)), seed)
+    else:
+        seed = _fine_seed(mask)
     return reconstruct(seed, mask)
 
 

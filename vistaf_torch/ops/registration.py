@@ -3,9 +3,10 @@ correlation and the ECC alignment in cv2's translation, euclidean and affine
 motion types.  The euclidean ECC with the shear sampler is routed by shape as
 the JAX package routes it on a TPU: the whole-solve K5 kernel
 (``kernels/ecc_loop_kernel.py``), else the per-iteration loop of K4
-(``kernels/ecc_kernel.py``, the loop on the card), else the same loop on the
-host with the plain moments.  Every other solve is that host loop over the
-plain moments, as the JAX package runs plain XLA for it on a TPU: the shear
+(``kernels/ecc_kernel.py``, the loop on the card), else the same loop over
+the plain moments (``ecc_kernel.gn_loop``, a ``device_while``: a WHILE node
+in a captured forward).  Every other solve is that loop over the plain
+moments, as the JAX package runs plain XLA for it on a TPU: the shear
 sampler in translation or affine mode (the stride folded into the mask), and
 the bilinear-gather sampler (the parity preset's) in any mode, at a stride
 on the subsampled grid."""
@@ -183,16 +184,16 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
         Ts = T[::stride, ::stride]
         p, rho, it, failed = ecc_kernel.gn_loop(
             lambda q: _gather_moments(S_cf, Ts, q, xx, yy, mode), p0, max_iters, eps,
-            stall_patience)
+            stall_patience, dtype=torch.float64)
         return _result(mode, p, rho.to(torch.float32), it, failed)
     smask = torch.zeros_like(T)
     smask[::stride, ::stride] = 1.0
-    route = ecc_route(mode, sampler, tuple(T.shape), loop_kernel, p_init is not None)
-    if route == "k5":
+    fused = mode == "euclidean" and ecc_kernel.fits(T.shape)
+    if fused and loop_kernel and p_init is None and ecc_loop_kernel.fits(T.shape):
         p, rho, it, failed = ecc_loop_euclidean(S_cf, T, smask, K=shear_k,
                                                 max_iters=max_iters, eps=eps,
                                                 stall_patience=stall_patience)
-    elif route == "k4":
+    elif fused:
         p, rho, it, failed = ecc_kernel.gn_loop_euclidean(
             S_cf, T, smask, p0, K=shear_k, max_iters=max_iters, eps=eps,
             stall_patience=stall_patience)
@@ -201,23 +202,6 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
             lambda q: _plain_moments(S_cf, T, smask, q, shear_k, mode), p0, max_iters, eps,
             stall_patience)
     return _result(mode, p, rho, it, failed)
-
-
-def ecc_route(mode: str, sampler: str, shape, loop_kernel: bool = True,
-              seeded: bool = False) -> str:
-    """The solve ``ecc_align`` takes for a template of ``shape``: 'k5' (the
-    whole euclidean shear solve in one launch, unseeded, while
-    ``ecc_loop_kernel.fits`` and K4's ``fits`` hold), 'k4' (the euclidean
-    per-iteration loop in one cooperative launch, while K4's budget holds)
-    or 'host' (the Gauss-Newton loop on the host, one sync an iteration:
-    the gather sampler, the translation and affine modes and the shear
-    sampler above K4's budget).  The JAX package's routing by shape."""
-    if sampler == "gather":
-        return "host"
-    fused = mode == "euclidean" and ecc_kernel.fits(shape)
-    if fused and loop_kernel and not seeded and ecc_loop_kernel.fits(shape):
-        return "k5"
-    return "k4" if fused else "host"
 
 
 def _result(mode, p, rho, it, failed):

@@ -6,8 +6,9 @@ solve on a pooled grid, pooled in the complex domain, upsampled as
 dense matmuls below ``_DCT_FFT_MIN_PX`` and an FFT above it (Makhoul's
 even/odd reordering, one complex FFT and a twiddle a transform, as the JAX
 package's ``jax.scipy.fft.dct``; the full-resolution parity solve at native
-4K takes it).  The PCG ``while_loop`` is a Python loop whose convergence
-check is one host sync per iteration.  The K6 kernel
+4K takes it).  The PCG ``while_loop`` is a ``device_while``: a WHILE node in
+a captured forward, else a loop whose condition is read on the host once an
+iteration.  The K6 kernel
 (``kernels/unwrap_kernel.py``) is the ``wls_pallas`` route."""
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from vistaf_torch.ops.consts import DeviceConsts
+from vistaf_torch.utils.cuda_graph import device_while
 
 
 def wrap_angle(x: torch.Tensor) -> torch.Tensor:
@@ -104,12 +106,12 @@ def _poisson_dct_solve(rho: torch.Tensor, consts: DeviceConsts) -> torch.Tensor:
     denom = consts.get(("poisson_denom", h, w), lambda: _poisson_denominator(h, w))
     if not dense_dct_solve((h, w)):
         out = dct_ortho(dct_ortho(rho, 0, consts), 1, consts) / denom
-        out[0, 0] = 0.0
+        out[0, 0].zero_()
         return idct_ortho(idct_ortho(out, 0, consts), 1, consts)
     Dh = consts.get(("dct", h), lambda: _dct2_matrix(h))
     Dw = consts.get(("dct", w), lambda: _dct2_matrix(w))
     out = torch.matmul(torch.matmul(Dh, rho), Dw.T) / denom
-    out[0, 0] = 0.0
+    out[0, 0].zero_()
     return torch.matmul(torch.matmul(Dh.T, out), Dw)
 
 
@@ -130,6 +132,8 @@ def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _wls_pcg_solve(psi: torch.Tensor, m: torch.Tensor, cg_iters: int, tol: float,
                    consts: DeviceConsts) -> torch.Tensor:
+    """The JAX ``lax.while_loop`` PCG as a ``device_while`` over the state
+    (phi, r, p, rz, the int32 trip count), updated in place."""
     wx = m[:, 1:] * m[:, :-1]
     wy = m[1:, :] * m[:-1, :]
     dx = wrap_angle(psi[:, 1:] - psi[:, :-1]) * wx
@@ -141,19 +145,27 @@ def _wls_pcg_solve(psi: torch.Tensor, m: torch.Tensor, cg_iters: int, tol: float
     p = z
     rz = _vdot(r, z)
     stop = tol * tol * _vdot(r, r)
-    it = 0
-    while it < cg_iters and bool(_vdot(r, r) > stop):
+    state = (phi, r, p, rz, torch.zeros((), dtype=torch.int32, device=psi.device))
+
+    def cond(s):
+        phi, r, p, rz, it = s
+        return (it < cg_iters) & (_vdot(r, r) > stop)
+
+    def body(s):
+        phi, r, p, rz, it = s
         Ap = _apply_wlap(p, wx, wy)
         pAp = _vdot(p, Ap)
         alpha = rz / torch.where(torch.abs(pAp) < 1e-30, 1e-30, pAp)
-        phi = phi + alpha * p
-        r = r - alpha * Ap
+        phi.copy_(phi + alpha * p)
+        r.copy_(r - alpha * Ap)
         z = _poisson_dct_solve(r, consts)
         rz_new = _vdot(r, z)
         beta = rz_new / torch.where(torch.abs(rz) < 1e-30, 1e-30, rz)
-        p = z + beta * p
-        rz = rz_new
-        it += 1
+        p.copy_(z + beta * p)
+        rz.copy_(rz_new)
+        it.add_(1)
+
+    device_while(cond, body, state)
     return phi
 
 
