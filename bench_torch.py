@@ -74,10 +74,13 @@ call (sync debug mode) and the hand-written kernels it launched
 (``profiling.profile_window``: device busy ms and share, launches, the
 heaviest device work, device-to-host copies), each per call.
 
-Route: every row's line says how its force forward runs: ``route`` is
-``graph`` where it replays one CUDA graph (``FTPPipeline.graph_route``:
-every force forward on the card, its ECC and PCG loops and its seed pick as
-conditional nodes), else ``eager`` (the rows without a force forward).  The profiled window counts the graph replays
+Route: every row's line says how its forwards run: ``route`` is ``graph``
+where each replays a CUDA graph (the ``graph_route`` of the row's
+``FTPPipeline``, ``TemperaturePipeline`` or ``MultimodalPipeline``: every
+forward on the card, the force forward's ECC and PCG loops and its seed
+pick, and the temperature forward's shear fold, as conditional nodes;
+``step_fused`` one graph of both forwards), else ``eager`` (the rows with
+no forward: decode, uploads).  The profiled window counts the graph replays
 (``graph_launches_per_frame``) apart from the kernel launches.
 
 Correctness: each row holds its output to its gate once, before timing,
@@ -109,7 +112,7 @@ import sys
 import tempfile
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -169,16 +172,17 @@ class Row:
     timing: Timing = FAST
     rates: Optional[Callable[[float], Dict[str, Any]]] = None
     group: Optional[str] = None
-    ftp: Optional[Any] = None     # the FTPPipeline of the row's force forward
+    # the pipelines whose forwards the row runs (each with ``graph_route``)
+    routed: Tuple[Any, ...] = ()
 
 
-def forward_route(ftp) -> Dict[str, Any]:
-    """``route``: 'graph' where the row's force forward replays a CUDA graph
-    (``FTPPipeline.graph_route``), else 'eager' (on the CPU, and rows without
-    a force forward)."""
-    if ftp is None:
-        return {"route": "eager"}
-    return {"route": "graph" if ftp.graph_route() else "eager"}
+def forward_route(routed) -> Dict[str, Any]:
+    """``route``: 'graph' where every forward of the row replays a CUDA
+    graph (the ``graph_route`` of its ``FTPPipeline``,
+    ``TemperaturePipeline`` or ``MultimodalPipeline``), else 'eager' (on
+    the CPU, and rows with no forward)."""
+    graph = bool(routed) and all(p.graph_route() for p in routed)
+    return {"route": "graph" if graph else "eager"}
 
 
 def fps(p50_ms: float) -> Dict[str, float]:
@@ -260,7 +264,7 @@ def force_row(path: str, device, timing=FAST, what=None) -> Row:
                 "jax": line}
     return Row(path, what or f"frame->force ({path}): forward + volume + force model, frames "
                "on the device, the force fetched", lambda: device_force(pipe, r, d), gate,
-               timing, fps, ftp=pipe.ftp)
+               timing, fps, routed=(pipe.ftp,))
 
 
 def suite_default(device) -> List[Row]:
@@ -272,7 +276,7 @@ def suite_default(device) -> List[Row]:
         return {"against": "jax_record", **force_gap("640", pipe(ref, de)["force_N"])}
     call = Row("640_call", "ForcePipeline.__call__ from numpy frames (BASELINE config 1): "
                "uploads, forward, every map to the host", lambda: pipe(ref, de), gate_call,
-               FAST, fps, ftp=pipe.ftp)
+               FAST, fps, routed=(pipe.ftp,))
     head = force_row("640", device, what="bench.py: 640x480 frame->force (BASELINE config "
                      "1), frames on the device, the force fetched")
     return [head, call]
@@ -319,9 +323,10 @@ def temperature_rows(device, cfg, path: str) -> List[Row]:
         smoke.check_jax_inputs(path, frame=frame, **smoke.model_arrays((color, wide)))
         return {"against": "jax_record", **stats_gaps(path, tp.stats(frame))}
     return [Row(path, f"TemperaturePipeline.__call__ ({path}) from a numpy frame, every map "
-                "to the host", lambda: tp(frame), gate_call, FAST, fps),
+                "to the host", lambda: tp(frame), gate_call, FAST, fps, routed=(tp,)),
             Row(f"{path}_stats", f"TemperaturePipeline.stats ({path}) from a numpy frame, "
-                "one scalar fetch", lambda: tp.stats(frame), gate_stats, FAST, fps)]
+                "one scalar fetch", lambda: tp.stats(frame), gate_stats, FAST, fps,
+                routed=(tp,))]
 
 
 def multimodal_rows(device, path: str, fcfg, tcfg) -> List[Row]:
@@ -375,15 +380,15 @@ def multimodal_rows(device, path: str, fcfg, tcfg) -> List[Row]:
     return [
         Row(f"{path}_force", "the force alone: forward + volume + force model, frames on the "
             "device, the force fetched", lambda: device_force(force, r, d), gate_force,
-            SLOW, fps, ftp=force.ftp),
+            SLOW, fps, routed=(force.ftp,)),
         Row(f"{path}_temp", "the temperature forward alone, the frame on the device, its "
-            "scene scalars fetched", temp_alone, gate_temp, FAST, fps),
+            "scene scalars fetched", temp_alone, gate_temp, FAST, fps, routed=(temp,)),
         Row(f"{path}_call", "MultimodalPipeline.__call__ from numpy frames (one pinned "
             "upload of the deformed frame), every map to the host", lambda: mm(ref, de),
-            gate_call, SLOW, fps, ftp=force.ftp),
+            gate_call, SLOW, fps, routed=(force.ftp, temp)),
         Row(f"{path}_scalars", "MultimodalPipeline.step_fused(fetch='scalars') from numpy "
             "frames, one fetch of the scalars", lambda: mm.step_fused(ref, de, fetch="scalars"),
-            gate_scalars, SLOW, fps, ftp=force.ftp)]
+            gate_scalars, SLOW, fps, routed=(mm,))]
 
 
 def suite_mm(device) -> List[Row]:
@@ -437,10 +442,10 @@ def limb_rows(device) -> List[Row]:
     return [Row("limb640", "whole_limb_step over 4 streams at 640x480 (BASELINE config 5), "
                 "world-1 mesh, the total force fetched",
                 lambda: float(step(rs, ds)["total_force_N"]), gate, SLOW, limb_rates,
-                ftp=bf.pipe),
+                routed=(bf.pipe,)),
             Row("limb640_aux", "whole_limb_step_aux (poses, IMU gates) over the same streams",
                 lambda: float(step_aux(rs, ds, aux)["total_force_N"]), gate, SLOW,
-                limb_rates, ftp=bf.pipe)]
+                limb_rates, routed=(bf.pipe,))]
 
 
 def suite_streams(device) -> List[Row]:
@@ -455,7 +460,7 @@ def suite_streams(device) -> List[Row]:
         return {"against": "jax_record", "jax": line}
     rows = [Row("streams640", "StreamingForce, 4 streams at 640x480, window 8 (BASELINE "
                 "config 4): one batch on the device, its outputs fetched",
-                lambda: sf(r, b), gate, SLOW, stream_rates, ftp=bf.pipe)]
+                lambda: sf(r, b), gate, SLOW, stream_rates, routed=(bf.pipe,))]
     rows += limb_rows(device)
     rows += temperature_rows(device, TempConfig().deploy(), "temp4k")
     rows += temperature_rows(device, TempConfig(), "temp4k_parity")
@@ -490,10 +495,10 @@ def suite_config23(device) -> List[Row]:
                 "force_N_call": want, "gap": gap, "map_sum_gap": map_gap}
     return [Row("config2", "ForcePipeline.contact_classification_device at 640x480 deploy "
                 "(BASELINE config 2), frames on the device, the contact area fetched",
-                lambda: float(c2(r, d)[1]), gate2, FAST, fps, ftp=pipe.ftp),
+                lambda: float(c2(r, d)[1]), gate2, FAST, fps, routed=(pipe.ftp,)),
             Row("config3", "ForcePipeline.force_map_device at 640x480 deploy (BASELINE "
                 "config 3), frames on the device, the force fetched",
-                lambda: float(c3(r, d)[2]), gate3, FAST, fps, ftp=pipe.ftp)]
+                lambda: float(c3(r, d)[2]), gate3, FAST, fps, routed=(pipe.ftp,))]
 
 
 # ---------------------------------------------------------------------------
@@ -558,7 +563,7 @@ def suite_ingest(device) -> List[Row]:
                 "gap": gap}
     rows.append(Row("camera_to_force", "decode, upload, the 2160x3840 deploy forward + "
                     "volume + force model, the force fetched; serialized per frame", camera,
-                    gate_camera, SLOW, fps, ftp=fp.ftp))
+                    gate_camera, SLOW, fps, routed=(fp.ftp,)))
 
     color, wide = synthetic_deploy_temp_weights(smoke.SEED)
     mm = MultimodalPipeline(ForcePipeline(*force_args(fcfg), device=device),
@@ -599,16 +604,16 @@ def suite_ingest(device) -> List[Row]:
             assert abs(sc[f"t_{k}_C"] - ts[f"{k}_C"]) <= smoke.MM_STATS_ATOL, (k, sc, ts)
         assert sc["valid_pixels"] == ts["valid_pixels"], (sc, ts)
         return {"against": "MultimodalPipeline.__call__ (one upload)", "scalars": sc}
-    for name, fn, gate, what in (
+    both = (mm.force.ftp, mm.temperature)
+    for name, fn, gate, what, routed in (
             ("mm_2_uploads", two_uploads, gate_two, "ForcePipeline and TemperaturePipeline "
-             "each given the numpy frame: two pageable uploads"),
+             "each given the numpy frame: two pageable uploads", both),
             ("mm_ingest_1_upload", one_upload, gate_one, "MultimodalPipeline.__call__ given "
-             "ingest's one pinned upload"),
+             "ingest's one pinned upload", both),
             ("mm_fused_scalars_1_upload", fused, gate_fused, "MultimodalPipeline.step_fused("
-             "fetch='scalars') from the numpy frame: one pinned upload")):
+             "fetch='scalars') from the numpy frame: one pinned upload", (mm,))):
         rows.append(Row(name, f"2160x3840 multimodal deploy, the reference on the device: "
-                        f"{what}", fn, gate, SLOW, fps, group="mm_ingest",
-                        ftp=mm.force.ftp))
+                        f"{what}", fn, gate, SLOW, fps, group="mm_ingest", routed=routed))
 
     cfg, refs, seq = smoke.stream_inputs()
     bf_serial, bf_over = batched_force(cfg, device), batched_force(cfg, device)
@@ -632,11 +637,11 @@ def suite_ingest(device) -> List[Row]:
     rows.append(Row("streams_serialized", "six streams640 batches from numpy, each uploaded, "
                     "stepped and fetched in turn", lambda: [sf_serial(refs, b) for b in seq],
                     gate_streams, SEQUENCE, seq_rates, group="streams_ingest",
-                    ftp=bf_serial.pipe))
+                    routed=(bf_serial.pipe,)))
     rows.append(Row("streams_overlapped", "the same six batches through "
                     "StreamingForce.run_overlapped (pinned double-buffered uploads)",
                     lambda: sf_over.run_overlapped(refs, seq), gate_streams, SEQUENCE,
-                    seq_rates, group="streams_ingest", ftp=bf_over.pipe))
+                    seq_rates, group="streams_ingest", routed=(bf_over.pipe,)))
     return rows
 
 
@@ -710,7 +715,7 @@ def run_rows(suite: str, rows: List[Row], device, card: Optional[str],
         try:
             for row in members:
                 lines[row.name] = {"row": row.name, "suite": suite, "what": row.what,
-                                   "device": str(device), **forward_route(row.ftp),
+                                   "device": str(device), **forward_route(row.routed),
                                    **run_gate(row)}
                 for _ in range(W - 1):
                     row.fn()

@@ -35,15 +35,23 @@ Phases, one line each, any failure raises and exits non-zero:
      ``parity640``, ``hist640``, ``knob_translation``, ``knob_affine``, and
      at 2160x3840 ``4k``, ``parity4k``, ``prealign4k``, ``takeda4k``,
      ``window4k`` and the force halves of the multimodal paths), its ECC and
-     PCG loops WHILE nodes and its seed pick an IF node of its CUDA graph,
-     replayed against the same forward run op by op (``forward_eager``) on
-     three frame pairs after the capture call: every output bit for bit,
+     PCG loops WHILE nodes and its seed pick an IF node of its CUDA graph;
+     the 2160x3840 temperature forwards under both presets, maps and stats
+     (the shear fold's branch two IF nodes), and the fused multimodal steps
+     under both presets, maps and scalars: each replayed against the same
+     forward run op by op (``forward_eager``, ``fused_forward_eager``) on
+     three frame pairs (two frames on the temperature forwards) after the
+     capture call: every output bit for bit,
      the same ECC iterations, the exact launches a frame
      (``GRAPH_LAUNCHES``) under both, the condition setter's runs in the
-     replays (its kernel row's ``launches``); the replayed 640 and 4K deploy
-     forwards under the sync debug mode "error"; one round of the 640, 4K
-     deploy and 4K parity routes' time, the replay's device time and the
-     full-resolution seed's (``graph_timing``, not gated);
+     replays (its kernel row's ``launches``); the fold alone at even and odd
+     quarter turns; the replayed 640 and 4K deploy forwards, the 4K deploy
+     temperature stats and fused scalars under the sync debug mode "error";
+     one round of eager against graph time on the 640, 4K deploy and 4K
+     parity force routes and the temperature and fused routes, the replay's
+     device time, its outputs' clone and the full-resolution seed's
+     (``graph_timing``, not gated); the memory reserved (``memory``, also
+     after ``mm4k_parity`` and at the end);
   4. end to end at 640x480: ForcePipeline under the deploy preset as
      shipped, K1, K3, K5, K6, K7 and the labels must launch, force within 1% of the
      same port run on the CPU;
@@ -51,6 +59,7 @@ Phases, one line each, any failure raises and exits non-zero:
      K2, K3 and K4 must launch, force within 1% and the ECC warp within
      0.05 px of the port's CPU run;
   6. end to end at 2160x3840: TemperaturePipeline under TempConfig().deploy()
+     (one CUDA graph a forward, as on every temperature path from here on)
      on a synthetic thermochromic frame with models of the shipped form, K1,
      K3 and K8 must launch, against the port's CPU run: equal carrier bin,
      t_mean within 0.1 degC, t_min and t_max within 0.75 degC, valid pixels
@@ -58,8 +67,10 @@ Phases, one line each, any failure raises and exits non-zero:
   7. multimodal at 2160x3840: MultimodalPipeline over the 4K force and
      temperature pipelines, on a frame pair that carries the grating and the
      thermochromic colours (``compose_multimodal_frame``); K1, K2, K3, K4
-     and K8 must launch; ``__call__`` bit-equal to the two pipelines alone,
-     ``step_fused(maps)`` and ``(scalars)`` within the gates of
+     and K8 must launch; ``__call__`` (over a force pipeline with debug
+     outputs, so eager, its temperature half a replay) bit-equal to the two
+     pipelines alone, ``step_fused(maps)`` and ``(scalars)`` (over the
+     graph-routed 4K force pipeline: one replay each) within the gates of
      tests/test_multimodal_fused.py, the scalar fetch one device-to-host
      copy of the scalars; against the port's CPU run: force within 1%,
      t_mean within 0.1 degC, t_min and t_max within 0.75 degC, valid pixels
@@ -181,12 +192,14 @@ device line.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 
@@ -452,6 +465,8 @@ LIMB_STRIDE, LIMB_CANVAS = 2, (2 * H, 2 * W)
 # PyTorch) and the other paths' tables above (a multimodal force half
 # launches what its force path launches)
 GRAPH_PAIRS = 3
+# the 4K temperature forwards take two (the phase's share of the run's time)
+TEMP_GRAPH_PAIRS = 2
 FRAME_640 = {"masked_quantiles": 7, "inpaint_diffusion": 1, "ecc_loop_euclidean": 1,
              "unwrap_wls": 1, "robust_polyfit2d": 2, "label_components": 2}
 GRAPH_LAUNCHES = {"640": FRAME_640, "config2": FRAME_640, "config3": FRAME_640,
@@ -468,6 +483,42 @@ GRAPH_LAUNCHES = {"640": FRAME_640, "config2": FRAME_640, "config3": FRAME_640,
 PATH_EXACT_LAUNCHES["limb640"] = {"masked_quantiles": 7, "inpaint_diffusion": 1,
                                   "ecc_loop_euclidean": 1, "unwrap_wls": 1,
                                   "robust_polyfit2d": 2, "label_components": 2}
+# the graph phase's temperature forwards (maps and stats alike: K1 the
+# segmentation median, K3 the WIDE and COLOR fills, K8 the models under
+# deploy) and fused multimodal steps (a force frame and a temperature frame)
+TEMP_FRAME_4K = {"masked_quantiles": 1, "inpaint_diffusion": 2, "fused_temperature": 1}
+GRAPH_LAUNCHES.update({
+    "temp4k": TEMP_FRAME_4K, "temp4k_stats": TEMP_FRAME_4K,
+    "temp4k_parity": PATH_EXACT_LAUNCHES["temp4k_parity"],
+    "temp4k_parity_stats": PATH_EXACT_LAUNCHES["temp4k_parity"],
+    "mm4k_fused": RUNNER_LAUNCHES["session_deploy"],
+    "mm4k_fused_scalars": RUNNER_LAUNCHES["session_deploy"],
+    "mm4k_parity_fused": PATH_EXACT_LAUNCHES["mm4k_parity"],
+    "mm4k_parity_fused_scalars": PATH_EXACT_LAUNCHES["mm4k_parity"]})
+# the condition setter's runs a replay where they are known: the shear
+# fold's two IF nodes (deploy), none under the gather rotation (parity); the
+# other graphs' loops run it a data-dependent number of times (> 0)
+GRAPH_SETS = {"temp4k": 2, "temp4k_stats": 2, "temp4k_parity": 0, "temp4k_parity_stats": 0}
+# the paths whose eager and graph times the graph phase reports
+# (graph_timing), and the fold's angles (its quarter turns 0, 1, 1, -1, 2)
+GRAPH_TIMED = ("640", "4k", "parity4k", "temp4k", "temp4k_stats", "temp4k_parity_stats",
+               "mm4k_fused_scalars", "mm4k_parity_fused_scalars")
+FOLD_ANGLES_DEG = (20.0, 70.0, 100.0, -95.0, 185.0)
+
+
+class GraphPath(NamedTuple):
+    """A path of the graph phase: its replayed and its eager function, the
+    inputs of each call, the FTPPipelines whose ECC iterations are compared
+    (the replayed one's first), the frames a call, what ``graph_route``
+    is asked of and the replayed ``ForwardGraph``."""
+    path: str
+    fn_g: Callable
+    fn_e: Callable
+    inputs: list
+    ftps: tuple
+    per_call: int
+    routed: Any
+    graph: Callable
 # the runner's file contract without figures (matplotlib), as the JAX runner
 # writes it (tests/test_torch_runner.py and tests/test_torch_cli.py hold
 # these to the JAX trees): the force command with --export-heightmaps, and
@@ -514,6 +565,17 @@ def input_digest(a) -> str:
 
 def say(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def say_memory(after: str) -> None:
+    """A ``memory`` line: the card's memory PyTorch reserves, and the graphs
+    kept for the life of the process (those with a WHILE node)."""
+    import torch
+    from vistaf_torch.utils import cuda_graph
+    say("memory", after=after, gated=False,
+        memory_reserved_gib=torch.cuda.memory_reserved() / 2 ** 30,
+        max_memory_reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+        retained_graphs=len(cuda_graph._RETAINED))
 
 
 def card_line() -> str:
@@ -1603,7 +1665,8 @@ def run_temperature(device, rows, cfg, path: str):
              for k in ("mask_dark", "mask_sat", "mask_color_support")}
     fa, fb = np.isfinite(final), np.isfinite(res_cpu["temperature_map_final"])
     both = fa & fb
-    say("end_to_end", path=path, **{k: float(res[k]) for k in STATS},
+    assert gpu.graph_route(), path
+    say("end_to_end", path=path, route="graph", **{k: float(res[k]) for k in STATS},
         seg_peak_xy=res["seg_peak_xy"].tolist(), seg_peak_xy_cpu=res_cpu["seg_peak_xy"].tolist(),
         **{f"{k}_cpu": float(res_cpu[k]) for k in ("t_mean", "t_min", "t_max")},
         **{f"{k}_gap": v for k, v in gaps.items()}, valid_pixels_gap=valid_gap,
@@ -1643,16 +1706,17 @@ def multimodal_inputs(fcfg, tcfg):
     return compose_multimodal_frame(ref_g, tlc), compose_multimodal_frame(de_g, tlc)
 
 
-def run_multimodal(device, rows, force, temp, path: str, timed_force=None):
+def run_multimodal(device, rows, force, temp, path: str, timed_force):
     """Drive MultimodalPipeline at 2160x3840 on the card over the 4K force
     and temperature pipelines built above (the deploy presets on the
     ``mm4k`` path, the parity presets on ``mm4k_parity``), on a frame pair
     that carries the grating and the thermochromic colours: ``__call__``
-    (launches counted from 0 over that frame), then ``step_fused`` with both
-    fetches, each held to its gates; the device-to-host copies of the scalar
-    fetch; the port's CPU run of the same frames (on a parity path the force
-    also given the card's alignment).  Returns (pipeline to time, ref, def):
-    over ``timed_force`` where one is given."""
+    over ``force``, a debug pipeline (launches counted from 0 over that
+    frame), then ``step_fused`` with both fetches over ``timed_force``, the
+    graph route, each held to its gates; the device-to-host copies of the
+    scalar fetch; the port's CPU run of the same frames (on a parity path
+    the force also given the card's alignment).  Returns (the pipeline over
+    ``timed_force``, to time, ref, def)."""
     import torch
     from vistaf_torch import kernels
     from vistaf_torch.config import ForceConfig
@@ -1681,9 +1745,11 @@ def run_multimodal(device, rows, force, temp, path: str, timed_force=None):
         np.testing.assert_array_equal(seq["temperature"][k], v, err_msg=k)
     assert temperature_stats(alone, tcfg.crop_output_to_outer_roi) == seq["temperature_stats"]
 
-    maps = mm.step_fused(ref, de_t, fetch="maps")
+    fused = MultimodalPipeline(timed_force, temp)
+    assert fused.graph_route() and temp.graph_route() and not mm.graph_route(), path
+    maps = fused.step_fused(ref, de_t, fetch="maps")
     kernels.reset_launches()
-    sc = mm.step_fused(ref, de, fetch="scalars")
+    sc = fused.step_fused(ref, de, fetch="scalars")
     torch.cuda.synchronize()
     launches_fused = dict(kernels.LAUNCHES)
     fs, ff = seq["force"], maps["force"]
@@ -1705,12 +1771,13 @@ def run_multimodal(device, rows, force, temp, path: str, timed_force=None):
     for k in ("mean", "min", "max"):
         assert abs(sc[f"t_{k}_C"] - st[f"{k}_C"]) <= MM_STATS_ATOL, (k, sc, st)
 
-    # the scalar fetch's own device-to-host traffic: one copy of the scalars
+    # the scalar fetch's own device-to-host traffic: one copy of the scalars,
+    # and none in the replayed forward
     ref_t = mm.ingest(ref)
-    base_n, base_b = d2h_copies(lambda: mm.fused_forward(ref_t, de_t, stats_only=True))
-    fetch_n, fetch_b = d2h_copies(lambda: mm.step_fused(ref_t, de_t, fetch="scalars"))
+    base_n, base_b = d2h_copies(lambda: fused.fused_forward(ref_t, de_t, stats_only=True))
+    fetch_n, fetch_b = d2h_copies(lambda: fused.step_fused(ref_t, de_t, fetch="scalars"))
     extra_n, extra_b = fetch_n - base_n, sum(fetch_b) - sum(base_b)
-    assert base_n > 0 and extra_n == 1 and extra_b == 8 * len(sc), (base_n, fetch_n, fetch_b)
+    assert base_n == 0 and extra_n == 1 and extra_b == 8 * len(sc), (base_n, fetch_n, fetch_b)
     assert max(fetch_b) <= 8 * len(sc), fetch_b
 
     tres = seq["temperature"]
@@ -1734,6 +1801,8 @@ def run_multimodal(device, rows, force, temp, path: str, timed_force=None):
         d2h_copies_forward=base_n, d2h_copies_scalars=fetch_n,
         d2h_bytes_scalars_fetch=extra_b, d2h_bytes_scalars_step=sum(fetch_b),
         launches=launches, launches_fused_scalars=launches_fused,
+        route_call="graph" if temp.graph_route() else "eager",
+        route_fused="graph" if fused.graph_route() else "eager",
         gated=path not in ALIGNMENT_UNDETERMINED)
     assert np.isfinite(fs["force_N"]) and fs["force_N"] > 0.0, fs["force_N"]
     if path in SAME_ALIGNMENT_PATHS:
@@ -1765,9 +1834,7 @@ def run_multimodal(device, rows, force, temp, path: str, timed_force=None):
     hold_force_to_jax(path, (fcfg, ForceConfig(), P2H_MODEL, FORCE_MODEL), ref, de, fs, device,
                       roi_from_finite=True, inputs=model_arrays((color, wide)))
     hold_temperature_to_jax(path, tres, stats=ts, scalars=sc)
-    if timed_force is not None:
-        mm = MultimodalPipeline(timed_force, temp)
-    return mm, ref, de
+    return fused, ref, de
 
 
 def same_outputs(path: str, got, want) -> None:
@@ -1808,15 +1875,24 @@ def ecc_probe(ftp) -> list:
 
 def run_graph(device, rows, card):
     """The graph phase: every force path's forward replayed from its CUDA
-    graph (its ECC and PCG loops WHILE nodes, its seed pick an IF node) and
-    run op by op (``forward_eager``) on GRAPH_PAIRS frame pairs after the
-    capture call: every output bit for bit, the same ECC iterations, the
-    launches a frame of GRAPH_LAUNCHES under both; the condition setter's
-    runs in the replays (``launches`` of its kernel row); the replayed 640
-    and 4K deploy forwards under the sync debug mode "error"; one round of
-    the 640, 4K deploy and 4K parity routes' time and the full-resolution
-    seed's (the ``lax.cond`` branch that an IF node now runs only when the
-    pooled seed fails)."""
+    graph (its ECC and PCG loops WHILE nodes, its seed pick an IF node), the
+    2160x3840 temperature forwards (maps and stats, both presets; the shear
+    fold's branch an IF node) and the fused multimodal steps (maps and
+    scalars, both presets) replayed from theirs, each against the same
+    forward run op by op (``forward_eager``, ``fused_forward_eager``) on
+    GRAPH_PAIRS frames (TEMP_GRAPH_PAIRS on the temperature forwards) after
+    the capture call: every output bit for bit, the
+    same ECC iterations, the launches a frame of GRAPH_LAUNCHES under both;
+    the condition setter's runs in the replays (``launches`` of its kernel
+    row); the fold on a small plane at even and odd quarter turns, replayed
+    against its eager run; the replayed 640 and 4K deploy forwards, the 4K
+    deploy temperature stats and the fused 4K deploy scalars under the sync
+    debug mode "error"; one round of eager against graph time on the 640,
+    4K deploy and 4K parity force routes and the temperature and fused
+    multimodal ones, with the full-resolution seed's time (the ``lax.cond``
+    branch that an IF node now runs only when the pooled seed fails) and
+    the time of cloning a replay's outputs (``graph_timing``); the memory
+    the graphs reserve."""
     import torch
     from vistaf_torch import kernels
     from vistaf_torch.config import ForceConfig, FTPConfig, TempConfig
@@ -1827,8 +1903,12 @@ def run_graph(device, rows, card):
     from vistaf_torch.parallel import (BatchedForce, make_stream_mesh, shard_batch,
                                        whole_limb_step, whole_limb_step_aux)
     from vistaf_torch.pipelines.force import ForcePipeline
+    from vistaf_torch.pipelines.multimodal import MultimodalPipeline
+    from vistaf_torch.temperature.inference import TemperaturePipeline
     from vistaf_torch.utils import profiling
-    from vistaf_torch.utils.synthetic import synthetic_pair, synthetic_tlc_frame
+    from vistaf_torch.utils.cuda_graph import _clone
+    from vistaf_torch.utils.synthetic import (synthetic_deploy_temp_weights, synthetic_pair,
+                                              synthetic_tlc_frame)
 
     cfgs = force_path_configs()
     up = lambda a: torch.as_tensor(a, device=device)     # noqa: E731
@@ -1844,35 +1924,41 @@ def run_graph(device, rows, card):
                                                      dent_depth_rad=DENTS_RAD[k]))
                 for k in range(GRAPH_PAIRS)]
 
-    paths = []     # (path, graph fn, eager fn, inputs, (graph ftp, eager ftp), frames a call)
+    def force_path(path, g, e, fn_g, fn_e, inputs, per_call=1):
+        return GraphPath(path, fn_g, fn_e, inputs, (g.ftp, e.ftp), per_call, g.ftp,
+                         lambda: g.ftp._graph)
+
+    paths = []
     for path in ("640", "prealign640", "irls640", "parity640", "hist640", "knob_translation",
                  "knob_affine"):
         g, e = pair(cfgs[path][0])
-        paths.append((path, g.ftp.forward, e.ftp.forward, frames(cfgs[path][0]), (g, e), 1))
+        paths.append(force_path(path, g, e, g.ftp.forward, e.ftp.forward,
+                                frames(cfgs[path][0])))
     # the 2160x3840 paths share their frames (every preset there has the
     # same circle); the multimodal force halves take them under the
     # thermochromic colours (compose_multimodal_frame)
     frames4k = frames(FTPConfig(), H4K, W4K)
     for path in ("4k", "parity4k", "prealign4k", "takeda4k", "window4k"):
         g, e = pair(cfgs[path][0])
-        paths.append((path, g.ftp.forward, e.ftp.forward, frames4k, (g, e), 1))
+        paths.append(force_path(path, g, e, g.ftp.forward, e.ftp.forward, frames4k))
     tlc = synthetic_tlc_frame(H4K, W4K, TempConfig(), SEED)
     frames_mm = [tuple(up(compose_multimodal_frame(f.cpu().numpy(), tlc)) for f in fr)
                  for fr in frames4k]
     for path, c in (("mm4k_force", FTPConfig().deploy()), ("mm4k_parity_force", FTPConfig())):
         g, e = pair(c)
-        paths.append((path, g.ftp.forward, e.ftp.forward, frames_mm, (g, e), 1))
+        paths.append(force_path(path, g, e, g.ftp.forward, e.ftp.forward, frames_mm))
     g, e = pair(cfgs["640"][0])
-    paths.append(("config2", g.contact_classification_device(),
-                  e.contact_classification_device(), frames(cfgs["640"][0]), (g, e), 1))
+    paths.append(force_path("config2", g, e, g.contact_classification_device(),
+                            e.contact_classification_device(), frames(cfgs["640"][0])))
     g, e = pair(cfgs["640"][0])
-    paths.append(("config3", g.force_map_device(), e.force_map_device(),
-                  frames(cfgs["640"][0]), (g, e), 1))
+    paths.append(force_path("config3", g, e, g.force_map_device(), e.force_map_device(),
+                            frames(cfgs["640"][0])))
     cfg_s, refs, seq = stream_inputs()
     g, e = pair(cfg_s)
     bfs = [BatchedForce(p.ftp, FORCE_MODEL) for p in (g, e)]
     batches = [(up(refs), up(seq[k])) for k in range(GRAPH_PAIRS)]
-    paths.append(("streams640", bfs[0].batched(), bfs[1].batched(), batches, (g, e), STREAMS))
+    paths.append(force_path("streams640", g, e, bfs[0].batched(), bfs[1].batched(), batches,
+                            STREAMS))
     mesh = make_stream_mesh()
     _, _, _, (pose, accel) = limb_inputs()
     aux = {"pose_px": shard_batch(mesh, pose), "accel_mss": shard_batch(mesh, accel)}
@@ -1884,76 +1970,146 @@ def run_graph(device, rows, card):
         step_aux = whole_limb_step_aux(bf, mesh, LIMB_CANVAS, map_stride=LIMB_STRIDE)
         limbs.append(lambda r, d, step=step, step_aux=step_aux: (step(r, d),
                                                                   step_aux(r, d, aux)))
-    paths.append(("limb640", limbs[0], limbs[1], batches, (g, e), 2 * STREAMS))
+    paths.append(force_path("limb640", g, e, limbs[0], limbs[1], batches, 2 * STREAMS))
+    # the temperature forwards on thermochromic frames of distinct seeds,
+    # and the fused multimodal steps on the multimodal force halves' pairs:
+    # one pipeline a preset replays its graphs and runs its eager forward
+    color, wide = synthetic_deploy_temp_weights(SEED)
+    frames_t = [(up(synthetic_tlc_frame(H4K, W4K, TempConfig(), SEED + 10 + k)),)
+                for k in range(TEMP_GRAPH_PAIRS)]
+    for path, fc, tc in (("4k", FTPConfig().deploy(), TempConfig().deploy()),
+                         ("4k_parity", FTPConfig(), TempConfig())):
+        tp = TemperaturePipeline(tc, color, wide, device=device)
+        mm = MultimodalPipeline(ForcePipeline(fc, ForceConfig(), P2H_MODEL, FORCE_MODEL,
+                                              device=device),
+                                TemperaturePipeline(tc, color, wide, device=device))
+        for so, suffix in ((False, ""), (True, "_stats")):
+            paths.append(GraphPath(
+                f"temp{path}{suffix}", functools.partial(tp.forward, stats_only=so),
+                functools.partial(tp.forward_eager, stats_only=so), frames_t, (), 1, tp,
+                lambda tp=tp, so=so: tp._graphs[so]))
+        for so, suffix in ((False, "_fused"), (True, "_fused_scalars")):
+            paths.append(GraphPath(
+                f"mm{path}{suffix}", functools.partial(mm.fused_forward, stats_only=so),
+                functools.partial(mm.fused_forward_eager, stats_only=so), frames_mm,
+                (mm.force.ftp,), 1, mm, lambda mm=mm, so=so: mm._graphs[so]))
+    del g, e, tp, mm
 
     setter = next(row for row in rows if row["name"] == "set_conditional")
-    pipes = {}
+    kept = {}
     while paths:         # each path's pipelines (and their graphs) go when it is done
-        path, fn_g, fn_e, inputs, (g, e), per_call = paths.pop(0)
-        assert g.ftp.graph_route() and not e.ftp.debug_outputs, path
-        probes = [ecc_probe(p.ftp) for p in (g, e)]
+        gp = paths.pop(0)
+        path, inputs = gp.path, gp.inputs
+        assert gp.routed.graph_route(), path
+        probes = [ecc_probe(f) for f in gp.ftps]
         t0 = time.perf_counter()
-        fn_g(*inputs[0])                     # the capture call: eager, then captured
+        gp.fn_g(*inputs[0])                  # the capture call: eager, then captured
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
         results, iters, launches = [], [], []
         graph_cond_kernel.reset_sets(device)
-        for fn, probe in ((fn_g, probes[0]), (fn_e, probes[1])):
+        for fn, probe in ((gp.fn_g, probes[:1]), (gp.fn_e, probes[-1:])):
             before = dict(kernels.LAUNCHES)
             outs, its = [], []
             for inp in inputs:
                 outs.append(fn(*inp))
-                its.append(int(probe[-1]))
+                its.append([int(p[-1]) for p in probe])
             torch.cuda.synchronize()
             results.append(outs)
             iters.append(its)
             launches.append({k: v - before[k] for k, v in kernels.LAUNCHES.items()
                              if v != before[k]})
         # the setter runs in the replays only: the eager forward reads each
-        # condition on the host
+        # condition on the host.  A temperature graph holds the fold's two
+        # IF nodes under the shear rotation and none under the gather one
         sets = graph_cond_kernel.sets(device)
-        assert sets > 0, f"the condition setter did not run on the {path} replays"
+        want_sets = GRAPH_SETS.get(path)
+        if want_sets is None:
+            assert sets > 0, f"the condition setter did not run on the {path} replays"
+        else:
+            assert sets == want_sets * len(inputs), (path, sets, want_sets)
         setter[f"launches_{path}"] = sets
         setter["launches"] += sets
         for k, (a, b) in enumerate(zip(*results)):
             same_outputs(f"{path}[pair {k}]", a, b)
         assert iters[0] == iters[1], (path, iters)
-        want = {k: v * per_call * GRAPH_PAIRS for k, v in GRAPH_LAUNCHES[path].items()}
+        want = {k: v * gp.per_call * len(inputs) for k, v in GRAPH_LAUNCHES[path].items()}
         assert launches[0] == launches[1] == want, (path, launches, want)
-        say("graph", path=path, pairs=GRAPH_PAIRS, bit_equal=True, ecc_iters=iters[0],
+        say("graph", path=path, pairs=len(inputs), bit_equal=True,
+            ecc_iters=[i[0] for i in iters[0]] if gp.ftps else None,
             launches=launches[0], launches_eager=launches[1], condition_sets=sets,
-            captured_launches=g.ftp._graph.launches, capture_s=capture_s,
+            captured_launches=gp.graph().launches, capture_s=capture_s,
             seconds=time.perf_counter() - t0)
-        if path in ("640", "4k", "parity4k"):
-            pipes[path] = (g, e, inputs[0])
-        del fn_g, fn_e, g, e, probes, results
+        if path in GRAPH_TIMED:
+            kept[path] = gp
+        del gp, probes, results
+    say_memory("graph")
 
-    # the replayed 640 and 4K deploy forwards under the sync debug mode
+    # the fold's two IF nodes at even and odd quarter turns: one graph of the
+    # fold on a small plane, the angle an input, replayed against its eager run
+    from vistaf_torch.ops.consts import DeviceConsts
+    from vistaf_torch.temperature.inference import oriented_gaussian_blur
+    from vistaf_torch.utils.cuda_graph import ForwardGraph
+    yy, xx = np.mgrid[0:72, 0:104]
+    roi = up((yy - 36) ** 2 + (xx - 52) ** 2 <= 30 ** 2)
+    plane = up((25.0 + 0.05 * xx + 0.1 * yy).astype(np.float32))
+    for vpu in (False, True):
+        consts = DeviceConsts(device)
+
+        def fold(m, a, vpu=vpu, consts=consts):
+            return {"out": oriented_gaussian_blur(m, roi, a, 3.0, 0.8, consts, method="shear",
+                                                  vpu=vpu)}
+        graph = ForwardGraph(fold, device)
+        angles = [-np.deg2rad(d) for d in FOLD_ANGLES_DEG]
+        graph(plane, up(np.float32(angles[0])))
+        graph_cond_kernel.reset_sets(device)
+        for a in angles:
+            a = up(np.float32(a))
+            same_outputs(f"fold[{a}]", graph(plane, a), fold(plane, a))
+        sets = graph_cond_kernel.sets(device)
+        assert sets == 2 * len(angles), sets
+    say("graph", path="fold", angles_deg=list(FOLD_ANGLES_DEG), bit_equal=True,
+        condition_sets=sets)
+
+    # the replayed 640 and 4K deploy forwards, the 4K deploy temperature
+    # stats and the fused 4K deploy scalars under the sync debug mode
     # "error", and one round of each route's time against its eager run
-    for path in ("640", "4k"):
-        g, _, (r, d) = pipes[path]
+    for path in ("640", "4k", "temp4k_stats", "mm4k_fused_scalars"):
+        gp = kept[path]
         torch.cuda.set_sync_debug_mode("error")
         try:
-            g.ftp.forward(r, d)
+            gp.fn_g(*gp.inputs[0])
         finally:
             torch.cuda.set_sync_debug_mode(0)
     g4 = FTPGeometry.from_config(FTPConfig().deploy())
     seed_ms = {}
-    for name, m in (("236", pipes["640"][0].ftp.roi), ("1182", up(geometry.circular_mask(
+    for name, m in (("236", kept["640"].ftps[0].roi), ("1182", up(geometry.circular_mask(
             g4.crop_h, g4.crop_w, g4.cx_local, g4.cy_local, g4.r_local)))):
         seed_ms[name] = profiling.device_ms(lambda: _fine_seed(m))
-    for path in ("640", "4k", "parity4k"):
-        g, e, (r, d) = pipes[path]
+    for path, gp in kept.items():
+        inp = gp.inputs[0]
         reps = 10 if path == "640" else 3
         ms = {"eager": [], "graph": []}
         for kind in ("eager", "graph", "graph", "eager"):
-            fn = (e if kind == "eager" else g).ftp.forward
-            ms[kind].append(profiling.cuda_ms(lambda: fn(r, d), reps=reps, warmup=1))
+            fn = gp.fn_e if kind == "eager" else gp.fn_g
+            ms[kind].append(profiling.cuda_ms(lambda: fn(*inp), reps=reps, warmup=1))
+        outputs = gp.graph()._outputs
         say("graph_timing", path=path, gated=False, host_syncs_graph=0,
-            host_syncs_eager=profiling.host_syncs(lambda: e.ftp.forward(r, d)),
+            host_syncs_eager=profiling.host_syncs(lambda: gp.fn_e(*inp)),
             eager_ms=ms["eager"], graph_ms=ms["graph"],
-            graph_device_ms=profiling.device_ms(lambda: g.ftp.forward(r, d)),
-            fine_seed_device_ms=seed_ms, card=card)
+            graph_device_ms=profiling.device_ms(lambda: gp.fn_g(*inp), reps=reps),
+            clone_ms=profiling.cuda_ms(lambda: _clone(outputs), reps=10, warmup=1),
+            clone_mib=sum(t.numel() * t.element_size() for t in _tensors(outputs)) / 2 ** 20,
+            **({"fine_seed_device_ms": seed_ms} if path in ("640", "4k") else {}), card=card)
+
+
+def _tensors(out):
+    """The tensors of a dict, tuple or list of them (nested)."""
+    if isinstance(out, dict):
+        return [t for v in out.values() for t in _tensors(v)]
+    if isinstance(out, (tuple, list)):
+        return [t for v in out for t in _tensors(v)]
+    return [out]
 
 
 def run_streams(device, rows, card):
@@ -2945,6 +3101,7 @@ def main() -> int:
     runs["mm4k_parity"] = lambda: mmp(mmp_ref, mmp_def)
     runs["mm4k_parity_scalars"] = lambda: mmp.step_fused(mmp_ref, mmp_def, fetch="scalars")
     lap("mm4k_parity")
+    say_memory("mm4k_parity")
     phase_timing("640", runs["640"], card, frames=20, warmup=3)
     phase_timing("4k", runs["4k"], card, frames=5, warmup=2)
     phase_timing("temp4k", runs["temp4k"], card, frames=6, warmup=2)
@@ -2982,6 +3139,7 @@ def main() -> int:
     lap("knobs")
     import torch.distributed as dist
     dist.destroy_process_group()
+    say_memory("knobs")
     say("clock", seconds=clock, total=time.perf_counter() - t0,
         jax=dict(JAX_SECONDS, total=sum(JAX_SECONDS.values())))
 

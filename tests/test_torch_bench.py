@@ -170,3 +170,35 @@ def test_no_import_statement_names_jax_or_the_jax_package():
     names += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
     assert "chip_smoke" in names and "vistaf_torch" in {n.split(".")[0] for n in names}
     assert not [n for n in names if n.split(".")[0] in BLOCKED], names
+
+
+def test_route_is_graph_where_every_forward_of_the_row_replays_one():
+    """The temperature and multimodal rows name their route by the
+    pipelines they run (``Row.routed``): ``graph`` on the card, where the
+    temperature forward and ``step_fused`` replay their graphs; ``eager``
+    on the CPU, without a forward, and where one forward (here a force
+    pipeline with debug outputs) runs op by op."""
+    from vistaf_torch.config import ForceConfig
+    from vistaf_torch.pipelines.force import ForcePipeline
+    from vistaf_torch.pipelines.multimodal import MultimodalPipeline
+    from vistaf_torch.temperature.inference import TemperaturePipeline
+    from vistaf_torch.utils.synthetic import (scaled_ftp_config, scaled_temp_config,
+                                              synthetic_deploy_temp_weights)
+    color, wide = synthetic_deploy_temp_weights(0)
+    temp = TemperaturePipeline(scaled_temp_config(240, 320).deploy(), color, wide,
+                               device="cpu")
+    force = ForcePipeline(scaled_ftp_config(240, 320).deploy(), ForceConfig(),
+                          bench_torch.smoke.P2H_MODEL, bench_torch.smoke.FORCE_MODEL,
+                          device="cpu")
+    mm = MultimodalPipeline(force, temp)
+    rows = {"temp4k": (temp,), "mm4k_call": (force.ftp, temp), "mm4k_scalars": (mm,)}
+    for routed in rows.values():
+        assert bench_torch.forward_route(routed) == {"route": "eager"}
+    force.ftp.device = temp.device = torch.device("cuda")     # the route rule alone
+    for routed in rows.values():
+        assert bench_torch.forward_route(routed) == {"route": "graph"}
+    assert bench_torch.forward_route(()) == {"route": "eager"}
+    force.ftp.debug_outputs = True
+    assert bench_torch.forward_route(rows["temp4k"]) == {"route": "graph"}
+    for name in ("mm4k_call", "mm4k_scalars"):
+        assert bench_torch.forward_route(rows[name]) == {"route": "eager"}

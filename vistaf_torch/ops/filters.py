@@ -80,11 +80,15 @@ def sep_conv2d(x: torch.Tensor, ky: np.ndarray, kx: np.ndarray,
     have at most 63 taps with radius < size, else the banded matmuls."""
     x = x.float()
     h, w = x.shape[-2:]
-    if (vpu and max(len(ky), len(kx)) <= SHIFT_ADD_MAX_TAPS
-            and (len(ky) - 1) // 2 < h and (len(kx) - 1) // 2 < w):
+    if _shift_adds(h, w, ky, kx, vpu):
         return _shift_add_sep2d(x, ky, kx)
     out = torch.matmul(_band(consts, h, ky), x)
     return torch.matmul(out, _band(consts, w, kx).T)
+
+
+def _shift_adds(h: int, w: int, ky: np.ndarray, kx: np.ndarray, vpu: bool) -> bool:
+    return (vpu and max(len(ky), len(kx)) <= SHIFT_ADD_MAX_TAPS
+            and (len(ky) - 1) // 2 < h and (len(kx) - 1) // 2 < w)
 
 
 def gaussian_blur(x: torch.Tensor, sigma: float, consts: DeviceConsts,
@@ -95,6 +99,19 @@ def gaussian_blur(x: torch.Tensor, sigma: float, consts: DeviceConsts,
     kx = gaussian_kernel1d(sigma, ksize, u8=u8)
     ky = gaussian_kernel1d(sigma_y if sigma_y > 0 else sigma, ksize, u8=u8)
     return sep_conv2d(x, ky, kx, consts, vpu=vpu)
+
+
+def gaussian_blur_constants(shape, sigma: float, consts: DeviceConsts,
+                            sigma_y: float = 0.0, vpu: bool = False) -> None:
+    """Build the band matrices that ``gaussian_blur`` of a plane of
+    ``shape`` (..., H, W) reads, for a caller that blurs inside a
+    ``device_if`` body, which may run first in a captured forward."""
+    h, w = shape[-2:]
+    kx = gaussian_kernel1d(sigma)
+    ky = gaussian_kernel1d(sigma_y if sigma_y > 0 else sigma)
+    if not _shift_adds(h, w, ky, kx, vpu):
+        _band(consts, h, ky)
+        _band(consts, w, kx)
 
 
 def gaussian_blur_u8_round(x: torch.Tensor, ksize: int, consts: DeviceConsts,

@@ -10,14 +10,17 @@ share the deformed frame.  Two execution shapes:
 - ``step_fused`` uploads each frame once, runs both forwards on the same
   device tensors and reduces volume, area, depth and force on the device,
   so that ``fetch='scalars'`` moves every scalar in one device-to-host copy
-  and no map.  PyTorch runs eagerly: "fused" is this sharing of inputs and
-  reductions, not one compiled graph as in the JAX package.
+  and no map.  On the card the two forwards and the reduction are one CUDA
+  graph (``fused_forward``), one for each fetch, as the JAX package jits
+  ``_fused_impl`` as one graph; ``__call__`` replays the two pipelines'
+  own graphs, as the JAX package makes two jitted calls there.
 
 ``from_artifacts`` builds both pipelines from the reference calibration
 artifacts under a data root.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -27,6 +30,7 @@ from vistaf_torch.calib import scalar_models
 from vistaf_torch.config import ForceConfig, FTPConfig, TempConfig
 from vistaf_torch.pipelines.force import ForcePipeline, depth_map_to_volume_cm3
 from vistaf_torch.temperature.inference import TemperaturePipeline
+from vistaf_torch.utils.cuda_graph import ForwardGraph
 
 TEMP_SCALARS = ("t_mean", "t_min", "t_max", "t_std")
 
@@ -72,6 +76,7 @@ class MultimodalPipeline:
         self.force = force
         self.temperature = temperature
         self.device = temperature.device
+        self._graphs: Dict[bool, ForwardGraph] = {}
 
     @classmethod
     def from_artifacts(cls, data_root: str, ftp_cfg: Optional[FTPConfig] = None,
@@ -114,14 +119,37 @@ class MultimodalPipeline:
         }
 
     # ------------------------------------------------------------------
+    def graph_route(self) -> bool:
+        """Whether ``fused_forward`` replays a CUDA graph: where both
+        pipelines' forwards would replay theirs, so a force pipeline with
+        debug outputs or a ``stop_after`` keeps the whole step eager."""
+        return self.force.ftp.graph_route() and self.temperature.graph_route()
+
     def fused_forward(self, ref_bgr: torch.Tensor, def_bgr: torch.Tensor,
                       stats_only: bool = False):
         """Both modality forwards on the same device tensors, and the
         volume -> force reduction on the device: (force outputs,
         temperature outputs, force scalars), all device tensors.
-        ``stats_only`` stops the temperature forward at its statistics."""
-        fout = self.force.ftp.forward(ref_bgr, def_bgr)
-        tout = self.temperature.forward(def_bgr, stats_only=stats_only)
+        ``stats_only`` stops the temperature forward at its statistics.
+        Where ``graph_route`` holds, one CUDA graph of
+        ``fused_forward_eager`` for each value of ``stats_only``, captured
+        at its first call and replayed at every later one; elsewhere
+        ``fused_forward_eager``."""
+        if self.graph_route():
+            graph = self._graphs.get(stats_only)
+            if graph is None:
+                graph = self._graphs[stats_only] = ForwardGraph(
+                    functools.partial(self.fused_forward_eager, stats_only=stats_only),
+                    self.device)
+            return graph(ref_bgr, def_bgr)
+        return self.fused_forward_eager(ref_bgr, def_bgr, stats_only)
+
+    def fused_forward_eager(self, ref_bgr: torch.Tensor, def_bgr: torch.Tensor,
+                            stats_only: bool = False):
+        """``fused_forward`` op by op: what its CUDA graphs capture (so it
+        runs both pipelines' eager forwards: a capture holds no other)."""
+        fout = self.force.ftp.forward_eager(ref_bgr, def_bgr)
+        tout = self.temperature.forward_eager(def_bgr, stats_only=stats_only)
         height = fout["height_map_mm_crop"]
         mm_per_px = self.force.mm_per_px_device(fout["est_period_px"])
         v, a, d = depth_map_to_volume_cm3(height, torch.isfinite(height), mm_per_px,

@@ -11,6 +11,12 @@ the per-pixel fusion, the stripe-oriented smoothing (by the three-shear
 rotation or by bilinear gathers), the ROI statistics, and the re-embed into
 the frame.
 
+On the card the forward is one CUDA graph for each value of
+``stats_only``, replayed at every frame (``TemperaturePipeline.forward``),
+as the JAX package jits ``_forward`` and ``_stats_forward``; the shear
+fold's ``lax.cond`` is an IF node of it.  On the CPU it runs op by op
+(``forward_eager``).
+
 It runs every ``TempConfig``: the deploy preset (``TempConfig().deploy()``)
 and the parity preset (``TempConfig()``, the CLI's default), their scaled
 versions, and each knob on its own, on the route the JAX package takes on
@@ -19,6 +25,7 @@ a TPU.  Off the TPU the JAX package runs the unfused path even where
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -32,12 +39,14 @@ from vistaf_torch.kernels.temp_kernel import make_fused_temperature_fn
 from vistaf_torch.ops import geometry
 from vistaf_torch.ops.color import bgr_to_gray, bgr_to_lab_u8, chroma_ab
 from vistaf_torch.ops.consts import DeviceConsts
-from vistaf_torch.ops.filters import gaussian_blur, gaussian_blur_u8_round
+from vistaf_torch.ops.filters import (gaussian_blur, gaussian_blur_constants,
+                                      gaussian_blur_u8_round)
 from vistaf_torch.ops.inpaint import inpaint_within_roi
 from vistaf_torch.ops.morphology import dilate, ellipse_kernel
 from vistaf_torch.ops.warp import (invert_affine, rotate_stack_shear, rotation_matrix,
                                    sample_bilinear_stack)
 from vistaf_torch.temperature.segmentation import segment_stripes
+from vistaf_torch.utils.cuda_graph import ForwardGraph, device_if
 
 STATS = ("t_mean", "t_min", "t_max", "t_std", "valid_pixels", "stripe_angle_rad",
          "stripe_period_px")
@@ -92,9 +101,9 @@ def oriented_gaussian_blur(map_f: torch.Tensor, roi: torch.Tensor, angle_rad: to
     and its ROI by bilinear gathers (``_rotate_stack``) about the frame's
     centre, and back by the opposite angle.  'shear' (the deploy preset's)
     rotates by three shears: angles are folded by quarter turns into the
-    shear's range, and an odd quarter turn swaps the two sigmas; both sigma
-    orders are blurred and one is selected on the device (the JAX
-    ``lax.cond`` as a vmapped caller gets it), so no host sync."""
+    shear's range, and an odd quarter turn swaps the two sigmas: the JAX
+    ``lax.cond`` on the fold's parity, here two ``device_if`` that write
+    one output (IF nodes in a captured forward), so one blur runs."""
     if sigma_across <= 0 and sigma_along <= 0:
         return torch.where(roi, map_f, math.nan)
     h, w = map_f.shape
@@ -110,8 +119,13 @@ def oriented_gaussian_blur(map_f: torch.Tensor, roi: torch.Tensor, angle_rad: to
         ang = angle_deg - 90.0 * q
         odd = torch.remainder(torch.abs(q.to(torch.int32)), 2) == 1
         rot = rotate_stack_shear(stack0, ang, center)
-        blurred = torch.where(odd, gaussian_blur(rot[0], sl, consts, sigma_y=sa, vpu=vpu),
-                              gaussian_blur(rot[0], sa, consts, sigma_y=sl, vpu=vpu))
+        blurred = torch.empty_like(rot[0])
+        for pred, sx, sy in ((odd, sl, sa), (~odd, sa, sl)):
+            # the branch's band matrices are built here, outside its body:
+            # a capture cannot copy them from the host
+            gaussian_blur_constants(rot.shape[1:], sx, consts, sigma_y=sy, vpu=vpu)
+            device_if(pred, lambda out, sx=sx, sy=sy: out.copy_(
+                gaussian_blur(rot[0], sx, consts, sigma_y=sy, vpu=vpu)), blurred)
         stack1 = torch.stack([blurred, (rot[1] > 0.5).to(torch.float32)])
         back = rotate_stack_shear(stack1, -ang, center)
         return torch.where(back[1] > 0.5, back[0], math.nan)
@@ -130,8 +144,9 @@ class TemperaturePipeline:
         out = pipe(frame_bgr_u8)      # dict of numpy arrays and scalars
         st = pipe.stats(frame_bgr_u8)  # the scalar statistics only
 
-    ``device`` defaults to the card; pass ``device="cpu"`` for the plain
-    versions of the kernels.  The pipeline owns its static geometry (ROI
+    ``device`` defaults to the card, where ``forward`` replays a CUDA
+    graph; pass ``device="cpu"`` for the plain versions of the kernels,
+    op by op.  The pipeline owns its static geometry (ROI
     masks, the compute bbox), the blur and twiddle matrices and the packed
     model tables on its device, built once.  ``from_artifacts`` loads the
     newest reference model bundles under a data root."""
@@ -165,6 +180,7 @@ class TemperaturePipeline:
         self._fused_fn = (make_fused_temperature_fn(cfg.color_chroma_min, color_model,
                                                     wide_model)
                           if cfg.use_fused_kernel else None)
+        self._graphs: Dict[bool, ForwardGraph] = {}
 
     @classmethod
     def from_artifacts(cls, data_root: str, cfg: Optional[TempConfig] = None, *,
@@ -238,8 +254,32 @@ class TemperaturePipeline:
         return res
 
     # ------------------------------------------------------------------
+    def graph_route(self) -> bool:
+        """Whether ``forward`` replays a CUDA graph: on the card, under every
+        configuration (the fold's ``lax.cond`` is an IF node, and nothing
+        else in the forward reads the device on the host)."""
+        return self.device.type == "cuda"
+
     def forward(self, frame_bgr: torch.Tensor, stats_only: bool = False
                 ) -> Dict[str, torch.Tensor]:
+        """The forward on a device tensor (a BGR uint8 frame).  Where
+        ``graph_route`` holds, one CUDA graph of ``forward_eager`` for each
+        value of ``stats_only`` (the JAX package's ``_forward`` and
+        ``_stats_forward``), captured at its first call and replayed at
+        every later one (``ForwardGraph``: a frame of another shape
+        raises); elsewhere ``forward_eager``."""
+        if self.graph_route():
+            graph = self._graphs.get(stats_only)
+            if graph is None:
+                graph = self._graphs[stats_only] = ForwardGraph(
+                    functools.partial(self.forward_eager, stats_only=stats_only), self.device)
+            return graph(frame_bgr)
+        return self.forward_eager(frame_bgr, stats_only)
+
+    def forward_eager(self, frame_bgr: torch.Tensor, stats_only: bool = False
+                      ) -> Dict[str, torch.Tensor]:
+        """The forward op by op: what the CUDA graphs capture, and the CPU's
+        route.  ``stats_only`` returns the statistics alone."""
         cfg, consts = self.cfg, self.consts
         roi_full, roi_outer = self.roi_full, self.roi_outer
         full_hw = tuple(frame_bgr.shape[:2])

@@ -140,19 +140,29 @@ def device_if(pred: torch.Tensor, fn: Callable[[torch.Tensor], None],
         fn(out)
 
 
-class ForwardGraph:
-    """``fn(*inputs) -> {name: tensor}`` captured once and replayed."""
+def _clone(out):
+    """A copy of ``out``: a tensor, or a dict, tuple or list of them."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, dict):
+        return {k: _clone(v) for k, v in out.items()}
+    return type(out)(_clone(v) for v in out)
 
-    def __init__(self, fn: Callable[..., Dict[str, torch.Tensor]], device):
+
+class ForwardGraph:
+    """``fn(*inputs) -> outputs`` captured once and replayed: the outputs a
+    dict of tensors, or dicts, tuples and lists of them."""
+
+    def __init__(self, fn: Callable, device):
         self.fn = fn
         self.device = torch.device(device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
         self._inputs: Sequence[torch.Tensor] = ()
-        self._outputs: Dict[str, torch.Tensor] = {}
+        self._outputs = None
         self.body_pool = None
 
-    def __call__(self, *inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def __call__(self, *inputs: torch.Tensor):
         if self.graph is None:
             return self._capture(inputs)
         if len(inputs) != len(self._inputs) or any(
@@ -166,9 +176,9 @@ class ForwardGraph:
             s.copy_(x)
         self.graph.replay()
         kernels.count_replay(self.launches)
-        return {k: v.clone() for k, v in self._outputs.items()}
+        return _clone(self._outputs)
 
-    def _capture(self, inputs) -> Dict[str, torch.Tensor]:
+    def _capture(self, inputs):
         with torch.cuda.device(self.device):
             self._inputs = [torch.empty_like(x, device=self.device).copy_(x) for x in inputs]
             out = self.fn(*self._inputs)
