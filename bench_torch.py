@@ -76,11 +76,13 @@ heaviest device work, device-to-host copies), each per call.
 
 Route: every row's line says how its forwards run: ``route`` is ``graph``
 where each replays a CUDA graph (the ``graph_route`` of the row's
-``FTPPipeline``, ``TemperaturePipeline`` or ``MultimodalPipeline``: every
-forward on the card, the force forward's ECC and PCG loops and its seed
-pick, and the temperature forward's shear fold, as conditional nodes;
-``step_fused`` one graph of both forwards), else ``eager`` (the rows with
-no forward: decode, uploads).  The profiled window counts the graph replays
+``FTPPipeline``, ``TemperaturePipeline``, ``MultimodalPipeline``,
+``StreamingForce`` or whole-limb step: every forward on the card, the force
+forward's ECC and PCG loops and its seed pick, and the temperature
+forward's shear fold, as conditional nodes; ``step_fused`` one graph of
+both forwards; a stream batch's step or a limb step one graph of its
+streams, smoothing or head), else ``eager`` (the rows with no forward:
+decode, uploads).  The profiled window counts the graph replays
 (``graph_launches_per_frame``) apart from the kernel launches.
 
 Correctness: each row holds its output to its gate once, before timing,
@@ -179,7 +181,8 @@ class Row:
 def forward_route(routed) -> Dict[str, Any]:
     """``route``: 'graph' where every forward of the row replays a CUDA
     graph (the ``graph_route`` of its ``FTPPipeline``,
-    ``TemperaturePipeline`` or ``MultimodalPipeline``), else 'eager' (on
+    ``TemperaturePipeline``, ``MultimodalPipeline``, ``StreamingForce`` or
+    whole-limb step), else 'eager' (on
     the CPU, and rows with no forward)."""
     graph = bool(routed) and all(p.graph_route() for p in routed)
     return {"route": "graph" if graph else "eager"}
@@ -442,10 +445,10 @@ def limb_rows(device) -> List[Row]:
     return [Row("limb640", "whole_limb_step over 4 streams at 640x480 (BASELINE config 5), "
                 "world-1 mesh, the total force fetched",
                 lambda: float(step(rs, ds)["total_force_N"]), gate, SLOW, limb_rates,
-                routed=(bf.pipe,)),
+                routed=(step,)),
             Row("limb640_aux", "whole_limb_step_aux (poses, IMU gates) over the same streams",
                 lambda: float(step_aux(rs, ds, aux)["total_force_N"]), gate, SLOW,
-                limb_rates, routed=(bf.pipe,))]
+                limb_rates, routed=(step_aux,))]
 
 
 def suite_streams(device) -> List[Row]:
@@ -460,7 +463,7 @@ def suite_streams(device) -> List[Row]:
         return {"against": "jax_record", "jax": line}
     rows = [Row("streams640", "StreamingForce, 4 streams at 640x480, window 8 (BASELINE "
                 "config 4): one batch on the device, its outputs fetched",
-                lambda: sf(r, b), gate, SLOW, stream_rates, routed=(bf.pipe,))]
+                lambda: sf(r, b), gate, SLOW, stream_rates, routed=(sf,))]
     rows += limb_rows(device)
     rows += temperature_rows(device, TempConfig().deploy(), "temp4k")
     rows += temperature_rows(device, TempConfig(), "temp4k_parity")
@@ -637,11 +640,11 @@ def suite_ingest(device) -> List[Row]:
     rows.append(Row("streams_serialized", "six streams640 batches from numpy, each uploaded, "
                     "stepped and fetched in turn", lambda: [sf_serial(refs, b) for b in seq],
                     gate_streams, SEQUENCE, seq_rates, group="streams_ingest",
-                    routed=(bf_serial.pipe,)))
+                    routed=(sf_serial,)))
     rows.append(Row("streams_overlapped", "the same six batches through "
                     "StreamingForce.run_overlapped (pinned double-buffered uploads)",
                     lambda: sf_over.run_overlapped(refs, seq), gate_streams, SEQUENCE,
-                    seq_rates, group="streams_ingest", routed=(bf_over.pipe,)))
+                    seq_rates, group="streams_ingest", routed=(sf_over,)))
     return rows
 
 

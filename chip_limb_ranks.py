@@ -9,19 +9,26 @@ group up through ``initialize_multihost`` (NCCL on its card
 ``cuda:LOCAL_RANK``; gloo only with ``--device cpu``), takes its block of
 ``chip_smoke.py``'s four 640x480 deploy streams with ``shard_batch`` and runs
 ``whole_limb_step`` and ``whole_limb_step_aux`` over the mesh, whose gathers
-and reductions cross the cards; on a card each stream frame must launch
-exactly what a ``limb640`` stream frame launches, and each rank prints its
-``timing`` lines (the fusion alone too, now over the interconnect).  When
+and reductions cross the cards: three times each, the first call eager (on
+a card it then captures the step's CUDA graph, the NCCL all-reduces
+inside), the second a replay that must equal it bit for bit but for the
+sums over the ranks (within 1e-6: NCCL may order a captured sum
+otherwise), the third the one kept.  On a card each stream
+frame must launch exactly what a ``limb640`` stream frame launches, and
+each rank prints its ``timing`` lines (the fusion alone too, now over the
+interconnect), every step a replay.  When
 the ranks are done the parent runs the same heads at world 1 in its own
 process and holds every rank to it: per-stream forces, maps, gates and the
 canvas equal, the sums within 1e-6 relative, and every rank's replicated
 outputs the same.  Each rank's lines, then a summary line and, last,
 ``{"ok": true, ...}``; exits non-zero if any of it fails or a rank does not
-end within ``--timeout`` seconds.
+end within ``--timeout`` seconds (the first rank to fail stops the others,
+and every rank's log is printed).
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import socket
@@ -59,19 +66,34 @@ def heads(device, card, rank_label=None):
     rs, ds = shard_batch(mesh, refs), shard_batch(mesh, defs)
     aux = {"pose_px": shard_batch(mesh, pose), "accel_mss": shard_batch(mesh, accel)}
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    step = whole_limb_step(bf, mesh, map_stride=cs.LIMB_STRIDE)
+    step_aux = whole_limb_step_aux(bf, mesh, cs.LIMB_CANVAS, map_stride=cs.LIMB_STRIDE)
     sync()
     kernels.reset_launches()
-    out = whole_limb_step(bf, mesh, map_stride=cs.LIMB_STRIDE)(rs, ds)
-    out_aux = whole_limb_step_aux(bf, mesh, cs.LIMB_CANVAS, map_stride=cs.LIMB_STRIDE)(
-        rs, ds, aux)
+    # the first call of each step runs eagerly (and, on a card, captures its
+    # CUDA graph); the second replays it and must give the same bits, but
+    # for the sums over the ranks, whose order NCCL may choose otherwise for
+    # a captured all-reduce (within 1e-6, as against the world-1 run)
+    first, first_aux = step(rs, ds), step_aux(rs, ds, aux)
     sync()
-    frames = 2 * int(rs.shape[0])
+    cs.say("limb_rank_progress", rank=rank_label, done="eager calls and captures")
+    out, out_aux = step(rs, ds), step_aux(rs, ds, aux)
+    sync()
+    cs.say("limb_rank_progress", rank=rank_label, done="replays")
+    for name, got, want in (("limb", out, first), ("limb_aux", out_aux, first_aux)):
+        for k in SUMS:
+            a, b = float(got.pop(k)), float(want.pop(k))
+            assert abs(a - b) <= 1e-6 * abs(b), (name, k, a, b)
+        cs.same_outputs(name, got, want)
+    out, out_aux = step(rs, ds), step_aux(rs, ds, aux)
+    frames = 6 * int(rs.shape[0])
     per_frame = {k: v / frames for k, v in kernels.LAUNCHES.items()}
     if dev.type == "cuda":
+        assert step.graph is not None and step_aux.graph is not None
         want = {k: float(cs.PATH_EXACT_LAUNCHES["limb640"].get(k, 0)) for k in per_frame}
         assert per_frame == want, (per_frame, want)
-        cs.time_limb("limb_ranks", bf, mesh, rs, ds, aux, card, rank=rank_label,
-                     world=mesh.size())
+        cs.time_limb("limb_ranks", bf, mesh, rs, ds, aux, card, step, step_aux,
+                     rank=rank_label, world=mesh.size())
     res = {f"plain_{k}": out[k].cpu().numpy() for k in KEYS}
     res.update({f"aux_{k}": out_aux[k].cpu().numpy() for k in AUX_KEYS})
     return res, per_frame, mesh.size()
@@ -101,7 +123,10 @@ def rank_main(out_path, device, card):
                per_stream_force=res["plain_per_stream_force"].tolist(),
                total_force_N=float(res["plain_total_force_N"]))
     finally:
+        # the steps' graphs hold the group's NCCL all-reduces: they go first
+        gc.collect()
         dist.destroy_process_group()
+        cs.say("limb_rank_progress", rank=int(os.environ["RANK"]), done="group destroyed")
 
 
 def free_port() -> int:
@@ -146,23 +171,33 @@ def main() -> int:
         outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(args.ranks)]
         env = {k: v for k, v in os.environ.items()
                if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+        logs = [tempfile.TemporaryFile(dir=tmp) for _ in range(args.ranks)]
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--device", args.device,
              "--rank-out", outs[r]],
             env={**env, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
                  "WORLD_SIZE": str(args.ranks), "RANK": str(r), "LOCAL_RANK": str(r)},
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(args.ranks)]
-        logs = []
+            stdout=log, stderr=subprocess.STDOUT)
+            for r, log in enumerate(logs)]
+        # a rank that fails leaves the others waiting in a collective: stop
+        # them all at the first failure, or at the timeout
         try:
-            for p in procs:
-                left = max(1.0, args.timeout - (time.perf_counter() - t0))
-                logs.append(p.communicate(timeout=left)[0].decode(errors="replace"))
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) or (
+                        time.perf_counter() - t0 > args.timeout):
+                    break
+                time.sleep(0.5)
         finally:
             for p in procs:
-                p.kill()
+                if p.poll() is None:
+                    p.kill()
                 p.wait()
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            print(log, end="" if log.endswith("\n") else "\n", flush=True)
+            for log in logs:
+                log.seek(0)
+                text = log.read().decode(errors="replace")
+                print(text, end="" if text.endswith("\n") else "\n", flush=True)
+                log.close()
+        for r, p in enumerate(procs):
             assert p.returncode == 0, f"rank {r} exited {p.returncode}"
         ranks = [dict(np.load(o)) for o in outs]
     ranks_s = time.perf_counter() - t0
@@ -170,6 +205,7 @@ def main() -> int:
     torch.set_num_threads(threads(args.ranks))
     one, _, world = heads(device, card)            # world 1, this process
     import torch.distributed as dist
+    gc.collect()
     dist.destroy_process_group()
     assert world == 1
     gaps = {}

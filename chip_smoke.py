@@ -30,7 +30,7 @@ Phases, one line each, any failure raises and exits non-zero:
      that call's time; K8 also with models of no term and no calibrator
      (LAB, gray and chroma only);
   3a. graph: every force path (the 640 deploy force, configs 2 and 3,
-     ``streams640``, ``limb640``, ``prealign640``, ``irls640``, the 640
+     ``prealign640``, ``irls640``, the 640
      deploy preset with the histogram percentiles and the non-fused IRLS,
      ``parity640``, ``hist640``, ``knob_translation``, ``knob_affine``, and
      at 2160x3840 ``4k``, ``parity4k``, ``prealign4k``, ``takeda4k``,
@@ -38,15 +38,23 @@ Phases, one line each, any failure raises and exits non-zero:
      PCG loops WHILE nodes and its seed pick an IF node of its CUDA graph;
      the 2160x3840 temperature forwards under both presets, maps and stats
      (the shear fold's branch two IF nodes), and the fused multimodal steps
-     under both presets, maps and scalars: each replayed against the same
-     forward run op by op (``forward_eager``, ``fused_forward_eager``) on
-     three frame pairs (two frames on the temperature forwards) after the
-     capture call: every output bit for bit,
-     the same ECC iterations, the exact launches a frame
-     (``GRAPH_LAUNCHES``) under both, the condition setter's runs in the
-     replays (its kernel row's ``launches``); the fold alone at even and odd
-     quarter turns; the replayed 640 and 4K deploy forwards, the 4K deploy
-     temperature stats and fused scalars under the sync debug mode "error";
+     under both presets, maps and scalars; the stream batch's four graphs
+     at 640x480 (``streams640``: ``BatchedForce.batched()``,
+     ``streams640_step``: the ``StreamingForce`` step over a world-1 NCCL
+     mesh, ``limb640`` and ``limb640_aux``: the whole-limb steps, all-reduces
+     inside): each replayed against the same function run op by op
+     (``forward_eager``, ``fused_forward_eager``, ``batched_eager``,
+     ``step_eager``, a step's ``eager``) on three frame pairs or batches
+     (two frames on the temperature forwards) after the capture call: every
+     output bit for bit (and the streaming step's smoothing state after each
+     batch), the same ECC iterations, the exact launches a frame
+     (``GRAPH_LAUNCHES``; a stream frame's under the stream graphs) under
+     both, the condition setter's runs in the replays (its kernel row's
+     ``launches``; a stream graph's equal to its streams' single
+     replays'); the fold alone at even and odd quarter turns; the replayed
+     640 and 4K deploy forwards, the 4K deploy temperature stats and fused
+     scalars and the four stream graphs under the sync debug mode "error",
+     each stream graph's call one ``cudaGraphLaunch`` and no kernel launch;
      one round of eager against graph time on the 640, 4K deploy and 4K
      parity force routes and the temperature and fused routes, the replay's
      device time, its outputs' clone and the full-resolution seed's
@@ -76,14 +84,19 @@ Phases, one line each, any failure raises and exits non-zero:
      t_mean within 0.1 degC, t_min and t_max within 0.75 degC, valid pixels
      within 0.5%, COLOR on at least 1% of the ROI;
   8. streams at 640x480: StreamingForce over BatchedForce, 4 streams, window
-     8, EMA 0.2, 6 batches through run_overlapped; K1, K3, K5, K6 and K7 must
-     launch; bit-equal to the serialized calls, each stream to _single and
+     8, EMA 0.2, 6 batches through run_overlapped, one CUDA graph a batch;
+     a stream frame launches exactly a 640 deploy frame's kernels;
+     the step's and the batch's graphs bit-equal to their eager versions
+     on three batches, the smoothing state too, replays under the sync
+     debug mode "error"; bit-equal to the serialized calls, each stream to _single and
      the smoothing to the port's CPU update; p50 per batch and fps;
   8a. BASELINE config 5 at 640x480 (phase ``limb640``): the same four
      streams (their first batch) through ``whole_limb_step`` and
      ``whole_limb_step_aux`` (map stride 2, a 960x1280 canvas, the poses of
      scripts/bench_streams.py, one stream's gate 0 and one's 0.5) on a
-     world-1 NCCL stream mesh; a stream frame launches exactly what a
+     world-1 NCCL stream mesh, one CUDA graph a step (each held bit for
+     bit to its eager version on three batches, replays under the sync
+     debug mode "error"); a stream frame launches exactly what a
      streams640 frame launches (K1 7, K3 1, K5 1, K6 1, K7 2, the labels
      2); the forces
      bit-equal to ``BatchedForce.batched()``, the aux head's to them times
@@ -193,13 +206,14 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 
@@ -470,7 +484,8 @@ TEMP_GRAPH_PAIRS = 2
 FRAME_640 = {"masked_quantiles": 7, "inpaint_diffusion": 1, "ecc_loop_euclidean": 1,
              "unwrap_wls": 1, "robust_polyfit2d": 2, "label_components": 2}
 GRAPH_LAUNCHES = {"640": FRAME_640, "config2": FRAME_640, "config3": FRAME_640,
-                  "streams640": FRAME_640, "limb640": FRAME_640,
+                  **{k: FRAME_640 for k in ("streams640", "streams640_step", "limb640",
+                                            "limb640_aux")},
                   "prealign640": KNOB_LAUNCHES["prealign640"],
                   "irls640": {"inpaint_diffusion": 1, "ecc_loop_euclidean": 1,
                               "unwrap_wls": 1, "label_components": 2},
@@ -483,6 +498,7 @@ GRAPH_LAUNCHES = {"640": FRAME_640, "config2": FRAME_640, "config3": FRAME_640,
 PATH_EXACT_LAUNCHES["limb640"] = {"masked_quantiles": 7, "inpaint_diffusion": 1,
                                   "ecc_loop_euclidean": 1, "unwrap_wls": 1,
                                   "robust_polyfit2d": 2, "label_components": 2}
+PATH_EXACT_LAUNCHES["streams640"] = FRAME_640
 # the graph phase's temperature forwards (maps and stats alike: K1 the
 # segmentation median, K3 the WIDE and COLOR fills, K8 the models under
 # deploy) and fused multimodal steps (a force frame and a temperature frame)
@@ -502,7 +518,10 @@ GRAPH_SETS = {"temp4k": 2, "temp4k_stats": 2, "temp4k_parity": 0, "temp4k_parity
 # the paths whose eager and graph times the graph phase reports
 # (graph_timing), and the fold's angles (its quarter turns 0, 1, 1, -1, 2)
 GRAPH_TIMED = ("640", "4k", "parity4k", "temp4k", "temp4k_stats", "temp4k_parity_stats",
-               "mm4k_fused_scalars", "mm4k_parity_fused_scalars")
+               "mm4k_fused_scalars", "mm4k_parity_fused_scalars", "limb640_aux")
+# the stream batch's graphs (one stream frame each launches FRAME_640):
+# BatchedForce.batched(), the StreamingForce step, the two whole-limb steps
+STREAM_GRAPHS = ("streams640", "streams640_step", "limb640", "limb640_aux")
 FOLD_ANGLES_DEG = (20.0, 70.0, 100.0, -95.0, 185.0)
 
 
@@ -510,7 +529,10 @@ class GraphPath(NamedTuple):
     """A path of the graph phase: its replayed and its eager function, the
     inputs of each call, the FTPPipelines whose ECC iterations are compared
     (the replayed one's first), the frames a call, what ``graph_route``
-    is asked of and the replayed ``ForwardGraph``."""
+    is asked of and the replayed ``ForwardGraph``; for a stream path the
+    condition setter's runs its replays must make (``sets``) and, for the
+    streaming step, the smoothing states (graph's, eager's) compared after
+    each call (``state``)."""
     path: str
     fn_g: Callable
     fn_e: Callable
@@ -519,6 +541,8 @@ class GraphPath(NamedTuple):
     per_call: int
     routed: Any
     graph: Callable
+    sets: Optional[int] = None
+    state: Optional[Callable] = None
 # the runner's file contract without figures (matplotlib), as the JAX runner
 # writes it (tests/test_torch_runner.py and tests/test_torch_cli.py hold
 # these to the JAX trees): the force command with --export-heightmaps, and
@@ -569,7 +593,8 @@ def say(phase: str, **kw) -> None:
 
 def say_memory(after: str) -> None:
     """A ``memory`` line: the card's memory PyTorch reserves, and the graphs
-    kept for the life of the process (those with a WHILE node)."""
+    kept for the life of the process (those with a WHILE node whose
+    pipeline went after a profiler had traced the card)."""
     import torch
     from vistaf_torch.utils import cuda_graph
     say("memory", after=after, gated=False,
@@ -916,8 +941,9 @@ def kernel_cases(device):
 
 # the WHILE probe's cap (the JAX ECC's max_iters) and its trips; the probe
 # graphs, kept for the life of the process as vistaf_torch.utils.cuda_graph
-# keeps every graph with a WHILE node (its ``_RETAINED``: destroying one
-# made a later profiled replay segfault)
+# keeps a graph with a WHILE node once a profiler has traced the card (its
+# ``_RETAINED``: destroying one there once made a later profiled replay
+# segfault)
 COND_CAP, COND_TRIPS = 300, 16
 COND_GRAPHS = []
 
@@ -1859,6 +1885,36 @@ def same_outputs(path: str, got, want) -> None:
     assert torch.equal(got, want), (path, float((got.double() - want.double()).abs().max()))
 
 
+@contextlib.contextmanager
+def no_syncs(on: bool = True):
+    """The sync debug mode "error" over the block (where ``on``): a host
+    sync there raises."""
+    import torch
+    if not on:
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def single_stream_sets(cfg, batches, device) -> int:
+    """The condition setter's runs when each stream of ``batches`` (device
+    (ref, def) stacks) goes alone through a replayed single forward
+    (``FTPPipeline.forward``): what a stream batch's graph must run."""
+    from vistaf_torch.ftp.pipeline import FTPPipeline
+    from vistaf_torch.kernels import graph_cond_kernel
+    pipe = FTPPipeline(cfg, P2H_MODEL, device=device)
+    pipe.forward(batches[0][0][0], batches[0][1][0])      # the capture call
+    graph_cond_kernel.reset_sets(device)
+    for refs, frames in batches:
+        for r, d in zip(refs, frames):
+            pipe.forward(r, d)
+    return graph_cond_kernel.sets(device)
+
+
 def ecc_probe(ftp) -> list:
     """Wrap ``ftp._ecc`` to keep each call's iteration count tensor: in a
     captured forward the graph's own, which each replay rewrites."""
@@ -1878,18 +1934,26 @@ def run_graph(device, rows, card):
     graph (its ECC and PCG loops WHILE nodes, its seed pick an IF node), the
     2160x3840 temperature forwards (maps and stats, both presets; the shear
     fold's branch an IF node) and the fused multimodal steps (maps and
-    scalars, both presets) replayed from theirs, each against the same
-    forward run op by op (``forward_eager``, ``fused_forward_eager``) on
-    GRAPH_PAIRS frames (TEMP_GRAPH_PAIRS on the temperature forwards) after
-    the capture call: every output bit for bit, the
-    same ECC iterations, the launches a frame of GRAPH_LAUNCHES under both;
-    the condition setter's runs in the replays (``launches`` of its kernel
-    row); the fold on a small plane at even and odd quarter turns, replayed
-    against its eager run; the replayed 640 and 4K deploy forwards, the 4K
-    deploy temperature stats and the fused 4K deploy scalars under the sync
-    debug mode "error"; one round of eager against graph time on the 640,
+    scalars, both presets) replayed from theirs, and the stream batch's
+    four graphs (STREAM_GRAPHS: ``BatchedForce.batched()``, the
+    ``StreamingForce`` step over the NCCL mesh, ``whole_limb_step`` and
+    ``whole_limb_step_aux``), each against the same function run op by op
+    (``forward_eager``, ``fused_forward_eager``, ``batched_eager``,
+    ``step_eager``, a step's ``eager``) on GRAPH_PAIRS frames or batches
+    (TEMP_GRAPH_PAIRS on the temperature forwards) after the capture call:
+    every output bit for bit (the streaming step's smoothing state after
+    each batch too), the same ECC iterations, the launches a frame of
+    GRAPH_LAUNCHES under both; the condition setter's runs in the replays
+    (``launches`` of its kernel row; a stream graph's exactly its streams'
+    single replays'); the fold on a small plane at even and odd quarter
+    turns, replayed against its eager run; the replayed 640 and 4K deploy
+    forwards, the 4K deploy temperature stats, the fused 4K deploy scalars
+    and the stream graphs under the sync debug mode "error", and a stream
+    graph's call one ``cudaGraphLaunch`` and no kernel launch
+    (``graph_launches``); one round of eager against graph time on the 640,
     4K deploy and 4K parity force routes and the temperature and fused
-    multimodal ones, with the full-resolution seed's time (the ``lax.cond``
+    multimodal ones and the aux limb step, with the host's
+    time to return from a replayed call, the full-resolution seed's time (the ``lax.cond``
     branch that an IF node now runs only when the pooled seed fails) and
     the time of cloning a replay's outputs (``graph_timing``); the memory
     the graphs reserve."""
@@ -1904,6 +1968,7 @@ def run_graph(device, rows, card):
                                        whole_limb_step, whole_limb_step_aux)
     from vistaf_torch.pipelines.force import ForcePipeline
     from vistaf_torch.pipelines.multimodal import MultimodalPipeline
+    from vistaf_torch.pipelines.streaming import StreamingForce
     from vistaf_torch.temperature.inference import TemperaturePipeline
     from vistaf_torch.utils import profiling
     from vistaf_torch.utils.cuda_graph import _clone
@@ -1953,24 +2018,44 @@ def run_graph(device, rows, card):
     g, e = pair(cfgs["640"][0])
     paths.append(force_path("config3", g, e, g.force_map_device(), e.force_map_device(),
                             frames(cfgs["640"][0])))
+    # the stream batch's four graphs: BatchedForce.batched(), the
+    # StreamingForce step over the NCCL mesh (its smoothing state compared
+    # after each batch) and both whole-limb steps, each against its eager
+    # version; their replays must run the condition setter exactly as often
+    # as the streams' single forwards replayed one by one
     cfg_s, refs, seq = stream_inputs()
-    g, e = pair(cfg_s)
-    bfs = [BatchedForce(p.ftp, FORCE_MODEL) for p in (g, e)]
     batches = [(up(refs), up(seq[k])) for k in range(GRAPH_PAIRS)]
-    paths.append(force_path("streams640", g, e, bfs[0].batched(), bfs[1].batched(), batches,
-                            STREAMS))
+    stream_sets = single_stream_sets(cfg_s, batches, device)
     mesh = make_stream_mesh()
     _, _, _, (pose, accel) = limb_inputs()
     aux = {"pose_px": shard_batch(mesh, pose), "accel_mss": shard_batch(mesh, accel)}
-    g, e = pair(cfg_s)
-    limbs = []
-    for p in (g, e):
-        bf = BatchedForce(p.ftp, FORCE_MODEL)
-        step = whole_limb_step(bf, mesh, map_stride=LIMB_STRIDE)
-        step_aux = whole_limb_step_aux(bf, mesh, LIMB_CANVAS, map_stride=LIMB_STRIDE)
-        limbs.append(lambda r, d, step=step, step_aux=step_aux: (step(r, d),
-                                                                  step_aux(r, d, aux)))
-    paths.append(force_path("limb640", g, e, limbs[0], limbs[1], batches, 2 * STREAMS))
+
+    def batched(bg, be):
+        return bg.batched(), be.batched_eager, bg, lambda: bg._graph, None
+
+    def streaming(bg, be):
+        sg, se = (StreamingForce(b, STREAMS, window=WINDOW, ema_alpha=EMA_ALPHA, mesh=mesh)
+                  for b in (bg, be))
+        return sg._step, se.step_eager, sg, lambda: sg._graph, lambda: (sg._state, se._state)
+
+    def limb(bg, be):
+        sg, se = (whole_limb_step(b, mesh, map_stride=LIMB_STRIDE) for b in (bg, be))
+        return sg, se.eager, sg, lambda: sg.graph, None
+
+    def limb_aux(bg, be):
+        sg, se = (whole_limb_step_aux(b, mesh, LIMB_CANVAS, map_stride=LIMB_STRIDE)
+                  for b in (bg, be))
+        return (lambda r, d: sg(r, d, aux),
+                lambda r, d: se.eager(r, d, aux["pose_px"], aux["accel_mss"]), sg,
+                lambda: sg.graph, None)
+
+    for path, make in (("streams640", batched), ("streams640_step", streaming),
+                       ("limb640", limb), ("limb640_aux", limb_aux)):
+        g, e = pair(cfg_s)
+        fn_g, fn_e, routed, graph, state = make(*(BatchedForce(p.ftp, FORCE_MODEL)
+                                                  for p in (g, e)))
+        paths.append(GraphPath(path, fn_g, fn_e, batches, (g.ftp, e.ftp), STREAMS, routed,
+                               graph, stream_sets, state))
     # the temperature forwards on thermochromic frames of distinct seeds,
     # and the fused multimodal steps on the multimodal force halves' pairs:
     # one pipeline a preset replays its graphs and runs its eager forward
@@ -2004,16 +2089,20 @@ def run_graph(device, rows, card):
         probes = [ecc_probe(f) for f in gp.ftps]
         t0 = time.perf_counter()
         gp.fn_g(*inputs[0])                  # the capture call: eager, then captured
+        if gp.state is not None:
+            gp.fn_e(*inputs[0])              # the eager twin's state one batch on too
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
-        results, iters, launches = [], [], []
+        results, iters, launches, states = [], [], [], ([], [])
         graph_cond_kernel.reset_sets(device)
-        for fn, probe in ((gp.fn_g, probes[:1]), (gp.fn_e, probes[-1:])):
+        for side, (fn, probe) in enumerate(((gp.fn_g, probes[:1]), (gp.fn_e, probes[-1:]))):
             before = dict(kernels.LAUNCHES)
             outs, its = [], []
             for inp in inputs:
                 outs.append(fn(*inp))
                 its.append([int(p[-1]) for p in probe])
+                if gp.state is not None:
+                    states[side].append(_clone(tuple(gp.state()[side])))
             torch.cuda.synchronize()
             results.append(outs)
             iters.append(its)
@@ -2024,7 +2113,9 @@ def run_graph(device, rows, card):
         # IF nodes under the shear rotation and none under the gather one
         sets = graph_cond_kernel.sets(device)
         want_sets = GRAPH_SETS.get(path)
-        if want_sets is None:
+        if gp.sets is not None:
+            assert sets == gp.sets, (path, sets, gp.sets)
+        elif want_sets is None:
             assert sets > 0, f"the condition setter did not run on the {path} replays"
         else:
             assert sets == want_sets * len(inputs), (path, sets, want_sets)
@@ -2032,6 +2123,8 @@ def run_graph(device, rows, card):
         setter["launches"] += sets
         for k, (a, b) in enumerate(zip(*results)):
             same_outputs(f"{path}[pair {k}]", a, b)
+        for k, (a, b) in enumerate(zip(*states)):
+            same_outputs(f"{path}.state[batch {k}]", a, b)
         assert iters[0] == iters[1], (path, iters)
         want = {k: v * gp.per_call * len(inputs) for k, v in GRAPH_LAUNCHES[path].items()}
         assert launches[0] == launches[1] == want, (path, launches, want)
@@ -2039,8 +2132,9 @@ def run_graph(device, rows, card):
             ecc_iters=[i[0] for i in iters[0]] if gp.ftps else None,
             launches=launches[0], launches_eager=launches[1], condition_sets=sets,
             captured_launches=gp.graph().launches, capture_s=capture_s,
+            states_equal=len(states[0]) if gp.state is not None else None,
             seconds=time.perf_counter() - t0)
-        if path in GRAPH_TIMED:
+        if path in GRAPH_TIMED + STREAM_GRAPHS:
             kept[path] = gp
         del gp, probes, results
     say_memory("graph")
@@ -2074,13 +2168,22 @@ def run_graph(device, rows, card):
     # the replayed 640 and 4K deploy forwards, the 4K deploy temperature
     # stats and the fused 4K deploy scalars under the sync debug mode
     # "error", and one round of each route's time against its eager run
-    for path in ("640", "4k", "temp4k_stats", "mm4k_fused_scalars"):
+    for path in ("640", "4k", "temp4k_stats", "mm4k_fused_scalars") + STREAM_GRAPHS:
         gp = kept[path]
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with no_syncs():
             gp.fn_g(*gp.inputs[0])
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    # the stream graphs' replayed calls, one of each in one profiled window:
+    # one cudaGraphLaunch a call and no kernel launch of their own (the
+    # inputs' copies in and the outputs' clones are copies)
+    stream_gps = [kept[p] if p in GRAPH_TIMED else kept.pop(p) for p in STREAM_GRAPHS]
+    win = profiling.profile_window(lambda: [gp.fn_g(*gp.inputs[0]) for gp in stream_gps], 1)
+    counts = {k: win[k] / len(stream_gps) for k in (
+        "graph_launches_per_frame", "cuda_launches_per_frame",
+        "cooperative_or_cluster_launches_per_frame")}
+    say("graph_launches", paths=list(STREAM_GRAPHS), per_call=counts)
+    assert counts == {"graph_launches_per_frame": 1.0, "cuda_launches_per_frame": 0.0,
+                      "cooperative_or_cluster_launches_per_frame": 0.0}, counts
+    del stream_gps
     g4 = FTPGeometry.from_config(FTPConfig().deploy())
     seed_ms = {}
     for name, m in (("236", kept["640"].ftps[0].roi), ("1182", up(geometry.circular_mask(
@@ -2094,7 +2197,15 @@ def run_graph(device, rows, card):
             fn = gp.fn_e if kind == "eager" else gp.fn_g
             ms[kind].append(profiling.cuda_ms(lambda: fn(*inp), reps=reps, warmup=1))
         outputs = gp.graph()._outputs
+        host_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            gp.fn_g(*inp)
+            host_ms.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
         say("graph_timing", path=path, gated=False, host_syncs_graph=0,
+            graph_call_host_ms=float(np.median(host_ms)),
             host_syncs_eager=profiling.host_syncs(lambda: gp.fn_e(*inp)),
             eager_ms=ms["eager"], graph_ms=ms["graph"],
             graph_device_ms=profiling.device_ms(lambda: gp.fn_g(*inp), reps=reps),
@@ -2115,9 +2226,12 @@ def _tensors(out):
 def run_streams(device, rows, card):
     """Drive StreamingForce over BatchedForce at 640x480 on the card: four
     streams, window 8, EMA 0.2, a sequence of BATCHES batches through
-    ``run_overlapped`` (launches counted from 0 over it), held bit for bit
-    to the serialized calls, each stream to ``_single`` and the smoothing
-    to the port's CPU ``update``; then timed."""
+    ``run_overlapped`` (launches counted from 0 over it, exact), held bit
+    for bit to the serialized calls, each stream to ``_single`` and the
+    smoothing to the port's CPU ``update``; the step's and the batch's CUDA
+    graphs each held bit for bit to their eager versions on GRAPH_PAIRS
+    batches (the smoothing state after each too), the replays under the
+    sync debug mode "error"; then timed."""
     import torch
     from vistaf_torch import kernels
     from vistaf_torch.ftp.pipeline import FTPPipeline
@@ -2149,6 +2263,22 @@ def run_streams(device, rows, card):
         for k in ("force_N", "max_depth_mm"):
             assert torch.equal(out[k][s], one[k]), (k, s, out[k], one[k])
     np.testing.assert_array_equal(over[0]["force_raw_N"], out["force_N"].cpu().numpy())
+    # each graph against its eager version on GRAPH_PAIRS batches of device
+    # stacks, the replays under the sync debug mode "error": the step's
+    # outputs and smoothing state after each batch, and the batch's forwards
+    graph_sf = StreamingForce(bf, STREAMS, window=WINDOW, ema_alpha=EMA_ALPHA)
+    eager_sf = StreamingForce(bf, STREAMS, window=WINDOW, ema_alpha=EMA_ALPHA)
+    assert graph_sf.graph_route() and bf.graph_route()
+    ref_t = torch.as_tensor(refs, device=device)
+    for t, b in enumerate(seq[:GRAPH_PAIRS]):
+        b = torch.as_tensor(b, device=device)
+        with no_syncs(graph_sf._graph is not None):
+            got = graph_sf._step(ref_t, b)
+            got_b = bf.batched()(ref_t, b)
+        same_outputs(f"streams640 step {t}", got, eager_sf.step_eager(ref_t, b))
+        same_outputs(f"streams640 state {t}", tuple(graph_sf._state), tuple(eager_sf._state))
+        same_outputs(f"streams640 batched {t}", got_b, bf.batched_eager(ref_t, b))
+    assert sf._graph is not None and serial_sf._graph is not None and bf._graph is not None
 
     # timing: each batch alone (CUDA events, 2 warm-up), then whole
     # sequences on the host's clock, serialized and overlapped in turns
@@ -2209,11 +2339,20 @@ def max_blend(maps, gates, poses, canvas_hw, stride):
 
 
 class _Replay:
-    """Per-stream results computed before, handed out in stream order: the
-    whole-limb heads over it time the fusion alone."""
+    """Per-stream results computed before, handed out as the batch's (on
+    the graph route, stacked) or in stream order: the whole-limb heads over
+    it time the fusion alone, on the card one CUDA graph of the head."""
 
     def __init__(self, outs, depth_eps_mm):
+        import torch
         self.outs, self.depth_eps_mm, self.k = outs, depth_eps_mm, 0
+        self.stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def graph_route(self) -> bool:
+        return True
+
+    def batched_eager(self, refs, frames):
+        return self.stacked
 
     def _single(self, ref, de):
         self.k += 1
@@ -2226,8 +2365,10 @@ def run_limb(device, rows, card):
     ``whole_limb_step_aux`` on a world-1 NCCL stream mesh (launches counted
     from 0 over both), held to ``BatchedForce.batched()`` on the same card,
     to ``motion_gate`` and a numpy max-blend, and to the same heads on the
-    port's CPU (a gloo mesh) within the deploy contract's 1%; then timed,
-    the fusion alone too.  Returns the two steps for the profile."""
+    port's CPU (a gloo mesh) within the deploy contract's 1%; each step's
+    CUDA graph held bit for bit to its eager version on GRAPH_PAIRS batches,
+    the replays under the sync debug mode "error"; then timed, the fusion
+    alone too.  Returns the two steps for the profile."""
     import torch
     import torch.distributed as dist
     from vistaf_torch import kernels
@@ -2274,6 +2415,17 @@ def run_limb(device, rows, card):
     canvas = got_aux["limb_canvas_mm"]
     np.testing.assert_array_equal(
         canvas, max_blend(limb, got_aux["stream_gate"], pose, LIMB_CANVAS, LIMB_STRIDE))
+    # both steps' graphs against their eager versions on GRAPH_PAIRS batches
+    # (the streams' batches; the first is this phase's), replays under the
+    # sync debug mode "error"
+    assert step.graph is not None and step_aux.graph is not None
+    for t, b in enumerate(stream_inputs()[2][:GRAPH_PAIRS]):
+        b = shard_batch(mesh, b)
+        with no_syncs():
+            got_t, got_aux_t = step(rs, b), step_aux(rs, b, aux)
+        same_outputs(f"limb640 step {t}", got_t, step.eager(rs, b))
+        same_outputs(f"limb640_aux step {t}", got_aux_t,
+                     step_aux.eager(rs, b, aux["pose_px"], aux["accel_mss"]))
 
     # the same heads on the port's CPU (a gloo group over the same rank)
     t0 = time.perf_counter()
@@ -2309,7 +2461,7 @@ def run_limb(device, rows, card):
     assert np.isfinite(limb).all() and float(limb.max()) > 0.01
     hold_limb_to_jax((refs, defs, (pose, accel)), got, got_aux)
 
-    time_limb("limb640", bf, mesh, rs, ds, aux, card)
+    time_limb("limb640", bf, mesh, rs, ds, aux, card, step, step_aux)
     return lambda: step(rs, ds), lambda: step_aux(rs, ds, aux)
 
 
@@ -2346,16 +2498,16 @@ def limb_inputs():
     return cfg, refs, defs, (pose, accel)
 
 
-def time_limb(path, bf, mesh, rs, ds, aux, card, **extra):
-    """A ``timing`` line for each head over this rank's streams ``rs``,
-    ``ds``: p50 and p90 a step (CUDA events, 2 warm-up, 8 timed), the step
-    rate, and the fusion alone (the head over the streams' results computed
-    before: everything after the forwards), with the NCCL version."""
+def time_limb(path, bf, mesh, rs, ds, aux, card, step, step_aux, **extra):
+    """A ``timing`` line for each head (``step``, ``step_aux``, made for
+    ``bf`` over ``mesh``) over this rank's streams ``rs``, ``ds``: p50 and
+    p90 a step (CUDA events, 2 warm-up, 8 timed), the step rate, the host's
+    time to return from a step call, and the fusion alone (the head over the
+    streams' results computed before: everything after the forwards), with
+    the NCCL version."""
     import torch
     from vistaf_torch.parallel import whole_limb_step, whole_limb_step_aux
     from vistaf_torch.utils.profiling import cuda_ms, event_times, percentiles
-    step = whole_limb_step(bf, mesh, map_stride=LIMB_STRIDE)
-    step_aux = whole_limb_step_aux(bf, mesh, LIMB_CANVAS, map_stride=LIMB_STRIDE)
     replay = _Replay([bf._single(rs[s], ds[s]) for s in range(rs.shape[0])], bf.depth_eps_mm)
     fuse = whole_limb_step(replay, mesh, map_stride=LIMB_STRIDE)
     fuse_aux = whole_limb_step_aux(replay, mesh, LIMB_CANVAS, map_stride=LIMB_STRIDE)
@@ -2364,9 +2516,16 @@ def time_limb(path, bf, mesh, rs, ds, aux, card, **extra):
                               lambda: fuse_aux(rs, ds, aux))):
         times = event_times(fn, 8, warmup=2)
         p50, p90 = percentiles(times, (50, 90))
+        host_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
         say("timing", path=name, streams=STREAMS, local_streams=int(rs.shape[0]),
             steps_timed=len(times), p50_ms_per_step=p50, p90_ms_per_step=p90,
-            step_hz=1000.0 / p50,
+            step_hz=1000.0 / p50, call_host_ms=float(np.median(host_ms)),
             fusion_ms=cuda_ms(fusion, reps=20, warmup=2),
             nccl=".".join(map(str, torch.cuda.nccl.version())), card=card, **extra)
 
@@ -3137,9 +3296,11 @@ def main() -> int:
     lap("trainers")
     run_knobs(device, rows, card)
     lap("knobs")
-    import torch.distributed as dist
-    dist.destroy_process_group()
     say_memory("knobs")
+    import torch.distributed as dist
+    runs.clear()             # the limb steps' graphs hold the group's all-reduces
+    gc.collect()
+    dist.destroy_process_group()
     say("clock", seconds=clock, total=time.perf_counter() - t0,
         jax=dict(JAX_SECONDS, total=sum(JAX_SECONDS.values())))
 

@@ -25,6 +25,7 @@ import chip_smoke as cs  # noqa: E402
 from vistaf_torch import kernels, use_full_fp32  # noqa: E402
 from vistaf_torch.config import FTPConfig, ForceConfig  # noqa: E402
 from vistaf_torch.pipelines.force import ForcePipeline  # noqa: E402
+from vistaf_torch.utils import cuda_graph  # noqa: E402
 from vistaf_torch.utils.synthetic import synthetic_pair  # noqa: E402
 
 use_full_fp32()
@@ -39,6 +40,7 @@ fp(ref, de)
 torch.cuda.synchronize()
 launches = dict(kernels.LAUNCHES)
 frames = 3
+cuda_graph.note_profiler()          # WHILE graphs that go from here on are kept
 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     for _ in range(frames):
         fp(ref, de)

@@ -12,13 +12,22 @@ same reductions as ``torch.distributed`` collectives over the mesh's group
 (each rank writes its streams into a zero (B, ...) tensor), as in JAX: a
 sum with zeros is exact, so every rank receives the same bits.
 
-The forward ends its data-dependent loops on host checks, one frame at a
-time, so a rank's streams run one after the other on its card; each stream's
-result is bit for bit the single forward's.
+On the card each of the JAX package's jitted entry points is one CUDA graph
+replayed a call (``utils/cuda_graph.py::ForwardGraph``), as ``jax.jit``
+compiles each into one program: ``BatchedForce.batched()`` and
+``sharded()`` replay a graph of ``batched_eager``, and each
+``whole_limb_step`` / ``whole_limb_step_aux`` step one graph of the rank's
+streams and the head, its all-reduces on the NCCL group inside.  The first
+call runs eagerly (which also brings the communicator up) and captures;
+every later call replays.  A rank's streams are captured one after the
+other in stream order, each stream's forward with its ECC and PCG loops as
+WHILE nodes and its seed pick as an IF node, so each stream's result is bit
+for bit the single forward's and launches what it launches.  On the CPU and
+on a gloo mesh everything runs eagerly.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +38,7 @@ from vistaf_torch.calib import scalar_models
 from vistaf_torch.ftp.pipeline import FTPPipeline
 from vistaf_torch.parallel.distributed import backend_for
 from vistaf_torch.pipelines.force import depth_map_to_volume_cm3
+from vistaf_torch.utils.cuda_graph import ForwardGraph
 
 
 def make_stream_mesh(n_devices: Optional[int] = None, device: str = "cuda") -> DeviceMesh:
@@ -106,9 +116,26 @@ def _reduce(mesh: DeviceMesh, x: torch.Tensor, op) -> torch.Tensor:
     return x
 
 
+def _stack(outs, keys: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
+    """Per-stream result dicts stacked key by key (the first's keys, or
+    ``keys``)."""
+    if not outs:
+        raise ValueError("a rank needs at least one stream")
+    return {k: torch.stack([o[k] for o in outs]) for k in (keys or outs[0])}
+
+
 class BatchedForce:
     """(B, H, W, 3) uint8 ref/def stacks -> per-stream force scalars and
     heightmaps, on the device of ``pipe``.
+
+    ``batched()`` (and ``sharded(mesh)``, the same over a rank's streams) is
+    the JAX package's ``jit(vmap(_single))``: where ``graph_route`` holds
+    (the pipeline's: on the card, no debug outputs, no ``stop_after``) one
+    CUDA graph of ``batched_eager``, captured at the first call and replayed
+    at every later one (a stack of another shape raises); elsewhere each
+    stream through ``_single`` in turn.  ``batched_eager`` runs the streams
+    in index order, each through ``_single_eager``, so each stream of a
+    replay is bit for bit ``_single``'s.
 
     Keeps the JAX defaults: a 2 mm grating pitch, a 0.01 mm contact
     threshold, and a 1e-9 floor on the period (``ForcePipeline`` uses
@@ -121,11 +148,15 @@ class BatchedForce:
         self.grating_pitch_mm = grating_pitch_mm
         self.depth_eps_mm = depth_eps_mm
         self.device = pipe.device
+        self._graph: Optional[ForwardGraph] = None
 
-    def _single(self, ref_bgr, def_bgr) -> Dict[str, torch.Tensor]:
-        """One stream's forward and volume -> force tail, on the device."""
-        pipe = self.pipe
-        res = pipe.forward(pipe.upload(ref_bgr), pipe.upload(def_bgr))
+    def graph_route(self) -> bool:
+        """Whether ``batched()`` replays a CUDA graph: where the pipeline's
+        forward would replay its own."""
+        return self.pipe.graph_route()
+
+    def _tail(self, res: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The volume -> force tail of one stream's forward outputs."""
         height = res["height_map_mm_crop"]
         mm_per_px = self.grating_pitch_mm / torch.clamp(res["est_period_px"], min=1e-9)
         v, a, d = depth_map_to_volume_cm3(height, torch.isfinite(height), mm_per_px,
@@ -138,6 +169,23 @@ class BatchedForce:
             "height_map_mm": height,
         }
 
+    def _single(self, ref_bgr, def_bgr) -> Dict[str, torch.Tensor]:
+        """One stream's forward (``pipe.forward``: a graph replay on the
+        card) and volume -> force tail, on the device."""
+        pipe = self.pipe
+        return self._tail(pipe.forward(pipe.upload(ref_bgr), pipe.upload(def_bgr)))
+
+    def _single_eager(self, ref_bgr: torch.Tensor, def_bgr: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        """``_single`` op by op (``pipe.forward_eager``) on device tensors."""
+        return self._tail(self.pipe.forward_eager(ref_bgr, def_bgr))
+
+    def batched_eager(self, refs: torch.Tensor, frames: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        """The streams of two (B, H, W, 3) device stacks in index order
+        through ``_single_eager``, stacked: what the batch graph captures."""
+        return _stack([self._single_eager(refs[b], frames[b]) for b in range(frames.shape[0])])
+
     def batched(self):
         """A callable from (B, H, W, 3) uint8 ref and def stacks (numpy or
         device tensors) to a dict of stacked device tensors: (B,) scalars
@@ -147,8 +195,11 @@ class BatchedForce:
             if refs.dim() != 4 or refs.shape != frames.shape:
                 raise ValueError(f"expected two (B, H, W, 3) stacks, got "
                                  f"{tuple(refs.shape)} and {tuple(frames.shape)}")
-            outs = [self._single(refs[b], frames[b]) for b in range(frames.shape[0])]
-            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+            if self.graph_route():
+                if self._graph is None:
+                    self._graph = ForwardGraph(self.batched_eager, self.device)
+                return self._graph(refs, frames)
+            return _stack([self._single(refs[b], frames[b]) for b in range(frames.shape[0])])
         return fn
 
     def sharded(self, mesh: DeviceMesh):
@@ -164,21 +215,64 @@ class BatchedForce:
         return self.batched()
 
 
-def _local_streams(batched_force, mesh: DeviceMesh, ref_local, def_local, map_stride: int):
-    """This rank's streams through ``batched_force._single``: the stacked
-    force, area and depth scalars and each stream's contact-depth map on the
-    rank's device.  The indentation side is detected per stream as
-    ``depth_map_to_volume_cm3`` detects it (whichever of +Z and -Z
+_LIMB_KEYS = ("force_N", "contact_area_mm2", "max_depth_mm", "height_map_mm")
+
+
+def _graph_route(batched_force, mesh: DeviceMesh) -> bool:
+    """A whole-limb step's route: a graph on a CUDA mesh over a force whose
+    forwards replay graphs."""
+    return mesh.device_type == "cuda" and batched_force.graph_route()
+
+
+class MeshStep:
+    """A whole-limb step, ``step(ref_local, def_local[, aux])``: the rank's
+    inputs go to its device, then ``eager(ref, def, *aux tensors)`` runs.
+    Where ``graph_route`` holds (a CUDA mesh over a force whose forwards
+    replay graphs) that is one CUDA graph of ``eager``, captured at the
+    first call and replayed at every later one (inputs of another shape
+    raise), the head's all-reduces inside it; elsewhere ``eager`` itself.
+    ``aux_keys`` name the entries of ``aux`` the step takes, in order.
+    The graph holds the group's NCCL all-reduces: let the step go before
+    the process group is destroyed (across cards, destroying the group
+    under a live graph did not return)."""
+
+    def __init__(self, batched_force, mesh: DeviceMesh, eager: Callable,
+                 aux_keys: Sequence[str] = ()):
+        self.batched_force = batched_force
+        self.mesh = mesh
+        self.eager = eager
+        self.aux_keys = tuple(aux_keys)
+        self.graph: Optional[ForwardGraph] = None
+
+    def graph_route(self) -> bool:
+        return _graph_route(self.batched_force, self.mesh)
+
+    def __call__(self, ref_local, def_local, aux=None) -> Dict[str, torch.Tensor]:
+        extra = [aux[k] for k in self.aux_keys]
+        inputs = [_on(self.mesh, x) for x in (ref_local, def_local, *extra)]
+        if self.graph_route():
+            if self.graph is None:
+                self.graph = ForwardGraph(self.eager, mesh_device(self.mesh))
+            return self.graph(*inputs)
+        return self.eager(*inputs)
+
+
+def _local_streams(batched_force, mesh: DeviceMesh, ref_local: torch.Tensor,
+                   def_local: torch.Tensor, map_stride: int):
+    """This rank's streams (device stacks) through ``batched_eager`` on the
+    graph route (``_graph_route``), else one by one through ``_single``: the
+    stacked force, area and depth scalars and each stream's contact-depth
+    map on the rank's device.  The indentation side is detected per stream
+    as ``depth_map_to_volume_cm3`` detects it (whichever of +Z and -Z
     integrates larger), so the map holds with
     ``mm_keep_indentation_negative=True``."""
     dev = mesh_device(mesh)
-    ref_local, def_local = _on(mesh, ref_local), _on(mesh, def_local)
-    outs = [batched_force._single(ref_local[b], def_local[b])
-            for b in range(ref_local.shape[0])]
-    if not outs:
-        raise ValueError("a rank needs at least one stream")
-    res = {k: torch.stack([o[k] for o in outs]).to(dev)
-           for k in ("force_N", "contact_area_mm2", "max_depth_mm", "height_map_mm")}
+    if _graph_route(batched_force, mesh):
+        res = batched_force.batched_eager(ref_local, def_local)
+    else:
+        res = _stack([batched_force._single(ref_local[b], def_local[b])
+                      for b in range(ref_local.shape[0])], _LIMB_KEYS)
+    res = {k: res[k].to(dev) for k in _LIMB_KEYS}
     hm = res["height_map_mm"]
     finite = torch.isfinite(hm)
     hmf = torch.where(finite, hm, 0.0)
@@ -191,19 +285,21 @@ def _local_streams(batched_force, mesh: DeviceMesh, ref_local, def_local, map_st
     return res["force_N"], res["contact_area_mm2"], res["max_depth_mm"], contact
 
 
-def whole_limb_step(batched_force, mesh: DeviceMesh, map_stride: int = 1):
+def whole_limb_step(batched_force, mesh: DeviceMesh, map_stride: int = 1) -> MeshStep:
     """Multi-stream fusion head (BASELINE.json config 5).
 
-    Returns ``step(ref_local, def_local) -> dict``: the rank's (n, H, W, 3)
-    uint8 streams (``shard_batch`` / ``shard_local_batch``) through
-    ``batched_force._single`` (any object with it and ``depth_eps_mm``),
-    then the head over the mesh.  Every rank receives the same dict:
+    Returns ``step(ref_local, def_local) -> dict`` (a ``MeshStep``): the
+    rank's (n, H, W, 3) uint8 streams (``shard_batch`` /
+    ``shard_local_batch``) through the force (on the graph route
+    ``batched_force.batched_eager``, else ``_single`` a stream: any object
+    with it and ``depth_eps_mm``), then the head over the mesh, one CUDA
+    graph a step on the card.  Every rank receives the same dict:
     ``per_stream_force`` (B,), ``total_force_N``, ``max_depth_mm`` and
     ``contact_area_mm2`` (0-d: sums of the local sums, the max of the local
     maxima), and ``whole_limb_map_mm`` (B, h', w'): each stream's contact
     depth (depth > ``depth_eps_mm``, else 0) subsampled by ``map_stride``.
     All float32, on the rank's device."""
-    def step(ref_local, def_local) -> Dict[str, torch.Tensor]:
+    def eager(ref_local, def_local) -> Dict[str, torch.Tensor]:
         forces, areas, depths, maps = _local_streams(batched_force, mesh, ref_local,
                                                      def_local, map_stride)
         return {
@@ -213,7 +309,7 @@ def whole_limb_step(batched_force, mesh: DeviceMesh, map_stride: int = 1):
             "contact_area_mm2": _reduce(mesh, areas.sum(), dist.ReduceOp.SUM),
             "whole_limb_map_mm": gather_streams(mesh, maps),
         }
-    return step
+    return MeshStep(batched_force, mesh, eager)
 
 
 def motion_gate(accel_mss: torch.Tensor, ok_mss: float = 2.0,
@@ -227,7 +323,7 @@ def motion_gate(accel_mss: torch.Tensor, ok_mss: float = 2.0,
 
 
 def whole_limb_step_aux(batched_force, mesh: DeviceMesh, canvas_hw, map_stride: int = 1,
-                        gate_ok_mss: float = 2.0, gate_cut_mss: float = 20.0):
+                        gate_ok_mss: float = 2.0, gate_cut_mss: float = 20.0) -> MeshStep:
     """Config-5 fusion head with the proprioception and IMU streams.
 
     Returns ``step(ref_local, def_local, aux) -> dict``; ``aux`` holds the
@@ -241,24 +337,24 @@ def whole_limb_step_aux(batched_force, mesh: DeviceMesh, canvas_hw, map_stride: 
     ``per_stream_force`` (gated) and ``stream_gate`` (B,), the gated
     ``total_force_N``, ``max_depth_mm`` and ``contact_area_mm2``, and
     ``limb_canvas_mm``.  The placement runs on the device (a max scatter,
-    order-free and so exact): the poses are never read on the host."""
+    order-free and so exact): the poses are never read on the host.  On the
+    card the step is one CUDA graph (``MeshStep``), the poses and
+    accelerations among its inputs (``eager(ref, def, pose_px,
+    accel_mss)``)."""
     ch, cw = int(canvas_hw[0]) // map_stride, int(canvas_hw[1]) // map_stride
 
-    def step(ref_local, def_local, aux) -> Dict[str, torch.Tensor]:
+    def eager(ref_local, def_local, pose_px, accel_mss) -> Dict[str, torch.Tensor]:
         forces, areas, depths, maps = _local_streams(batched_force, mesh, ref_local,
                                                      def_local, map_stride)
         dev = forces.device
-        gate = motion_gate(_on(mesh, aux["accel_mss"]).to(torch.float32),
-                           gate_ok_mss, gate_cut_mss)
-        pose = _on(mesh, aux["pose_px"]).to(torch.int64)
+        gate = motion_gate(accel_mss.to(torch.float32), gate_ok_mss, gate_cut_mss)
+        pose = pose_px.to(torch.int64)
         n, ph, pw = maps.shape
         if ph > ch or pw > cw:
             raise ValueError(f"a ({ph}, {pw}) patch does not fit the ({ch}, {cw}) canvas")
         yx = torch.div(pose, map_stride, rounding_mode="floor")
-        yx = torch.minimum(torch.clamp(yx, min=0),
-                           torch.tensor([ch - ph, cw - pw], device=dev))
-        rows = yx[:, 0, None] + torch.arange(ph, device=dev)
-        cols = yx[:, 1, None] + torch.arange(pw, device=dev)
+        rows = torch.clamp(yx[:, 0], 0, ch - ph)[:, None] + torch.arange(ph, device=dev)
+        cols = torch.clamp(yx[:, 1], 0, cw - pw)[:, None] + torch.arange(pw, device=dev)
         idx = rows[:, :, None] * cw + cols[:, None, :]
         canvas = torch.zeros(ch * cw, dtype=maps.dtype, device=dev)
         canvas.scatter_reduce_(0, idx.reshape(-1), (maps * gate[:, None, None]).reshape(-1),
@@ -272,4 +368,4 @@ def whole_limb_step_aux(batched_force, mesh: DeviceMesh, canvas_hw, map_stride: 
             "contact_area_mm2": _reduce(mesh, (areas * gate).sum(), dist.ReduceOp.SUM),
             "limb_canvas_mm": _reduce(mesh, canvas.view(ch, cw), dist.ReduceOp.MAX),
         }
-    return step
+    return MeshStep(batched_force, mesh, eager, aux_keys=("pose_px", "accel_mss"))

@@ -6,7 +6,10 @@ the batched force forward, then a ring buffer of the last K per-stream
 force readings with median / mean / EMA smoothing and contact-state
 hysteresis.  The state is an explicit tuple of device tensors, all float32
 but the frame count (int32) and the contact flags (bool); ``update`` makes
-no host copy.
+no host copy.  On the card a ``StreamingForce`` step is one CUDA graph, as
+the JAX package jits its step: the batch's forwards, the gathers over a
+mesh and ``update``, the state kept in fixed device buffers that the graph
+rewrites in place.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from vistaf_torch.parallel.mesh import gather_streams, mesh_device
+from vistaf_torch.utils.cuda_graph import ForwardGraph
 
 
 class StreamState(NamedTuple):
@@ -89,6 +93,8 @@ def _to_host(outs: List[Dict[str, torch.Tensor]]) -> List[Dict[str, np.ndarray]]
     """Device outputs of many steps to numpy, one copy per key."""
     if not outs:
         return []
+    if len(outs) == 1:         # no stack: a step's fetch launches nothing
+        return [{k: v.cpu().numpy()[()] for k, v in outs[0].items()}]
     stacked = {k: torch.stack([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
     return [{k: v[i] for k, v in stacked.items()} for i in range(len(outs))]
 
@@ -102,7 +108,15 @@ class StreamingForce:
     own n_streams / world streams (``shard_batch``) and runs them on its
     device; their raw forces and depths are gathered over the mesh, and
     every rank keeps the same replicated smoothing state of all
-    ``n_streams`` and returns the same outputs."""
+    ``n_streams`` and returns the same outputs.
+
+    A step is ``step_eager``: the batch through the force, the gathers and
+    ``update``, the new state copied into the state's buffers.  Where
+    ``graph_route`` holds (on the card, over a CUDA mesh or none, with a
+    force whose forwards replay graphs) every step is one replay of a CUDA
+    graph of it, captured at the first call, with the batch through
+    ``batched_force.batched_eager``; elsewhere ``step_eager`` runs, the
+    batch through ``batched_force.batched()``."""
 
     def __init__(self, batched_force, n_streams: int, window: int = 8,
                  ema_alpha: float = 0.2, mesh=None):
@@ -115,24 +129,45 @@ class StreamingForce:
             if n_streams % mesh.size():
                 raise ValueError(f"{n_streams} streams do not split over {mesh.size()} ranks")
             self.device = mesh_device(mesh)
+        self._force = batched_force
         self._inner = batched_force.batched()
         self._state = init_state(n_streams, window, self.device)
+        self._graph: Optional[ForwardGraph] = None
+
+    def graph_route(self) -> bool:
+        """Whether a step replays a CUDA graph."""
+        return (self.device.type == "cuda"
+                and (self._mesh is None or self._mesh.device_type == "cuda")
+                and self._force.graph_route())
 
     def _upload(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
         return torch.as_tensor(np.ascontiguousarray(x), device=self.device)
 
-    def _step(self, refs: torch.Tensor, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
-        res = self._inner(refs, frames)
+    def step_eager(self, refs: torch.Tensor, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One step op by op on device stacks: what the step's graph
+        captures.  The state's buffers are rewritten in place, so a graph
+        replays on the same ones."""
+        batched = self._force.batched_eager if self.graph_route() else self._inner
+        res = batched(refs, frames)
         forces, depths = res["force_N"], res["max_depth_mm"]
         if self._mesh is not None:
             forces = gather_streams(self._mesh, forces.to(self.device))
             depths = gather_streams(self._mesh, depths.to(self.device))
-        self._state, out = update(self._state, forces, self.ema_alpha)
+        new, out = update(self._state, forces, self.ema_alpha)
+        for buf, value in zip(self._state, new):
+            buf.copy_(value)
         out["force_raw_N"] = forces
         out["max_depth_mm"] = depths
         return out
+
+    def _step(self, refs: torch.Tensor, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if self.graph_route():
+            if self._graph is None:
+                self._graph = ForwardGraph(self.step_eager, self.device)
+            return self._graph(refs, frames)
+        return self.step_eager(refs, frames)
 
     def __call__(self, refs, frames) -> Dict[str, np.ndarray]:
         """One batch of (n_streams, H, W, 3) uint8 frames against the
@@ -141,8 +176,16 @@ class StreamingForce:
         return _to_host([self._step(self._upload(refs), self._upload(frames))])[0]
 
     def reset(self, window: Optional[int] = None) -> None:
+        """Back to no frames seen.  The same window zeroes the state's
+        buffers in place (a captured step keeps them); another window makes
+        new ones and drops the step's graph."""
         w = window or self._state.ring.shape[1]
+        if w == self._state.ring.shape[1]:
+            for buf in self._state:
+                buf.zero_()
+            return
         self._state = init_state(self.n_streams, w, self.device)
+        self._graph = None
 
     # ------------------------------------------------------------------
     def run_overlapped(self, refs, frames_seq) -> List[Dict[str, np.ndarray]]:

@@ -29,14 +29,17 @@ on the host and the same ops in the same order.  A body
 updates its tensors in place: the body graph replays on fixed buffers, so
 it may not rebind its state, read the device on the host or build a tensor
 from host values.  Its temporaries live in a memory pool that lives as
-long as the graph (``ForwardGraph.body_pool``).  A graph that holds a WHILE
-node is never destroyed (``_RETAINED``: a profiler fault, see there).
+long as the graph (``ForwardGraph.body_pool``).  A graph goes with its
+``ForwardGraph``, but one that holds a WHILE node is kept for the life of
+the process once ``torch.profiler`` has traced the card in it
+(``_RETAINED``: a profiler fault, see there).
 """
 from __future__ import annotations
 
 import contextlib
 import gc
 import threading
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -46,14 +49,32 @@ from vistaf_torch.kernels import graph_cond_kernel
 
 _BODY_POOL = threading.local()    # .pool: the memory pool of the capture's bodies
 _BODY_STREAMS: Dict[int, torch.cuda.Stream] = {}
-# Graphs that hold a WHILE node, with their body pools, kept for the life of
-# the process.  Destroying one, once torch.profiler (CUPTI) had been used in
-# the process, made the first profiled replay of another graph with
-# conditional nodes segfault in cudaGraphLaunch (PyTorch 2.11.0+cu128,
-# driver 580.159.03, NVIDIA H100); with the destroyed graphs kept alive
-# instead it did not.
+# Graphs that hold a WHILE node, with their body pools, whose ForwardGraph
+# went after torch.profiler had traced the card in this process: kept for
+# the life of the process.  Destroying one there once made the first
+# profiled replay of another graph with conditional nodes segfault in
+# cudaGraphLaunch (PyTorch 2.11.0+cu128, driver 580.159.03, NVIDIA H100).
+# In a process that has not traced, destroying them has not faulted
+# (scripts/torch_graph_lifetime.py), so there they go with their graph.
 _RETAINED: List[tuple] = []
 _WHILE_NODES = [0]                # WHILE nodes captured in this process
+_PROFILED = [False]               # torch.profiler has traced the card here
+
+
+def note_profiler() -> None:
+    """Record that ``torch.profiler`` is about to trace the card: from then
+    on a WHILE graph whose ``ForwardGraph`` goes is kept (``_RETAINED``).
+    ``utils/profiling.py`` calls it before every trace; code that traces
+    with ``torch.profiler`` itself calls it first.  (PyTorch loads the CUPTI
+    library when it is imported, so the process cannot tell otherwise.)"""
+    _PROFILED[0] = True
+
+
+def _release(graph: torch.cuda.CUDAGraph, body_pool) -> None:
+    """A WHILE graph's ForwardGraph has gone: keep the graph and its body
+    pool if a profiler has traced the card, else let them go."""
+    if _PROFILED[0]:
+        _RETAINED.append((graph, body_pool))
 
 
 def _capturing(t: torch.Tensor) -> bool:
@@ -201,7 +222,7 @@ class ForwardGraph:
                 if enabled:
                     gc.enable()
             if _WHILE_NODES[0] != whiles:
-                _RETAINED.append((graph, self.body_pool))
+                weakref.finalize(self, _release, graph, self.body_pool)
             self.launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
                              if v != before[k]}
             kernels.LAUNCHES.update(before)

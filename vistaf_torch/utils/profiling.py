@@ -17,7 +17,9 @@ makes, from PyTorch's sync debug mode), ``device_ms`` (the kernels' and
 copies' own time under ``torch.profiler``), ``d2h_copies`` (the
 device-to-host copies one call makes) and ``profile_window`` (device busy
 share, launches and the heaviest device work over a few calls).  Each needs
-a card: a CPU run gives no device time.
+a card: a CPU run gives no device time.  Every trace is announced to
+``cuda_graph.note_profiler`` first, which keeps the WHILE graphs that go
+after it.
 """
 from __future__ import annotations
 
@@ -34,6 +36,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from vistaf_torch.utils import cuda_graph
+
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
@@ -41,6 +45,7 @@ def device_trace(log_dir: str):
     and copies where there is one), written to ``log_dir/trace.json``
     (Chrome trace format: chrome://tracing or Perfetto)."""
     from torch.profiler import ProfilerActivity, profile
+    cuda_graph.note_profiler()
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -184,6 +189,7 @@ def device_ms(fn, reps: int = 10) -> float:
     bound by the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    cuda_graph.note_profiler()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -213,6 +219,7 @@ def d2h_copies(fn):
     """(count, bytes) of the device-to-host copies one call of fn() makes,
     from torch.profiler's memcpy events (the trace's ``bytes``)."""
     from torch.profiler import ProfilerActivity, profile
+    cuda_graph.note_profiler()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -254,6 +261,7 @@ def profile_window(fn, frames: int, copies: bool = False) -> Dict[str, object]:
     per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    cuda_graph.note_profiler()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
