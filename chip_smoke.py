@@ -2339,20 +2339,15 @@ def max_blend(maps, gates, poses, canvas_hw, stride):
 
 
 class _Replay:
-    """Per-stream results computed before, handed out as the batch's (on
-    the graph route, stacked) or in stream order: the whole-limb heads over
-    it time the fusion alone, on the card one CUDA graph of the head."""
+    """Per-stream results computed before, handed out in stream order: the
+    whole-limb heads over it time the fusion alone, on the card one CUDA
+    graph of the head."""
 
     def __init__(self, outs, depth_eps_mm):
-        import torch
         self.outs, self.depth_eps_mm, self.k = outs, depth_eps_mm, 0
-        self.stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     def graph_route(self) -> bool:
         return True
-
-    def batched_eager(self, refs, frames):
-        return self.stacked
 
     def _single(self, ref, de):
         self.k += 1
@@ -2502,18 +2497,21 @@ def time_limb(path, bf, mesh, rs, ds, aux, card, step, step_aux, **extra):
     """A ``timing`` line for each head (``step``, ``step_aux``, made for
     ``bf`` over ``mesh``) over this rank's streams ``rs``, ``ds``: p50 and
     p90 a step (CUDA events, 2 warm-up, 8 timed), the step rate, the host's
-    time to return from a step call, and the fusion alone (the head over the
-    streams' results computed before: everything after the forwards), with
-    the NCCL version."""
+    time to return from a step call, and the fusion alone (a replay of the
+    head's graph over the streams' results computed before: everything
+    after the forwards, without the copies of the frames into the graph's
+    inputs), with the NCCL version."""
     import torch
     from vistaf_torch.parallel import whole_limb_step, whole_limb_step_aux
     from vistaf_torch.utils.profiling import cuda_ms, event_times, percentiles
     replay = _Replay([bf._single(rs[s], ds[s]) for s in range(rs.shape[0])], bf.depth_eps_mm)
     fuse = whole_limb_step(replay, mesh, map_stride=LIMB_STRIDE)
     fuse_aux = whole_limb_step_aux(replay, mesh, LIMB_CANVAS, map_stride=LIMB_STRIDE)
-    for name, fn, fusion in ((path, lambda: step(rs, ds), lambda: fuse(rs, ds)),
+    fuse(rs, ds)                     # eager, then the capture
+    fuse_aux(rs, ds, aux)
+    for name, fn, fusion in ((path, lambda: step(rs, ds), fuse.graph.graph.replay),
                              (f"{path}_aux", lambda: step_aux(rs, ds, aux),
-                              lambda: fuse_aux(rs, ds, aux))):
+                              fuse_aux.graph.graph.replay)):
         times = event_times(fn, 8, warmup=2)
         p50, p90 = percentiles(times, (50, 90))
         host_ms = []

@@ -23,8 +23,8 @@ and bit for bit against its eager run.
 Each child prints one JSON line a step (``mode``, ``step``, whether the
 CUPTI library is mapped into the process yet, the memory PyTorch
 reserves); the parent prints them, then one line a mode with the child's
-exit code (-11: a segfault), then ``{"ok": ...}``: true when every mode
-ended with code 0.
+exit code (-11: a segfault), then ``{"ok": ..., "failed_modes": [...]}``,
+true when every mode ended with code 0.  Exits 1 when a mode did not.
 """
 from __future__ import annotations
 
@@ -113,7 +113,7 @@ def main() -> int:
         return 0
     from vistaf_torch import kernels
     kernels.build()
-    ok = True
+    failed = []
     for mode in args.modes:
         p = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", mode],
                            capture_output=True, text=True, timeout=600)
@@ -122,9 +122,10 @@ def main() -> int:
             print(line, flush=True)
         print(json.dumps({"mode": mode, "returncode": p.returncode, "steps": len(steps),
                           "stderr_tail": p.stderr[-600:]}), flush=True)
-        ok &= p.returncode == 0
-    print(json.dumps({"ok": ok}))
-    return 0
+        if p.returncode != 0:
+            failed.append(mode)
+    print(json.dumps({"ok": not failed, "failed_modes": failed}))
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

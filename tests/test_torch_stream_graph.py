@@ -14,7 +14,9 @@ world-1 gloo mesh:
   and with another window, gives bit for bit the outputs and the smoothing
   state of the per-stream loop it replaces: each stream through
   ``BatchedForce._single``, stacked, then ``streaming.update``;
-- nothing takes the graph route on the CPU;
+- nothing takes the graph route on the CPU, and the step bodies run there
+  what they run on the card: ``batched_eager`` and ``_single_eager``, never
+  ``_single`` (the card's graph replay of one stream);
 - a WHILE graph's ``ForwardGraph`` hands its graph to ``_release`` when it
   goes, which keeps it only once a profiler has traced the card.
 """
@@ -91,6 +93,26 @@ def test_nothing_takes_the_graph_route_on_the_cpu(world):
     assert not bf.graph_route() and not sf.graph_route()
     assert not any(step.graph_route() for step in steps)
     assert sf._graph is None and bf._graph is None and all(s.graph is None for s in steps)
+
+
+@pytest.mark.parametrize("path", ["streaming", "limb"])
+def test_step_bodies_run_the_same_on_every_route(world, monkeypatch, path):
+    """On the CPU the ``StreamingForce`` step and a whole-limb step take
+    their streams through ``_single_eager``, as their graphs do on the
+    card: ``_single`` is never called, and each stream gives its bits."""
+    bf, mesh = world["bf"], world["mesh"]
+    monkeypatch.setattr(bf, "_single", lambda *a: pytest.fail("_single was called"))
+    frames, keys = _batch(world, 3)
+    want = _stacked(world, keys)
+    if path == "streaming":
+        sf = streaming.StreamingForce(bf, S, window=WINDOW, ema_alpha=ALPHA)
+        got = sf(world["refs"], frames)
+        np.testing.assert_array_equal(got["force_raw_N"], want["force_N"].numpy())
+        np.testing.assert_array_equal(got["max_depth_mm"], want["max_depth_mm"].numpy())
+    else:
+        got = tmesh.whole_limb_step(bf, mesh)(world["refs"], frames)
+        same_tensors({"per_stream_force": got["per_stream_force"]},
+                     {"per_stream_force": want["force_N"]})
 
 
 def test_batched_eager_reads_nothing_on_the_host(world, monkeypatch):

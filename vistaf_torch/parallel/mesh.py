@@ -116,12 +116,17 @@ def _reduce(mesh: DeviceMesh, x: torch.Tensor, op) -> torch.Tensor:
     return x
 
 
-def _stack(outs, keys: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
-    """Per-stream result dicts stacked key by key (the first's keys, or
-    ``keys``)."""
+def _stack(outs) -> Dict[str, torch.Tensor]:
+    """Per-stream result dicts stacked key by key."""
     if not outs:
         raise ValueError("a rank needs at least one stream")
-    return {k: torch.stack([o[k] for o in outs]) for k in (keys or outs[0])}
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def _check_stacks(refs: torch.Tensor, frames: torch.Tensor) -> None:
+    if refs.dim() != 4 or refs.shape != frames.shape:
+        raise ValueError(f"expected two (B, H, W, 3) stacks, got "
+                         f"{tuple(refs.shape)} and {tuple(frames.shape)}")
 
 
 class BatchedForce:
@@ -133,9 +138,11 @@ class BatchedForce:
     (the pipeline's: on the card, no debug outputs, no ``stop_after``) one
     CUDA graph of ``batched_eager``, captured at the first call and replayed
     at every later one (a stack of another shape raises); elsewhere each
-    stream through ``_single`` in turn.  ``batched_eager`` runs the streams
-    in index order, each through ``_single_eager``, so each stream of a
-    replay is bit for bit ``_single``'s.
+    stream through ``_single`` in turn (the seam a subclass that changes a
+    stream's forward overrides).  ``batched_eager`` runs the streams in
+    index order, each through ``_single_eager``, so each stream of a replay
+    is bit for bit ``_single``'s; the ``StreamingForce`` step and the
+    whole-limb steps run the same on both routes.
 
     Keeps the JAX defaults: a 2 mm grating pitch, a 0.01 mm contact
     threshold, and a 1e-9 floor on the period (``ForcePipeline`` uses
@@ -183,7 +190,9 @@ class BatchedForce:
     def batched_eager(self, refs: torch.Tensor, frames: torch.Tensor
                       ) -> Dict[str, torch.Tensor]:
         """The streams of two (B, H, W, 3) device stacks in index order
-        through ``_single_eager``, stacked: what the batch graph captures."""
+        through ``_single_eager``, stacked: what the batch graph, the
+        ``StreamingForce`` step and the whole-limb steps run."""
+        _check_stacks(refs, frames)
         return _stack([self._single_eager(refs[b], frames[b]) for b in range(frames.shape[0])])
 
     def batched(self):
@@ -192,9 +201,7 @@ class BatchedForce:
         and the (B, crop_h, crop_w) heightmaps."""
         def fn(refs, frames):
             refs, frames = self.pipe.upload(refs), self.pipe.upload(frames)
-            if refs.dim() != 4 or refs.shape != frames.shape:
-                raise ValueError(f"expected two (B, H, W, 3) stacks, got "
-                                 f"{tuple(refs.shape)} and {tuple(frames.shape)}")
+            _check_stacks(refs, frames)
             if self.graph_route():
                 if self._graph is None:
                     self._graph = ForwardGraph(self.batched_eager, self.device)
@@ -213,15 +220,6 @@ class BatchedForce:
             raise ValueError(f"the pipeline is on {dev}, this rank's device is "
                              f"{mesh_device(mesh)}")
         return self.batched()
-
-
-_LIMB_KEYS = ("force_N", "contact_area_mm2", "max_depth_mm", "height_map_mm")
-
-
-def _graph_route(batched_force, mesh: DeviceMesh) -> bool:
-    """A whole-limb step's route: a graph on a CUDA mesh over a force whose
-    forwards replay graphs."""
-    return mesh.device_type == "cuda" and batched_force.graph_route()
 
 
 class MeshStep:
@@ -245,7 +243,7 @@ class MeshStep:
         self.graph: Optional[ForwardGraph] = None
 
     def graph_route(self) -> bool:
-        return _graph_route(self.batched_force, self.mesh)
+        return self.mesh.device_type == "cuda" and self.batched_force.graph_route()
 
     def __call__(self, ref_local, def_local, aux=None) -> Dict[str, torch.Tensor]:
         extra = [aux[k] for k in self.aux_keys]
@@ -259,21 +257,18 @@ class MeshStep:
 
 def _local_streams(batched_force, mesh: DeviceMesh, ref_local: torch.Tensor,
                    def_local: torch.Tensor, map_stride: int):
-    """This rank's streams (device stacks) through ``batched_eager`` on the
-    graph route (``_graph_route``), else one by one through ``_single``: the
-    stacked force, area and depth scalars and each stream's contact-depth
-    map on the rank's device.  The indentation side is detected per stream
-    as ``depth_map_to_volume_cm3`` detects it (whichever of +Z and -Z
-    integrates larger), so the map holds with
+    """This rank's streams (device stacks) one by one in stream order
+    through the force's ``_single_eager`` (a stand-in force without one:
+    its ``_single``): the stacked force, area and depth scalars and each
+    stream's contact-depth map on the rank's device.  The indentation side
+    is detected per stream as ``depth_map_to_volume_cm3`` detects it
+    (whichever of +Z and -Z integrates larger), so the map holds with
     ``mm_keep_indentation_negative=True``."""
     dev = mesh_device(mesh)
-    if _graph_route(batched_force, mesh):
-        res = batched_force.batched_eager(ref_local, def_local)
-    else:
-        res = _stack([batched_force._single(ref_local[b], def_local[b])
-                      for b in range(ref_local.shape[0])], _LIMB_KEYS)
-    res = {k: res[k].to(dev) for k in _LIMB_KEYS}
-    hm = res["height_map_mm"]
+    one = getattr(batched_force, "_single_eager", None) or batched_force._single
+    res = _stack([one(ref_local[b], def_local[b]) for b in range(ref_local.shape[0])])
+    forces, areas, depths, hm = (res[k].to(dev) for k in (
+        "force_N", "contact_area_mm2", "max_depth_mm", "height_map_mm"))
     finite = torch.isfinite(hm)
     hmf = torch.where(finite, hm, 0.0)
     pos_sum = torch.clamp(hmf, min=0.0).sum(dim=(1, 2), keepdim=True)
@@ -282,7 +277,7 @@ def _local_streams(batched_force, mesh: DeviceMesh, ref_local: torch.Tensor,
     contact = torch.where(finite & (depth > batched_force.depth_eps_mm), depth, 0.0)
     if map_stride > 1:
         contact = contact[:, ::map_stride, ::map_stride].contiguous()
-    return res["force_N"], res["contact_area_mm2"], res["max_depth_mm"], contact
+    return forces, areas, depths, contact
 
 
 def whole_limb_step(batched_force, mesh: DeviceMesh, map_stride: int = 1) -> MeshStep:
@@ -290,10 +285,10 @@ def whole_limb_step(batched_force, mesh: DeviceMesh, map_stride: int = 1) -> Mes
 
     Returns ``step(ref_local, def_local) -> dict`` (a ``MeshStep``): the
     rank's (n, H, W, 3) uint8 streams (``shard_batch`` /
-    ``shard_local_batch``) through the force (on the graph route
-    ``batched_force.batched_eager``, else ``_single`` a stream: any object
-    with it and ``depth_eps_mm``), then the head over the mesh, one CUDA
-    graph a step on the card.  Every rank receives the same dict:
+    ``shard_local_batch``) through the force (``_local_streams``: a
+    ``BatchedForce``, or any object with ``_single`` and
+    ``depth_eps_mm``), then the head over the mesh, one CUDA graph a step
+    on the card.  Every rank receives the same dict:
     ``per_stream_force`` (B,), ``total_force_N``, ``max_depth_mm`` and
     ``contact_area_mm2`` (0-d: sums of the local sums, the max of the local
     maxima), and ``whole_limb_map_mm`` (B, h', w'): each stream's contact

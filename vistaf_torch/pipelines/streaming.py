@@ -110,13 +110,13 @@ class StreamingForce:
     every rank keeps the same replicated smoothing state of all
     ``n_streams`` and returns the same outputs.
 
-    A step is ``step_eager``: the batch through the force, the gathers and
-    ``update``, the new state copied into the state's buffers.  Where
-    ``graph_route`` holds (on the card, over a CUDA mesh or none, with a
-    force whose forwards replay graphs) every step is one replay of a CUDA
-    graph of it, captured at the first call, with the batch through
-    ``batched_force.batched_eager``; elsewhere ``step_eager`` runs, the
-    batch through ``batched_force.batched()``."""
+    A step is ``step_eager``: the batch through the force's
+    ``batched_eager`` (a stand-in force without one: its ``batched()``),
+    the gathers and ``update``, the new state copied into the state's
+    buffers.  Where ``graph_route`` holds (on the card, over a CUDA mesh or
+    none, with a force whose forwards replay graphs) every step is one
+    replay of a CUDA graph of it, captured at the first call; elsewhere
+    ``step_eager`` runs."""
 
     def __init__(self, batched_force, n_streams: int, window: int = 8,
                  ema_alpha: float = 0.2, mesh=None):
@@ -130,7 +130,7 @@ class StreamingForce:
                 raise ValueError(f"{n_streams} streams do not split over {mesh.size()} ranks")
             self.device = mesh_device(mesh)
         self._force = batched_force
-        self._inner = batched_force.batched()
+        self._batch = getattr(batched_force, "batched_eager", None) or batched_force.batched()
         self._state = init_state(n_streams, window, self.device)
         self._graph: Optional[ForwardGraph] = None
 
@@ -149,8 +149,7 @@ class StreamingForce:
         """One step op by op on device stacks: what the step's graph
         captures.  The state's buffers are rewritten in place, so a graph
         replays on the same ones."""
-        batched = self._force.batched_eager if self.graph_route() else self._inner
-        res = batched(refs, frames)
+        res = self._batch(refs, frames)
         forces, depths = res["force_N"], res["max_depth_mm"]
         if self._mesh is not None:
             forces = gather_streams(self._mesh, forces.to(self.device))
