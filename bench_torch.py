@@ -4,11 +4,15 @@ the counterpart of the JAX package's ``bench.py`` and of its
 
     python3 bench_torch.py                 # bench.py's row: 640x480 frame->force
     python3 bench_torch.py SUITE [--out rows.json] [--rounds R] [--iters N]
+                           [--rows ROW ...]
 
 SUITE is ``default`` (the same as no argument), ``4k``, ``mm``,
 ``streams``, ``config23``, ``ingest`` or ``all`` (every suite, ``default``
 last).  Each row prints one JSON line on standard output; ``--out`` also
-writes the rows as one JSON list.  The last line of ``default`` (and of
+writes the rows as one JSON list; ``--rows`` keeps only the named rows of
+the suite (one row a process times it before any other row's profiled
+window: once ``torch.profiler`` has traced the card, graph replays in the
+process run faster).  The last line of ``default`` (and of
 ``all``) is ``bench.py``'s own line: ``metric``, ``value`` (frames/s = 1000
 / p50), ``unit``, ``vs_baseline`` (value over the reference CPU
 implementation's 640x480 rate cached in ``bench_baseline.json``) and the
@@ -82,8 +86,11 @@ forward's ECC and PCG loops and its seed pick, and the temperature
 forward's shear fold, as conditional nodes; ``step_fused`` one graph of
 both forwards; a stream batch's step or a limb step one graph of its
 streams, smoothing or head), else ``eager`` (the rows with no forward:
-decode, uploads).  The profiled window counts the graph replays
-(``graph_launches_per_frame``) apart from the kernel launches.
+decode, uploads); the stream and limb rows add ``stream_route``:
+``batched`` where a batch is one batched forward (``jax.vmap``; the 640
+deploy preset), ``per_stream`` where the streams' forwards run one by one.
+The profiled window counts the graph replays (``graph_launches_per_frame``)
+apart from the kernel launches.
 
 Correctness: each row holds its output to its gate once, before timing,
 and prints ``correct``; the script exits 1 if any row fails.  Rows on a
@@ -114,7 +121,7 @@ import sys
 import tempfile
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -183,9 +190,16 @@ def forward_route(routed) -> Dict[str, Any]:
     graph (the ``graph_route`` of its ``FTPPipeline``,
     ``TemperaturePipeline``, ``MultimodalPipeline``, ``StreamingForce`` or
     whole-limb step), else 'eager' (on
-    the CPU, and rows with no forward)."""
+    the CPU, and rows with no forward); on the stream and limb rows also
+    ``stream_route``: 'batched' (one batched forward a batch) or
+    'per_stream' (the streams' forwards one by one), their
+    ``BatchedForce.route()``."""
     graph = bool(routed) and all(p.graph_route() for p in routed)
-    return {"route": "graph" if graph else "eager"}
+    out = {"route": "graph" if graph else "eager"}
+    streams = sorted({p.stream_route() for p in routed if hasattr(p, "stream_route")})
+    if streams:
+        out["stream_route"] = "/".join(streams)
+    return out
 
 
 def fps(p50_ms: float) -> Dict[str, float]:
@@ -760,15 +774,23 @@ def bench_line(line: Dict[str, Any]) -> Dict[str, Any]:
     return {**out, **line}
 
 
-def run_suite(suite: str, device, card: Optional[str] = None, **overrides):
+def run_suite(suite: str, device, card: Optional[str] = None,
+              only: Optional[Sequence[str]] = None, **overrides):
     """One suite's lines (``default``: its ``640`` line last, with
-    ``bench.py``'s keys), then the suite's ``CLEANUP``."""
+    ``bench.py``'s keys), of the rows named in ``only`` if given, then the
+    suite's ``CLEANUP``."""
     try:
-        lines = run_rows(suite, SUITE_ROWS[suite](device), device, card, **overrides)
+        rows = SUITE_ROWS[suite](device)
+        if only:
+            unknown = set(only) - {r.name for r in rows}
+            if unknown:
+                raise ValueError(f"no rows {sorted(unknown)} in the {suite} suite")
+            rows = [r for r in rows if r.name in only]
+        lines = run_rows(suite, rows, device, card, **overrides)
     finally:
         while CLEANUP:
             CLEANUP.pop()()
-    if suite == "default":
+    if suite == "default" and lines[0]["row"] == "640":
         lines.append(bench_line(lines.pop(0)))
     return lines
 
@@ -779,6 +801,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write the rows to this JSON file")
     ap.add_argument("--rounds", type=int, help="rounds of every row (default: the row's)")
     ap.add_argument("--iters", type=int, help="timed calls a round (default: the row's)")
+    ap.add_argument("--rows", nargs="+", help="only these rows of the suite")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_torch: CUDA is not available; the bench times the card and has no CPU "
@@ -795,7 +818,8 @@ def main(argv=None) -> int:
     rows, clock = [], {}
     for suite in SUITES if args.suite == "all" else (args.suite,):
         t1 = time.perf_counter()
-        for line in run_suite(suite, device, card, rounds=args.rounds, iters=args.iters):
+        for line in run_suite(suite, device, card, only=args.rows, rounds=args.rounds,
+                              iters=args.iters):
             rows.append(line)
             print(dumps(line), flush=True)
         torch.cuda.empty_cache()

@@ -13,8 +13,9 @@ and reductions cross the cards: three times each, the first call eager (on
 a card it then captures the step's CUDA graph, the NCCL all-reduces
 inside), the second a replay that must equal it bit for bit but for the
 sums over the ranks (within 1e-6: NCCL may order a captured sum
-otherwise), the third the one kept.  On a card each stream
-frame must launch exactly what a ``limb640`` stream frame launches, and
+otherwise), the third the one kept.  On a card each step (a rank's streams
+in one batched forward, ``BatchedForce.route()`` ``batched``) must launch
+exactly what a ``limb640`` step launches, and
 each rank prints its ``timing`` lines (the fusion alone too, now over the
 interconnect), every step a replay.  When
 the ranks are done the parent runs the same heads at world 1 in its own
@@ -86,17 +87,17 @@ def heads(device, card, rank_label=None):
             assert abs(a - b) <= 1e-6 * abs(b), (name, k, a, b)
         cs.same_outputs(name, got, want)
     out, out_aux = step(rs, ds), step_aux(rs, ds, aux)
-    frames = 6 * int(rs.shape[0])
-    per_frame = {k: v / frames for k, v in kernels.LAUNCHES.items()}
+    assert bf.route() == "batched", bf.route()
+    per_step = {k: v / 6 for k, v in kernels.LAUNCHES.items()}
     if dev.type == "cuda":
         assert step.graph is not None and step_aux.graph is not None
-        want = {k: float(cs.PATH_EXACT_LAUNCHES["limb640"].get(k, 0)) for k in per_frame}
-        assert per_frame == want, (per_frame, want)
+        want = {k: float(cs.PATH_EXACT_LAUNCHES["limb640"].get(k, 0)) for k in per_step}
+        assert per_step == want, (per_step, want)
         cs.time_limb("limb_ranks", bf, mesh, rs, ds, aux, card, step, step_aux,
                      rank=rank_label, world=mesh.size())
     res = {f"plain_{k}": out[k].cpu().numpy() for k in KEYS}
     res.update({f"aux_{k}": out_aux[k].cpu().numpy() for k in AUX_KEYS})
-    return res, per_frame, mesh.size()
+    return res, per_step, mesh.size()
 
 
 def threads(ranks: int) -> int:
@@ -113,13 +114,13 @@ def rank_main(out_path, device, card):
     torch.set_num_threads(threads(int(os.environ["WORLD_SIZE"])))
     assert initialize_multihost(device=device.type) is True
     try:
-        res, per_frame, world = heads(device, card, rank_label=dist.get_rank())
+        res, per_step, world = heads(device, card, rank_label=dist.get_rank())
         assert world == global_stream_count() == int(os.environ["WORLD_SIZE"])
         np.savez(out_path, rank=dist.get_rank(), world=world, **res)
         cs.say("limb_rank", rank=dist.get_rank(), world=world, backend=dist.get_backend(),
                device=str(torch.device(device.type, torch.cuda.current_device())
                           if device.type == "cuda" else device),
-               launches_per_stream_frame=per_frame,
+               launches_per_step=per_step,
                per_stream_force=res["plain_per_stream_force"].tolist(),
                total_force_N=float(res["plain_total_force_N"]))
     finally:

@@ -22,7 +22,10 @@ Phases, one line each, any failure raises and exits non-zero:
      native-4K force path for K1, K2 and K3; the 2160x3840 gray plane for
      K1, and the 1608x1664 compute crop for K3 and K8, of the native-4K
      temperature path) and K7, K5 and K6 also at the largest plane their
-     budgets admit (584x512, 352x256, 448x384), with CUDA-event median
+     budgets admit (584x512, 352x256, 448x384), and K5, K6, K7 and the
+     labels at the stream batch's 4 planes a launch against their batched
+     plain versions (K5 also at 8, a second wave of its clusters, and K6 at
+     17, one plane more than its launch takes, so two launches), with CUDA-event median
      times of both, the kernel's device time under torch.profiler (its own
      kernels, without the host's enqueue), the bound (bytes over 3.35 TB/s
      or float32 operations over 67 TFLOP/s, whichever is longer) and, where
@@ -48,10 +51,11 @@ Phases, one line each, any failure raises and exits non-zero:
      (two frames on the temperature forwards) after the capture call: every
      output bit for bit (and the streaming step's smoothing state after each
      batch), the same ECC iterations, the exact launches a frame
-     (``GRAPH_LAUNCHES``; a stream frame's under the stream graphs) under
-     both, the condition setter's runs in the replays (its kernel row's
-     ``launches``; a stream graph's equal to its streams' single
-     replays'); the fold alone at even and odd quarter turns; the replayed
+     (``GRAPH_LAUNCHES``; a batch's under the stream graphs, whose
+     ``BatchedForce`` takes the batched route, named in their ``graph``
+     lines) under both, the condition setter's runs in the replays (its
+     kernel row's ``launches``; a stream graph's one IF node a batch);
+     the fold alone at even and odd quarter turns; the replayed
      640 and 4K deploy forwards, the 4K deploy temperature stats and fused
      scalars and the four stream graphs under the sync debug mode "error",
      each stream graph's call one ``cudaGraphLaunch`` and no kernel launch;
@@ -84,21 +88,24 @@ Phases, one line each, any failure raises and exits non-zero:
      t_mean within 0.1 degC, t_min and t_max within 0.75 degC, valid pixels
      within 0.5%, COLOR on at least 1% of the ROI;
   8. streams at 640x480: StreamingForce over BatchedForce, 4 streams, window
-     8, EMA 0.2, 6 batches through run_overlapped, one CUDA graph a batch;
-     a stream frame launches exactly a 640 deploy frame's kernels;
+     8, EMA 0.2, 6 batches through run_overlapped, one CUDA graph a batch
+     of one batched forward (``jax.vmap``: every op once over the stream
+     axis); a batch launches exactly a 640 deploy frame's kernels;
      the step's and the batch's graphs bit-equal to their eager versions
      on three batches, the smoothing state too, replays under the sync
-     debug mode "error"; bit-equal to the serialized calls, each stream to _single and
-     the smoothing to the port's CPU update; p50 per batch and fps;
+     debug mode "error"; bit-equal to the serialized calls, the smoothing
+     to the port's CPU update; each stream of the batched route against
+     the per-stream route (``stream_route``: reliable masks, their labels,
+     contact and ECC iterations equal, warps within 0.05 px, forces within
+     1e-5); p50 per batch and fps;
   8a. BASELINE config 5 at 640x480 (phase ``limb640``): the same four
      streams (their first batch) through ``whole_limb_step`` and
      ``whole_limb_step_aux`` (map stride 2, a 960x1280 canvas, the poses of
      scripts/bench_streams.py, one stream's gate 0 and one's 0.5) on a
      world-1 NCCL stream mesh, one CUDA graph a step (each held bit for
      bit to its eager version on three batches, replays under the sync
-     debug mode "error"); a stream frame launches exactly what a
-     streams640 frame launches (K1 7, K3 1, K5 1, K6 1, K7 2, the labels
-     2); the forces
+     debug mode "error"); a step launches exactly what a streams640 batch
+     launches (K1 7, K3 1, K5 1, K6 1, K7 2, the labels 2); the forces
      bit-equal to ``BatchedForce.batched()``, the aux head's to them times
      the gates, the gates within 1e-6 of ``motion_gate``, the sums within
      1e-6, the maps the heightmaps' contact depth and the canvas a numpy
@@ -473,7 +480,7 @@ DENTS_RAD = (0.8, 0.0, 0.5, 0.3, 0.7, 0.1)
 # the heads add no kernel of the table
 LIMB_STRIDE, LIMB_CANVAS = 2, (2 * H, 2 * W)
 # the graph phase: every force path on GRAPH_PAIRS frame pairs, and the
-# launches of one frame (one stream frame on streams640 and limb640): the
+# launches of one frame (one batch on streams640 and limb640): the
 # 640 deploy frame, prealign640's, irls640's (the 640 deploy preset with the
 # histogram percentiles and the non-fused IRLS: K1 and K7 give way to plain
 # PyTorch) and the other paths' tables above (a multimodal force half
@@ -519,7 +526,7 @@ GRAPH_SETS = {"temp4k": 2, "temp4k_stats": 2, "temp4k_parity": 0, "temp4k_parity
 # (graph_timing), and the fold's angles (its quarter turns 0, 1, 1, -1, 2)
 GRAPH_TIMED = ("640", "4k", "parity4k", "temp4k", "temp4k_stats", "temp4k_parity_stats",
                "mm4k_fused_scalars", "mm4k_parity_fused_scalars", "limb640_aux")
-# the stream batch's graphs (one stream frame each launches FRAME_640):
+# the stream batch's graphs (a batch, one batched forward, launches FRAME_640):
 # BatchedForce.batched(), the StreamingForce step, the two whole-limb steps
 STREAM_GRAPHS = ("streams640", "streams640_step", "limb640", "limb640_aux")
 FOLD_ANGLES_DEG = (20.0, 70.0, 100.0, -95.0, 185.0)
@@ -543,6 +550,7 @@ class GraphPath(NamedTuple):
     graph: Callable
     sets: Optional[int] = None
     state: Optional[Callable] = None
+    stream_route: Optional[str] = None
 # the runner's file contract without figures (matplotlib), as the JAX runner
 # writes it (tests/test_torch_runner.py and tests/test_torch_cli.py hold
 # these to the JAX trees): the force command with --export-heightmaps, and
@@ -734,10 +742,10 @@ def kernel_cases(device):
 
     def k5_check(a, b):
         (pa, ra, ia, fa), (pb, rb, ib, fb) = a, b
-        assert bool(fa) == bool(fb), (fa, fb)
-        assert abs(float(ra) - float(rb)) < 1e-4, (ra, rb)
+        assert torch.equal(fa, fb), (fa, fb)
+        assert float((ra - rb).abs().max()) < 1e-4, (ra, rb)
         d = (pa - pb).abs()
-        assert float(d[0]) < 5e-5 and float(d[1:].max()) < 5e-3, (pa, pb)
+        assert float(d[..., 0].max()) < 5e-5 and float(d[..., 1:].max()) < 5e-3, (pa, pb)
         return float(d.max())
 
     def k4_loop_check(a, b):
@@ -887,6 +895,42 @@ def kernel_cases(device):
         assert a.dtype == b.dtype == torch.int64 and torch.equal(a, b)   # bit-equal
         return float((a - b).abs().max())
 
+    # the stream batch's shapes (drawn last): STREAMS planes a launch, the
+    # streams on the grid, against the batched plain versions; K5 also at
+    # 2 * STREAMS solves (a second wave of its 16-CTA clusters)
+    ecc_warps = [(0.003, 0.6, -0.4), (-0.002, -0.5, 0.3), (0.001, 0.2, 0.7),
+                 (0.004, -0.8, -0.6), (0.0, 0.4, 0.1), (-0.003, 0.9, -0.2),
+                 (0.002, -0.3, -0.8), (-0.001, 0.7, 0.5)]
+
+    def k5_stack(n):
+        moved = torch.stack([warp_affine_inverse_shear(base, t(np.array(
+            [[np.cos(a), -np.sin(a), x], [np.sin(a), np.cos(a), y]], np.float32)), K=4)
+            for a, x, y in ecc_warps[:n]])
+        S_b, T_b = ecc_prepare(base.expand(n, h, w), moved, t(circ))
+        return (S_b, T_b, smask, cfg.ecc_shear_k, cfg.ecc_iters, cfg.ecc_eps,
+                cfg.ecc_stall_patience)
+    k5_b_args = [k5_stack(STREAMS), k5_stack(2 * STREAMS)]
+    fields = torch.stack([gaussian_blur(t(rng.standard_normal((h, w)).astype(np.float32)),
+                                        12.0, consts) * 60.0 for _ in range(STREAMS)])
+    fields = fields + t((0.09 * xx + 0.05 * yy).astype(np.float32))
+    k6_b_args = (torch.atan2(torch.sin(fields), torch.cos(fields)),
+                 t(np.broadcast_to(circ, (STREAMS, h, w)).copy()), consts,
+                 cfg.unwrap_cg_iters, cfg.unwrap_cg_tol)
+    zs = np.stack([(0.3 + 0.1 * s + 1e-3 * xx - 2e-3 * yy + 2e-5 * xx * xx - 1e-5 * xx * yy
+                    + 3e-5 * yy * yy + rng.normal(scale=0.02, size=(h, w))).astype(np.float32)
+                   for s in range(STREAMS)])
+    zs[rng.random(zs.shape) > 0.97] += 3.0
+    k7_b_args = (t(zs), t(np.broadcast_to(circ, zs.shape).copy()), 2, cfg.polyfit_iters, 4.685,
+                 cfg.polyfit_resigma_iters)
+    lab_b_args = (t(rng.random((STREAMS, h, w)) < 0.5),)
+    # K6 at one plane more than a launch takes (drawn last): two launches
+    nx = unwrap_kernel.MAX_PLANES + 1
+    fields_x = gaussian_blur(t(rng.standard_normal((nx, h, w)).astype(np.float32)), 12.0,
+                             consts) * 60.0 + t((0.09 * xx + 0.05 * yy).astype(np.float32))
+    k6_x_args = (torch.atan2(torch.sin(fields_x), torch.cos(fields_x)),
+                 t(np.broadcast_to(circ, (nx, h, w)).copy()), consts,
+                 cfg.unwrap_cg_iters, cfg.unwrap_cg_tol)
+
     k1 = ("masked_quantiles", "vistaf_torch/csrc/quantile.cu",
           "vistaf_tpu/pallas/quantile_kernel.py:91",
           quantile_kernel.masked_quantiles, quantile_kernel.masked_quantiles_plain)
@@ -936,7 +980,17 @@ def kernel_cases(device):
         (*k6, k6_big_args, k6_check),
     ] + [("label_components", "vistaf_torch/csrc/ccl.cu", "vistaf_tpu/ops/components.py:43",
           ccl_kernel.label_components, ccl_kernel.label_components_plain, args, lab_check)
-         for args in lab_args] + cond_cases(device)
+         for args in lab_args + [lab_b_args]] + [
+        (*k5[:3], ecc_loop_kernel.ecc_loop_euclidean,
+         ecc_loop_kernel.ecc_loop_euclidean_batched_plain, args, k5_check)
+        for args in k5_b_args] + [
+        (*k6[:3], unwrap_kernel.unwrap_wls, unwrap_kernel.unwrap_wls_batched_plain, k6_b_args,
+         k6_check),
+        (*k6[:3], unwrap_kernel.unwrap_wls, unwrap_kernel.unwrap_wls_batched_plain, k6_x_args,
+         k6_check),
+        (*k7[:3], polyfit_kernel.robust_polyfit2d_coef,
+         polyfit_kernel.robust_polyfit2d_coef_batched_plain, k7_b_args, k7_check),
+    ] + cond_cases(device)
 
 
 # the WHILE probe's cap (the JAX ECC's max_iters) and its trips; the probe
@@ -1052,24 +1106,28 @@ def work(name: str, args, out):
     if name == "set_conditional":        # a run reads the 1-byte predicate and
         runs = 1 if x.dtype == torch.bool else 1 + int(out)   # writes the handle's
         return 5 * runs, runs            # value: once an IF, 1 + trips a WHILE
-    hw = args[1].numel()
+    hw = args[1].numel()                  # every plane's pixels
     taps = 2 * int(args[3] if name == "ecc_loop_euclidean" else args[4]) + 1
     per_iter = hw * (2 * taps * (4 + 4 * 2) + 60)   # two hat passes, moment rows
     if name == "gn_moments_euclidean" and isinstance(out, tuple):   # K4's loop
         return 4 * (6 * hw + 3 + 6), per_iter * max(1, int(out[2]))
     if name == "gn_moments_euclidean":
         return 4 * (6 * hw + 8 + 36), per_iter
-    if name == "ecc_loop_euclidean":
-        return 4 * (6 * hw + 6), per_iter * max(1, int(out[2]))
+    if name == "ecc_loop_euclidean":     # each solve its own trips
+        solves = out[2].numel()
+        trips = torch.clamp(out[2].to(torch.int64), min=1).reshape(-1)
+        return 4 * (6 * hw + 6 * solves), sum(per_iter // solves * int(k) for k in trips)
     if name == "unwrap_wls":             # PCG: 4 DCT products a preconditioner
-        hp, wp = unwrap_kernel.padded_shape(x.shape)
+        hp, wp = unwrap_kernel.padded_shape(x.shape[-2:])
+        planes = n // (x.shape[-2] * x.shape[-1])
         apps = int(args[3]) + 1
         mats = 2 * (hp * hp + wp * wp) + hp * wp
-        return 9 * n + 4 * mats, apps * 4 * hp * wp * (hp + wp) + hp * wp * 40 * apps
+        return 9 * n + 4 * mats, planes * (apps * 4 * hp * wp * (hp + wp)
+                                           + hp * wp * 40 * apps)
     if name == "robust_polyfit2d":       # per round 27 weighted sums; bisections
-        ncoef = out.numel()
+        ncoef = out.shape[-1]
         levels = polyfit_kernel.LEVELS
-        return 5 * n + 4 * ncoef, n * (int(args[3]) * (54 + 2 * ncoef + 6)
+        return 5 * n + 4 * out.numel(), n * (int(args[3]) * (54 + 2 * ncoef + 6)
                                        + int(args[5]) * (4 * levels + 2))
     raise KeyError(name)
 
@@ -1921,8 +1979,8 @@ def ecc_probe(ftp) -> list:
     seen = []
     real = ftp._ecc
 
-    def probe(crop01):
-        out = real(crop01)
+    def probe(crop01, **stream_kw):
+        out = real(crop01, **stream_kw)
         seen.append(out[2])
         return out
     ftp._ecc = probe
@@ -2025,7 +2083,6 @@ def run_graph(device, rows, card):
     # as the streams' single forwards replayed one by one
     cfg_s, refs, seq = stream_inputs()
     batches = [(up(refs), up(seq[k])) for k in range(GRAPH_PAIRS)]
-    stream_sets = single_stream_sets(cfg_s, batches, device)
     mesh = make_stream_mesh()
     _, _, _, (pose, accel) = limb_inputs()
     aux = {"pose_px": shard_batch(mesh, pose), "accel_mss": shard_batch(mesh, accel)}
@@ -2049,13 +2106,23 @@ def run_graph(device, rows, card):
                 lambda r, d: se.eager(r, d, aux["pose_px"], aux["accel_mss"]), sg,
                 lambda: sg.graph, None)
 
+    stream_sets = None
     for path, make in (("streams640", batched), ("streams640_step", streaming),
                        ("limb640", limb), ("limb640_aux", limb_aux)):
         g, e = pair(cfg_s)
-        fn_g, fn_e, routed, graph, state = make(*(BatchedForce(p.ftp, FORCE_MODEL)
-                                                  for p in (g, e)))
-        paths.append(GraphPath(path, fn_g, fn_e, batches, (g.ftp, e.ftp), STREAMS, routed,
-                               graph, stream_sets, state))
+        bg, be = (BatchedForce(p.ftp, FORCE_MODEL) for p in (g, e))
+        fn_g, fn_e, routed, graph, state = make(bg, be)
+        # the batched route: one batched forward a batch, one IF node (the
+        # seed pick, taken when any stream's pooled seed fails) a replay;
+        # the per-stream route: the streams' single forwards one by one
+        if bg.route() == "batched":
+            per_call, sets = 1, len(batches)
+        else:
+            if stream_sets is None:
+                stream_sets = single_stream_sets(cfg_s, batches, device)
+            per_call, sets = STREAMS, stream_sets
+        paths.append(GraphPath(path, fn_g, fn_e, batches, (g.ftp, e.ftp), per_call, routed,
+                               graph, sets, state, bg.route()))
     # the temperature forwards on thermochromic frames of distinct seeds,
     # and the fused multimodal steps on the multimodal force halves' pairs:
     # one pipeline a preset replays its graphs and runs its eager forward
@@ -2100,7 +2167,7 @@ def run_graph(device, rows, card):
             outs, its = [], []
             for inp in inputs:
                 outs.append(fn(*inp))
-                its.append([int(p[-1]) for p in probe])
+                its.append([p[-1].tolist() for p in probe])
                 if gp.state is not None:
                     states[side].append(_clone(tuple(gp.state()[side])))
             torch.cuda.synchronize()
@@ -2129,6 +2196,7 @@ def run_graph(device, rows, card):
         want = {k: v * gp.per_call * len(inputs) for k, v in GRAPH_LAUNCHES[path].items()}
         assert launches[0] == launches[1] == want, (path, launches, want)
         say("graph", path=path, pairs=len(inputs), bit_equal=True,
+            **({"stream_route": gp.stream_route} if gp.stream_route else {}),
             ecc_iters=[i[0] for i in iters[0]] if gp.ftps else None,
             launches=launches[0], launches_eager=launches[1], condition_sets=sets,
             captured_launches=gp.graph().launches, capture_s=capture_s,
@@ -2228,7 +2296,10 @@ def run_streams(device, rows, card):
     streams, window 8, EMA 0.2, a sequence of BATCHES batches through
     ``run_overlapped`` (launches counted from 0 over it, exact), held bit
     for bit to the serialized calls, each stream to ``_single`` and the
-    smoothing to the port's CPU ``update``; the step's and the batch's CUDA
+    smoothing to the port's CPU ``update``, each stream of the batched
+    route to the per-stream route (``check_stream_route``) and, under the
+    parity preset, the per-stream route to ``_single``
+    (``check_per_stream_route``); the step's and the batch's CUDA
     graphs each held bit for bit to their eager versions on GRAPH_PAIRS
     batches (the smoothing state after each too), the replays under the
     sync debug mode "error"; then timed."""
@@ -2240,13 +2311,14 @@ def run_streams(device, rows, card):
 
     cfg, refs, seq = stream_inputs()
     bf = BatchedForce(FTPPipeline(cfg, P2H_MODEL, device=device), FORCE_MODEL)
+    assert bf.route() == "batched", bf.route()
     sf = StreamingForce(bf, STREAMS, window=WINDOW, ema_alpha=EMA_ALPHA)
     torch.cuda.synchronize()
     kernels.reset_launches()
     over = sf.run_overlapped(refs, seq)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    record_launches("streams640", rows, launches, frames=BATCHES * STREAMS)
+    record_launches("streams640", rows, launches, frames=BATCHES)
 
     serial_sf = StreamingForce(bf, STREAMS, window=WINDOW, ema_alpha=EMA_ALPHA)
     serial = [serial_sf(refs, b) for b in seq]
@@ -2263,6 +2335,8 @@ def run_streams(device, rows, card):
         for k in ("force_N", "max_depth_mm"):
             assert torch.equal(out[k][s], one[k]), (k, s, out[k], one[k])
     np.testing.assert_array_equal(over[0]["force_raw_N"], out["force_N"].cpu().numpy())
+    check_stream_route(device, cfg, bf, refs, seq[:GRAPH_PAIRS])
+    check_per_stream_route(device, refs[:2], seq[0][:2])
     # each graph against its eager version on GRAPH_PAIRS batches of device
     # stacks, the replays under the sync debug mode "error": the step's
     # outputs and smoothing state after each batch, and the batch's forwards
@@ -2305,7 +2379,8 @@ def run_streams(device, rows, card):
         force_raw_N=[o["force_raw_N"].tolist() for o in over],
         force_median_N=[o["force_median_N"].tolist() for o in over],
         in_contact=[o["in_contact"].tolist() for o in over], launches=launches,
-        launches_per_stream_frame={k: v / (BATCHES * STREAMS) for k, v in launches.items()})
+        stream_route=bf.route(),
+        launches_per_batch={k: v / BATCHES for k, v in launches.items()})
     say("timing", path="streams640", batches_timed=len(times) - 2,
         p50_ms_per_batch=p50, p90_ms_per_batch=float(np.percentile(times[2:], 90)),
         fps=1000.0 * STREAMS / p50,
@@ -2315,6 +2390,87 @@ def run_streams(device, rows, card):
     assert all(np.isfinite(o["force_raw_N"]).all() for o in over)
     hold_streams_to_jax(refs, seq, over)
     return lambda: sf(refs, seq[0])
+
+
+# each stream of the batched route against the per-stream route: the largest
+# relative gap of its forces, volumes, areas and depths that a different
+# summation order may leave (every mask, label and ECC trip must be equal)
+STREAM_ROUTE_RTOL = 1e-5
+STREAM_MASKS = ("reliable_crop", "output_reliable_crop", "contact_dilated_crop",
+                "contact_kept_crop", "dbg_ecc_iters")
+
+
+def check_stream_route(device, cfg, bf, refs, batches) -> None:
+    """Each stream of the batched route against the per-stream route on
+    ``batches`` (numpy (B, H, W, 3) stacks against ``refs``): a debug
+    pipeline's batched ``forward_eager`` against each stream's single
+    ``forward_eager`` (the reliable masks, their components' labels, the
+    contact masks and the ECC iterations equal, the ECC warps within
+    ECC_ATOL_PX), and ``bf.batched()`` (its graph) against
+    ``bf.per_stream_eager`` (force, volume, area and depth within
+    STREAM_ROUTE_RTOL of each stream's value); one ``stream_route`` line
+    with the gaps and the outputs that are not bit-equal."""
+    import torch
+    from vistaf_torch.ftp.pipeline import FTPPipeline
+    from vistaf_torch.ops.components import label
+    dbg = FTPPipeline(cfg, P2H_MODEL, device=device, debug_outputs=True)
+    r = torch.as_tensor(refs, device=device)
+    not_equal, iters, warp_px, force_rel = set(), [], 0.0, 0.0
+    for b in batches:
+        d = torch.as_tensor(b, device=device)
+        got = dbg.forward_eager(r, d)
+        singles = [dbg.forward_eager(r[i], d[i]) for i in range(r.shape[0])]
+        one = {k: torch.stack([o[k] for o in singles]) for k in got}
+        for k, v in got.items():
+            if not torch.equal(v.nan_to_num(7.0) if v.is_floating_point() else v,
+                               one[k].nan_to_num(7.0) if v.is_floating_point() else one[k]):
+                not_equal.add(k)
+        for k in STREAM_MASKS:
+            assert torch.equal(got[k], one[k]), f"stream route: {k} differs"
+        assert torch.equal(label(got["reliable_crop"]), label(one["reliable_crop"]))
+        iters.append(got["dbg_ecc_iters"].tolist())
+        warp_px = max(warp_px, max(warp_gap_px(a, w) for a, w in zip(
+            got["dbg_ecc_warp"].cpu().numpy(), one["dbg_ecc_warp"].cpu().numpy())))
+        a, p = bf.batched()(r, d), bf.per_stream_eager(r, d)
+        for k in ("force_N", "volume_cm3", "contact_area_mm2", "max_depth_mm"):
+            x, y = a[k].double().cpu(), p[k].double().cpu()
+            gap = (x - y).abs() / torch.clamp(y.abs(), min=1e-30)
+            force_rel = max(force_rel, float(torch.where(x == y, 0.0, gap).max()))
+    say("stream_route", route=bf.route(), batches=len(batches), ecc_iters=iters,
+        masks_equal=list(STREAM_MASKS), warp_gap_px=warp_px, force_rel_gap=force_rel,
+        not_bit_equal=sorted(not_equal))
+    assert warp_px <= ECC_ATOL_PX, warp_px
+    assert force_rel <= STREAM_ROUTE_RTOL, force_rel
+
+
+def check_per_stream_route(device, refs, frames) -> None:
+    """A configuration whose forward holds WHILE nodes (the parity preset at
+    640x480: the gather ECC's and the PCG's loops) keeps the per-stream
+    route: ``BatchedForce.route()`` is ``per_stream``, a stack refuses the
+    batched forward, and ``batched()`` (its capture call, then a replay of
+    the streams' single forwards one by one) gives each stream its
+    ``_single``'s bits; one ``stream_route`` line."""
+    import torch
+    from vistaf_torch.ftp.pipeline import FTPPipeline
+    from vistaf_torch.parallel import BatchedForce
+    from vistaf_torch.utils.synthetic import scaled_ftp_config
+    bf = BatchedForce(FTPPipeline(scaled_ftp_config(H, W), P2H_MODEL, device=device),
+                      FORCE_MODEL)
+    assert bf.route() == "per_stream" and bf.graph_route(), bf.route()
+    r, d = torch.as_tensor(refs, device=device), torch.as_tensor(frames, device=device)
+    try:
+        bf.pipe.forward_eager(r, d)
+        raise AssertionError("a WHILE forward took a stack")
+    except ValueError:
+        pass
+    bf.batched()(r, d)                        # eager, then the capture
+    out = bf.batched()(r, d)
+    for i in range(r.shape[0]):
+        one = bf._single(r[i], d[i])
+        for k in ("force_N", "max_depth_mm"):
+            assert torch.equal(out[k][i], one[k]), (k, i, out[k], one[k])
+    say("stream_route", path="parity640", route=bf.route(), streams=int(r.shape[0]),
+        bit_equal_single=True, force_N=out["force_N"].tolist())
 
 
 def contract_gap(card, cpu):
@@ -2385,7 +2541,7 @@ def run_limb(device, rows, card):
     out_aux = step_aux(rs, ds, aux)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    record_launches("limb640", rows, launches, frames=2 * STREAMS)
+    record_launches("limb640", rows, launches, frames=2)
 
     got = {k: v.cpu().numpy() for k, v in out.items()}
     got_aux = {k: v.cpu().numpy() for k, v in out_aux.items()}
@@ -2449,8 +2605,8 @@ def run_limb(device, rows, card):
         contact_area_mm2=float(got["contact_area_mm2"]),
         map_max=limb.max(axis=(1, 2)).tolist(), canvas_max=float(canvas.max()),
         gaps_vs_cpu={k: float(v.max()) for k, v in gaps.items()}, gate_gap=gate_gap,
-        cpu_seconds=cpu_s, launches=launches,
-        launches_per_stream_frame={k: v / (2 * STREAMS) for k, v in launches.items()})
+        cpu_seconds=cpu_s, launches=launches, stream_route=bf.route(),
+        launches_per_step={k: v / 2 for k, v in launches.items()})
     for k, v in gaps.items():
         assert float(v.max()) <= FORCE_RTOL, (k, v)
     assert np.isfinite(limb).all() and float(limb.max()) > 0.01

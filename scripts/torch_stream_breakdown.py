@@ -20,9 +20,12 @@ It prints one JSON line:
 - ``per_stream_ms`` / ``per_stream_host_ms``: the batch as it ran before
   one graph held it: each stream through the forward's own graph, the
   volume -> force tail op by op, the stack and ``update``;
-- ``device_ops_batch`` / ``device_ops_frame``: device operations (kernels,
-  copies, fills) one replay of the step's graph / of one stream's forward
-  graph runs, from ``torch.profiler``;
+- ``stream_route``: the route the step's batch takes (``batched``: one
+  batched forward, ``per_stream``: the streams one by one);
+- ``device_ops_batch`` / ``device_ops_frame`` / ``device_ops_per_stream``:
+  device operations (kernels, copies, fills) one replay of the step's
+  graph / of one stream's forward graph / the per-stream batch above runs,
+  from ``torch.profiler``;
 - ``after_profiler_*``: the step's, one stream's and the aux step's replay
   timed again once that profiler has run in the process;
 - ``aux_step_ms``, ``aux_step_host_ms``, ``aux_replay_ms``,
@@ -115,8 +118,9 @@ def main() -> int:
                aux_step_host_ms=host_ms(lambda: step(rs, ds, aux)),
                aux_replay_ms=ms(step.graph.graph.replay),
                aux_replay_host_ms=host_ms(step.graph.graph.replay))
-    out.update(device_ops_batch=device_ops(graph.replay),
-               device_ops_frame=device_ops(single.replay))
+    out.update(stream_route=bf.route(), device_ops_batch=device_ops(graph.replay),
+               device_ops_frame=device_ops(single.replay),
+               device_ops_per_stream=device_ops(per_stream))
     # the same replays once torch.profiler has traced the card in the process
     out.update(after_profiler_replay_ms=ms(graph.replay),
                after_profiler_replay_host_ms=host_ms(graph.replay),

@@ -11,7 +11,9 @@
 //
 // Result: each foreground pixel gets the flat row-major index of its
 // component's minimum pixel, each background pixel -1 (int64), as the JAX
-// label gives.
+// label gives.  A (B, h, w) stack of masks is labelled plane by plane in the
+// same three launches, the planes on grid.z (grid.y of the flatten), as
+// jax.vmap of the label gives it: the indices are each plane's own.
 //
 // Bound.  The function must read the mask (1 byte a pixel) and write the
 // labels (8 bytes a pixel): 0.5 MB at the 640x480 preset's 236x236 crop,
@@ -81,10 +83,12 @@ __device__ __forceinline__ bool fg_at(const uint8_t* __restrict__ mask, int y, i
   return y >= 0 && x >= 0 && x < w && y < h && mask[(size_t)y * w + x];
 }
 
-// grid (tiles_x, tiles_y), kThreads threads.
+// grid (tiles_x, tiles_y, planes), kThreads threads.
 __global__ void __launch_bounds__(kThreads)
 ccl_tile_kernel(const uint8_t* __restrict__ mask, int* __restrict__ L, int h, int w) {
   __shared__ int s[kThreads];
+  mask += (size_t)blockIdx.z * h * w;
+  L += (size_t)blockIdx.z * h * w;
   const int li = threadIdx.x;
   const int tx = li % kTileW, ty = li / kTileW;
   const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
@@ -108,10 +112,12 @@ ccl_tile_kernel(const uint8_t* __restrict__ mask, int* __restrict__ L, int h, in
   }
 }
 
-// grid (tiles_x, tiles_y), kThreads threads: the pairs that cross a tile's
-// top row or its left or right column.
+// grid (tiles_x, tiles_y, planes), kThreads threads: the pairs that cross a
+// tile's top row or its left or right column.
 __global__ void __launch_bounds__(kThreads)
 ccl_border_kernel(const uint8_t* __restrict__ mask, int* L, int h, int w) {
+  mask += (size_t)blockIdx.z * h * w;
+  L += (size_t)blockIdx.z * h * w;
   const int tx = threadIdx.x % kTileW, ty = threadIdx.x / kTileW;
   const int x = blockIdx.x * kTileW + tx, y = blockIdx.y * kTileH + ty;
   if (x >= w || y >= h || (tx > 0 && ty > 0 && tx < kTileW - 1)) return;
@@ -123,10 +129,13 @@ ccl_border_kernel(const uint8_t* __restrict__ mask, int* L, int h, int w) {
   if ((ty == 0 || tx == kTileW - 1) && fg_at(mask, y - 1, x + 1, h, w)) unite(L, i, i - w + 1);
 }
 
-// grid ceil(n / 256), 256 threads.
+// grid (ceil(n / 256), planes), 256 threads.
 __global__ void __launch_bounds__(256)
 ccl_flatten_kernel(const uint8_t* __restrict__ mask, const int* L, long long* __restrict__ out,
                    int n) {
+  mask += (size_t)blockIdx.y * n;
+  L += (size_t)blockIdx.y * n;
+  out += (size_t)blockIdx.y * n;
   const int i = blockIdx.x * 256 + threadIdx.x;
   if (i >= n) return;
   out[i] = mask[i] ? (long long)find_root(L, i) : -1LL;
@@ -134,13 +143,14 @@ ccl_flatten_kernel(const uint8_t* __restrict__ mask, const int* L, long long* __
 
 }  // namespace
 
-// mask: (h, w) bytes 0/1; parent: h * w int32 of scratch; out: (h, w) int64.
-// Enqueues 3 launches on `stream`.
-extern "C" int vt_label_components(const uint8_t* mask, int* parent, long long* out, int h,
-                                   int w, void* stream) {
-  if (h < 1 || w < 1 || (long long)h * w >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+// mask: (planes, h, w) bytes 0/1; parent: planes * h * w int32 of scratch;
+// out: (planes, h, w) int64.  Enqueues 3 launches on `stream`.
+extern "C" int vt_label_components(const uint8_t* mask, int* parent, long long* out,
+                                   int planes, int h, int w, void* stream) {
+  if (h < 1 || w < 1 || (long long)h * w >= (1LL << 31) || planes < 1 || planes > 65535)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 tiles((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
+  const dim3 tiles((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, planes);
   ccl_tile_kernel<<<tiles, kThreads, 0, st>>>(mask, parent, h, w);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -148,6 +158,6 @@ extern "C" int vt_label_components(const uint8_t* mask, int* parent, long long* 
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = h * w;
-  ccl_flatten_kernel<<<(n + 255) / 256, 256, 0, st>>>(mask, parent, out, n);
+  ccl_flatten_kernel<<<dim3((n + 255) / 256, planes), 256, 0, st>>>(mask, parent, out, n);
   return (int)cudaGetLastError();
 }

@@ -17,7 +17,10 @@
 //      on those bits, so all CTAs agree on whether to go on without a
 //      broadcast.
 // Output: [theta, tx, ty, rho, iters, failed]; identity/NaN handling on
-// failure stays with the caller.
+// failure stays with the caller.  A stack of B solves (jax.vmap of the
+// solve) is one launch of B clusters, solve b on grid.y = b, each running its
+// own loop to its own stop: the H100's GPCs hold about seven 16-CTA clusters
+// at once, so a larger B runs in waves.
 //
 // Bound and design.  A solve is a few dense stencil passes per iteration
 // (~4 M hat taps at 236^2) on a plane that never changes, and the
@@ -81,11 +84,15 @@ struct AdjugateSolve {
 // Rows per CTA of an h-row plane.
 int band_rows(int h) { return (h + kCtas - 1) / kCtas; }
 
-// One solve, one cluster; CTA `rank` owns rows [rank * band, (rank + 1) * band).
+// One solve a cluster, solve blockIdx.y; CTA `rank` owns rows
+// [rank * band, (rank + 1) * band).
 __global__ void __launch_bounds__(kThreads)
 ecc_loop_kernel(const float* __restrict__ S, const float* __restrict__ T,
                 const float* __restrict__ SM, float* __restrict__ out, int h, int w, int K,
                 int max_iters, float eps, int stall_patience, int band) {
+  S += (size_t)blockIdx.y * 4 * h * w;
+  T += (size_t)blockIdx.y * h * w;
+  out += (size_t)blockIdx.y * 6;
   extern __shared__ float4 mid[];  // the band's vertically sheared [I, gx, gy, mask]
   __shared__ float red[kMoments * 33];
   __shared__ float slot[2][kMoments];
@@ -150,13 +157,16 @@ ecc_loop_kernel(const float* __restrict__ S, const float* __restrict__ T,
 
 }  // namespace
 
-// S: (4, h, w) centred [I, gx, gy, mask01]; T, SM: (h, w); out: (6,).  One
-// cluster launch on `stream`; a band that does not fit a CTA's shared memory
-// (wider than ecc_loop_kernel.fits admits) is refused.
+// S: (solves, 4, h, w) centred [I, gx, gy, mask01]; T: (solves, h, w); SM:
+// (h, w), shared; out: (solves, 6).  One launch of `solves` clusters on
+// `stream`; a band that does not fit a CTA's shared memory (wider than
+// ecc_loop_kernel.fits admits) is refused.
 extern "C" int vt_ecc_loop_euclidean(const float* S, const float* T, const float* SM,
-                                     float* out, int h, int w, int K, int max_iters,
-                                     float eps, int stall_patience, void* stream) {
-  if (h < 1 || w < 1 || K < 0 || max_iters < 0) return (int)cudaErrorInvalidValue;
+                                     float* out, int solves, int h, int w, int K,
+                                     int max_iters, float eps, int stall_patience,
+                                     void* stream) {
+  if (h < 1 || w < 1 || K < 0 || max_iters < 0 || solves < 1 || solves > 65535)
+    return (int)cudaErrorInvalidValue;
   const int band = band_rows(h);
   const long long bytes = (long long)band * w * (long long)sizeof(float4);
   if (bytes > kMaxBandBytes) return (int)cudaErrorInvalidValue;
@@ -167,7 +177,7 @@ extern "C" int vt_ecc_loop_euclidean(const float* S, const float* T, const float
                              (int)bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCtas, 1, 1);
+  cfg.gridDim = dim3(kCtas, solves, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = (size_t)bytes;
   cfg.stream = (cudaStream_t)stream;

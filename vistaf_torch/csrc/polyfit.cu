@@ -29,7 +29,9 @@
 // leaf counts and walks the same bracket.  A round is 1 exchange, plus
 // 1 + 2 ceil(levels / 8) in a resigma round (5 at 16 levels): 14 for the
 // 640 deploy preset's 4 rounds with 2 resigma rounds, instead of 70
-// block-barrier passes over the plane on one SM.
+// block-barrier passes over the plane on one SM.  A stack of planes
+// (jax.vmap of the fit) is one launch of one cluster a plane, plane
+// blockIdx.y, each fitting its own plane.
 #include <cooperative_groups.h>
 
 #include "ladder.cuh"
@@ -181,13 +183,17 @@ __device__ void cluster_ladder(Exchange& ex, const float* zs, int len, float* tr
   }
 }
 
-// One fit, one cluster of kCtas CTAs; CTA `rank` holds elements
-// [rank * chunk, (rank + 1) * chunk) of the plane in dynamic shared memory.
+// One fit a cluster of kCtas CTAs, of plane blockIdx.y; CTA `rank` holds
+// elements [rank * chunk, (rank + 1) * chunk) of the plane in dynamic shared
+// memory.
 template <int kCoef, bool kVec>
 __global__ void __cluster_dims__(kCtas, 1, 1) __launch_bounds__(kThreads)
 polyfit_kernel(const float* __restrict__ z, const uint8_t* __restrict__ mask,
                float* __restrict__ out, int h, int w, int iters, int resigma_iters,
                float cauchy_c, int levels, int chunk) {
+  z += (size_t)blockIdx.y * h * w;
+  mask += (size_t)blockIdx.y * h * w;
+  out += (size_t)blockIdx.y * kCoef;
   constexpr int kPairs = kCoef * (kCoef + 1) / 2;
   constexpr int kSums = kPairs + kCoef;  // normal matrix, then right-hand side
   static_assert(kSums + 1 <= kSlotWords, "the sums and the count fit a slot");
@@ -312,8 +318,8 @@ polyfit_kernel(const float* __restrict__ z, const uint8_t* __restrict__ mask,
 }
 
 template <int kCoef>
-cudaError_t launch_fit(const float* z, const uint8_t* mask, float* out, int h, int w,
-                       int iters, int resigma_iters, float cauchy_c, int levels,
+cudaError_t launch_fit(const float* z, const uint8_t* mask, float* out, int planes, int h,
+                       int w, int iters, int resigma_iters, float cauchy_c, int levels,
                        cudaStream_t st) {
   const int n = h * w;
   const int chunk = fit_chunk(n);
@@ -323,24 +329,27 @@ cudaError_t launch_fit(const float* z, const uint8_t* mask, float* out, int h, i
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<kCtas, kThreads, bytes, st>>>(z, mask, out, h, w, iters, resigma_iters, cauchy_c,
-                                         levels, chunk);
+  kernel<<<dim3(kCtas, planes), kThreads, bytes, st>>>(z, mask, out, h, w, iters,
+                                                      resigma_iters, cauchy_c, levels, chunk);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// z, mask: (h, w) with h * w <= kMaxElems; out: (ncoef,), ncoef 3 (order 1)
-// or 6 (order 2).  One cluster launch on `stream`.
-extern "C" int vt_robust_polyfit2d(const float* z, const uint8_t* mask, float* out, int h,
-                                   int w, int ncoef, int iters, int resigma_iters,
-                                   float cauchy_c, int levels, void* stream) {
+// z, mask: (planes, h, w) with h * w <= kMaxElems; out: (planes, ncoef),
+// ncoef 3 (order 1) or 6 (order 2).  One launch of `planes` clusters on
+// `stream`.
+extern "C" int vt_robust_polyfit2d(const float* z, const uint8_t* mask, float* out,
+                                   int planes, int h, int w, int ncoef, int iters,
+                                   int resigma_iters, float cauchy_c, int levels,
+                                   void* stream) {
   if (h < 1 || w < 1 || (long long)h * w > kMaxElems || (ncoef != 3 && ncoef != 6) ||
-      iters < 0 || levels < 0)
+      iters < 0 || levels < 0 || planes < 1 || planes > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t err =
-      ncoef == 6 ? launch_fit<6>(z, mask, out, h, w, iters, resigma_iters, cauchy_c, levels, st)
-                 : launch_fit<3>(z, mask, out, h, w, iters, resigma_iters, cauchy_c, levels, st);
+      ncoef == 6
+          ? launch_fit<6>(z, mask, out, planes, h, w, iters, resigma_iters, cauchy_c, levels, st)
+          : launch_fit<3>(z, mask, out, planes, h, w, iters, resigma_iters, cauchy_c, levels, st);
   return (int)err;
 }

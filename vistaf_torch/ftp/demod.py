@@ -21,7 +21,9 @@ sideband tails, chosen as it chooses them:
   spectrum under a truncated Gaussian with a DC notch, and the full-carrier
   ramp).
 
-The carrier is refined by a parabola in the log magnitude.
+The carrier is refined by a parabola in the log magnitude.  Every function
+takes (..., h, w) stacks of frames (``jax.vmap`` of the JAX demod): one
+carrier a pair, the peaks and windows per pair on the device.
 """
 from __future__ import annotations
 
@@ -38,22 +40,26 @@ from vistaf_torch.ops.morphology import dilate, ellipse_kernel
 from vistaf_torch.ops.padding import pad_last2
 from vistaf_torch.ops.percentile import (get_percentile_fn, masked_mean,
                                         masked_percentile_hist_rows)
+from vistaf_torch.ops.streams import each
+from vistaf_torch.ops.warp import window_rows_cols
 
 
 class DemodResult(NamedTuple):
-    complex_demod: torch.Tensor      # (h, w) complex64, carrier removed
-    amp: torch.Tensor                # (h, w) float32 |complex_demod|
-    peak_f: torch.Tensor             # (2,) refined peak (x, y) in bins
-    k: torch.Tensor                  # (2,) carrier offset from DC (kx, ky)
+    complex_demod: torch.Tensor      # (..., h, w) complex64, carrier removed
+    amp: torch.Tensor                # (..., h, w) float32 |complex_demod|
+    peak_f: torch.Tensor             # (..., 2) refined peak (x, y) in bins
+    k: torch.Tensor                  # (..., 2) carrier offset from DC (kx, ky)
     fft_shape: Tuple[int, int]       # (hf, wf)
-    i_norm: torch.Tensor             # (h, w) normalized image
+    i_norm: torch.Tensor             # (..., h, w) normalized image
 
 
 def preprocess(gray: torch.Tensor, apo: Optional[torch.Tensor], cfg: FTPConfig,
-               consts: DeviceConsts) -> Tuple[torch.Tensor, torch.Tensor]:
+               consts: DeviceConsts, streams: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bad-pixel repair, illumination normalization, apodization, the DC
     removal and the Hann window of the (..., h, w) gray planes: returns
-    (windowed image, I_norm)."""
+    (windowed image, I_norm).  ``streams``: the leading axis is a batched
+    forward's stream axis (``ops/streams.py``), here and below."""
     img = gray.to(torch.float32)
     h, w = img.shape[-2:]
     valid = apo > 1e-6 if apo is not None else torch.ones((h, w), dtype=torch.bool,
@@ -77,14 +83,14 @@ def preprocess(gray: torch.Tensor, apo: Optional[torch.Tensor], cfg: FTPConfig,
             bad = dilate(bad, ellipse_kernel(ksz, ksz), iterations=cfg.bad_dilate_iters)
         img = inpaint_diffusion(img, bad, iters=cfg.inpaint_iters)
 
-    blur = gaussian_blur(img, cfg.illum_sigma_px, consts)
+    blur = gaussian_blur(img, cfg.illum_sigma_px, consts, streams=streams)
     i_norm = img / (blur + 1e-6) - 1.0
     if cfg.pre_blur_sigma_px and cfg.pre_blur_sigma_px > 0:
-        i_norm = gaussian_blur(i_norm, cfg.pre_blur_sigma_px, consts)
+        i_norm = gaussian_blur(i_norm, cfg.pre_blur_sigma_px, consts, streams=streams)
     iw = i_norm * apo if apo is not None else i_norm
     if cfg.remove_mean_after_apod:
         if cfg.dc_remove_stat == "mean":
-            mu = masked_mean(iw, valid)
+            mu = masked_mean(iw, valid, streams=streams)
         else:
             mu = get_percentile_fn(cfg.percentile_method)(iw, valid, 50.0)
         iw = iw - mu[..., None, None]
@@ -96,61 +102,67 @@ def preprocess(gray: torch.Tensor, apo: Optional[torch.Tensor], cfg: FTPConfig,
 
 def _results(field: torch.Tensor, peak_f: torch.Tensor, i_norm: torch.Tensor,
              fft_shape: Tuple[int, int], cfg: FTPConfig) -> List[DemodResult]:
-    """One DemodResult a frame of the (n, hf, wf) padded field, cropped to
-    the (n, h, w) frames of ``i_norm``."""
+    """One DemodResult a frame of the (..., n, hf, wf) padded field, cropped
+    to the (..., n, h, w) frames of ``i_norm``."""
     hf, wf = fft_shape
     h, w = i_norm.shape[-2:]
     pad = int(max(0, cfg.fft_pad_px))
     if pad > 0:
-        field = field[:, pad:pad + h, pad:pad + w]
+        field = field[..., pad:pad + h, pad:pad + w]
     amp = torch.abs(field)
-    k = torch.stack([peak_f[0] - wf // 2, peak_f[1] - hf // 2])
-    return [DemodResult(field[i], amp[i], peak_f, k, (hf, wf), i_norm[i])
-            for i in range(field.shape[0])]
+    k = torch.stack([peak_f[..., 0] - wf // 2, peak_f[..., 1] - hf // 2], dim=-1)
+    return [DemodResult(field[..., i, :, :], amp[..., i, :, :], peak_f, k, (hf, wf),
+                        i_norm[..., i, :, :])
+            for i in range(field.shape[-3])]
 
 
 def _patch_field(peak_f: torch.Tensor, px_i, py_i, patch: torch.Tensor,
                  fft_shape: Tuple[int, int], cfg: FTPConfig,
-                 consts: DeviceConsts) -> torch.Tensor:
-    """Hann window on the (n, psz, psz) sideband patch, its sparse inverse
-    DFT from the spectrum's centre and the fractional-bin ramp: the (n, hf,
-    wf) padded field."""
+                 consts: DeviceConsts, streams: bool = False) -> torch.Tensor:
+    """Hann window on the (..., n, psz, psz) sideband patch, its sparse
+    inverse DFT from the spectrum's centre and the fractional-bin ramp: the
+    (..., n, hf, wf) padded field."""
     hf, wf = fft_shape
     psz = patch.shape[-1]
     if cfg.patch_window == "hann":
         patch = patch * consts.get(("hann_patch", psz, psz), lambda: hann_patch(psz, psz))
     field = fftops.ifft2_sparse_patch(patch, hf, wf, hf // 2 - psz // 2, wf // 2 - psz // 2,
-                                      consts)
-    dpx = peak_f[0] - px_i.to(torch.float32)
-    dpy = peak_f[1] - py_i.to(torch.float32)
-    return field * fftops.frac_ramp(hf, wf, dpx, dpy, consts, sign=-1.0)
+                                      consts, streams=streams)
+    dpx = peak_f[..., 0] - px_i.to(torch.float32)
+    dpy = peak_f[..., 1] - py_i.to(torch.float32)
+    return field * fftops.frac_ramp(hf, wf, dpx, dpy, consts, sign=-1.0)[..., None, :, :]
 
 
 def _gauss_field(F_shift: torch.Tensor, peak_f: torch.Tensor, cfg: FTPConfig,
-                 consts: DeviceConsts) -> torch.Tensor:
-    """The Gaussian sideband of the (n, hf, wf) shifted spectrum: a
+                 consts: DeviceConsts, streams: bool = False) -> torch.Tensor:
+    """The Gaussian sideband of the (..., n, hf, wf) shifted spectrum: a
     Gaussian of ``band_radius`` around the carrier, truncated at
     ``gauss_trunc_radius``, zero within ``dc_exclusion`` of DC, a dense
-    ``ifft2`` and the full-carrier ramp: the (n, hf, wf) padded field."""
+    ``ifft2`` and the full-carrier ramp: the (..., n, hf, wf) padded
+    field."""
     hf, wf = F_shift.shape[-2:]
     cy, cx = hf // 2, wf // 2
     yy = consts.iota(hf, wf, 0)
     xx = consts.iota(hf, wf, 1)
-    dist2_peak = (xx - peak_f[0]) ** 2 + (yy - peak_f[1]) ** 2
+    px, py = peak_f[..., 0, None, None, None], peak_f[..., 1, None, None, None]
+    dist2_peak = (xx - px) ** 2 + (yy - py) ** 2
     dist2_dc = (xx - cx) ** 2 + (yy - cy) ** 2
     sigma = max(1e-6, float(cfg.band_radius))
     gauss = torch.exp(-0.5 * dist2_peak / (sigma * sigma))
     rcut = max(3.0, float(cfg.gauss_trunc_radius))
     gauss = gauss * (dist2_peak <= rcut * rcut)
     gauss = torch.where(dist2_dc <= float(cfg.dc_exclusion) ** 2, 0.0, gauss)
-    field = torch.fft.ifft2(torch.fft.ifftshift(F_shift * gauss, dim=(-2, -1)))
-    return field * fftops.frac_ramp(hf, wf, peak_f[0] - cx, peak_f[1] - cy, consts, sign=-1.0)
+    field = each(torch.fft.ifft2, torch.fft.ifftshift(F_shift * gauss, dim=(-2, -1)),
+                 streams=streams, cpu_only=True)
+    return field * fftops.frac_ramp(hf, wf, peak_f[..., 0] - cx, peak_f[..., 1] - cy, consts,
+                                    sign=-1.0)[..., None, :, :]
 
 
 def _search_carrier(mag: torch.Tensor, cfg: FTPConfig) -> torch.Tensor:
-    """The refined carrier peak (x, y) of the (hf, wf) shifted magnitude: the
-    'topk' search (or the cascade) and the parabolic log refinement."""
-    hf, wf = mag.shape
+    """The refined carrier peak (..., 2) = (x, y) of the (..., hf, wf)
+    shifted magnitude: the 'topk' search (or the cascade) and the parabolic
+    log refinement."""
+    hf, wf = mag.shape[-2:]
     if cfg.peak_method == "cascade":
         px, py = fftops.carrier_peak_cascade(
             mag, cfg.dc_exclusion, force_right_half_plane=cfg.force_right_half_plane,
@@ -163,42 +175,43 @@ def _search_carrier(mag: torch.Tensor, cfg: FTPConfig) -> torch.Tensor:
             prefer_near_center_row=cfg.prefer_peak_near_center_row,
             peak_max_dy_frac=cfg.peak_max_dy_from_center)
     fx, fy = fftops.refine_peak_parabolic_log(mag, px, py)
-    return torch.stack([fx, fy])
+    return torch.stack([fx, fy], dim=-1)
 
 
 def _fft2_field(F_shift: torch.Tensor, peak_f: torch.Tensor, cfg: FTPConfig,
-                consts: DeviceConsts) -> torch.Tensor:
-    """The full-``fft2`` tail of the (n, hf, wf) shifted spectrum at the
-    carrier ``peak_f``: the sideband patch around its rounded bin (the
+                consts: DeviceConsts, streams: bool = False) -> torch.Tensor:
+    """The full-``fft2`` tail of the (..., n, hf, wf) shifted spectrum at
+    the carrier ``peak_f``: the sideband patch around its rounded bin (the
     window start clamped into the array, as ``dynamic_slice`` clamps it),
     or the Gaussian sideband."""
     if cfg.sideband_method != "patch_shift":
-        return _gauss_field(F_shift, peak_f, cfg, consts)
+        return _gauss_field(F_shift, peak_f, cfg, consts, streams=streams)
     hf, wf = F_shift.shape[-2:]
-    px_i = torch.round(peak_f[0]).to(torch.int64)
-    py_i = torch.round(peak_f[1]).to(torch.int64)
+    px_i = torch.round(peak_f[..., 0]).to(torch.int64)
+    py_i = torch.round(peak_f[..., 1]).to(torch.int64)
     bw = int(max(3, cfg.patch_half_width_bins))
     psz = 2 * bw + 1
     win = torch.arange(psz, device=F_shift.device)
-    rows = torch.clamp(py_i - bw, 0, hf - psz) + win
-    cols = torch.clamp(px_i - bw, 0, wf - psz) + win
-    patch = F_shift.index_select(-2, rows).index_select(-1, cols)
-    return _patch_field(peak_f, px_i, py_i, patch, (hf, wf), cfg, consts)
+    rows = torch.clamp(py_i - bw, 0, hf - psz)[..., None] + win
+    cols = torch.clamp(px_i - bw, 0, wf - psz)[..., None] + win
+    patch = window_rows_cols(F_shift, rows, cols)
+    return _patch_field(peak_f, px_i, py_i, patch, (hf, wf), cfg, consts, streams=streams)
 
 
-def _demod_pair_rfft(iw_fft: torch.Tensor, cfg: FTPConfig):
+def _demod_pair_rfft(iw_fft: torch.Tensor, cfg: FTPConfig, streams: bool = False):
     """Half-spectrum carrier search in the row-shifted rfft layout
     ``Rr[r, k] == F_shift[r, cx + k]``: returns (peak (x, y), rounded x,
     rounded y, the pair's (2, psz, psz) sideband patch around it), the
-    patch's negative-kx columns from Hermitian symmetry."""
-    _, hf, wf = iw_fft.shape
+    patch's negative-kx columns from Hermitian symmetry; for a (..., 2, hf,
+    wf) stack of pairs, each pair's own."""
+    hf, wf = iw_fft.shape[-2:]
     cy, cx = hf // 2, wf // 2
     bw = int(max(3, cfg.patch_half_width_bins))
     psz = 2 * bw + 1
 
-    Rr = torch.roll(torch.fft.rfft2(iw_fft), cy, dims=-2)
-    mag_half = torch.abs(Rr[0])                         # (hf, cx + 1)
-    kw = mag_half.shape[1]
+    Rr = torch.roll(each(torch.fft.rfft2, iw_fft, streams=streams, cpu_only=True), cy, dims=-2)
+    mag_half = torch.abs(Rr[..., 0, :, :])              # (..., hf, cx + 1)
+    kw = mag_half.shape[-1]
 
     # carrier cascade over the half plane (the TPU graph's inline form)
     dc = int(cfg.dc_exclusion)
@@ -208,22 +221,22 @@ def _demod_pair_rfft(iw_fft: torch.Tensor, cfg: FTPConfig):
     m1 = (~notch) & (ik >= 1)
     m2 = (m1 & (torch.abs(iy - cy) <= int(cfg.peak_max_dy_from_center * hf))
           if cfg.prefer_peak_near_center_row else m1)
-    i2 = torch.argmax(torch.where(m2, mag_half, -3.0e38))
-    i1 = torch.argmax(torch.where(m1, mag_half, -3.0e38))
+    i2 = torch.argmax(torch.where(m2, mag_half, -3.0e38).flatten(-2), dim=-1)
+    i1 = torch.argmax(torch.where(m1, mag_half, -3.0e38).flatten(-2), dim=-1)
     idx = torch.where(m2.any(), i2, i1)
     fx_h, fy = fftops.refine_peak_parabolic_log(mag_half, idx % kw, idx // kw)
-    peak_f = torch.stack([fx_h + float(cx), fy])
-    px_i = torch.round(peak_f[0]).to(torch.int64)
-    py_i = torch.round(peak_f[1]).to(torch.int64)
+    peak_f = torch.stack([fx_h + float(cx), fy], dim=-1)
+    px_i = torch.round(peak_f[..., 0]).to(torch.int64)
+    py_i = torch.round(peak_f[..., 1]).to(torch.int64)
 
     # Hermitian extension: bw negative-kx columns (mirror[r, k] = F_shift[r, cx - k])
     mirror = torch.conj(torch.roll(torch.flip(Rr, dims=(-2,)), 1, dims=-2))
-    E = torch.cat([torch.flip(mirror[:, :, 1:bw + 1], dims=(-1,)), Rr], dim=-1)
+    E = torch.cat([torch.flip(mirror[..., 1:bw + 1], dims=(-1,)), Rr], dim=-1)
     # dynamic_slice semantics: the window start is clamped into the array
-    sy = torch.clamp(py_i - bw, 0, hf - psz)
-    sx = torch.clamp(px_i - cx, 0, E.shape[-1] - psz)
+    sy = torch.clamp(py_i - bw, 0, hf - psz)[..., None]
+    sx = torch.clamp(px_i - cx, 0, E.shape[-1] - psz)[..., None]
     win = torch.arange(psz, device=Rr.device)
-    patch = E.index_select(-2, sy + win).index_select(-1, sx + win)
+    patch = window_rows_cols(E, sy + win, sx + win)
     return peak_f, px_i, py_i, patch
 
 
@@ -236,33 +249,41 @@ def _pad_fft(iw: torch.Tensor, cfg: FTPConfig) -> torch.Tensor:
 
 def ftp_complex_demod_pair(gray_ref: torch.Tensor, gray_def: torch.Tensor,
                            apo: Optional[torch.Tensor], cfg: FTPConfig,
-                           consts: DeviceConsts) -> Tuple[DemodResult, DemodResult]:
+                           consts: DeviceConsts, streams: bool = False
+                           ) -> Tuple[DemodResult, DemodResult]:
     """Demodulate a reference/deformed pair with the carrier locked to the
-    reference peak, every frame-independent stage batched over the pair."""
-    iw_pair, i_norm_pair = preprocess(torch.stack([gray_ref, gray_def]), apo, cfg, consts)
+    reference peak, every frame-independent stage batched over the pair
+    (and over the streams of (..., h, w) stacks; ``streams`` as in
+    ``preprocess``)."""
+    iw_pair, i_norm_pair = preprocess(torch.stack([gray_ref, gray_def], dim=-3), apo, cfg,
+                                      consts, streams=streams)
     iw_fft = _pad_fft(iw_pair, cfg)
     hf, wf = iw_fft.shape[-2:]
     if (cfg.sideband_method == "patch_shift" and cfg.force_right_half_plane
             and cfg.peak_method == "cascade" and hf % 2 == 0 and wf % 2 == 0
             and min(hf, wf) >= cfg.demod_rfft_min_px):
-        peak_f, px_i, py_i, patch = _demod_pair_rfft(iw_fft, cfg)
-        field = _patch_field(peak_f, px_i, py_i, patch, (hf, wf), cfg, consts)
+        peak_f, px_i, py_i, patch = _demod_pair_rfft(iw_fft, cfg, streams=streams)
+        field = _patch_field(peak_f, px_i, py_i, patch, (hf, wf), cfg, consts, streams=streams)
     else:
-        F_shift = torch.fft.fftshift(torch.fft.fft2(iw_fft), dim=(-2, -1))
-        peak_f = _search_carrier(torch.abs(F_shift[0]), cfg)
-        field = _fft2_field(F_shift, peak_f, cfg, consts)
+        F_shift = torch.fft.fftshift(each(torch.fft.fft2, iw_fft, streams=streams,
+                                          cpu_only=True), dim=(-2, -1))
+        peak_f = _search_carrier(torch.abs(F_shift[..., 0, :, :]), cfg)
+        field = _fft2_field(F_shift, peak_f, cfg, consts, streams=streams)
     dref, ddef = _results(field, peak_f, i_norm_pair, (hf, wf), cfg)
     return dref, ddef
 
 
 def ftp_complex_demod(gray: torch.Tensor, apo: Optional[torch.Tensor], cfg: FTPConfig,
                       consts: DeviceConsts,
-                      carrier_refined: Optional[torch.Tensor] = None) -> DemodResult:
+                      carrier_refined: Optional[torch.Tensor] = None,
+                      streams: bool = False) -> DemodResult:
     """Demodulate one frame on its own full spectrum: the carrier searched
-    and refined there, or locked to ``carrier_refined`` (x, y) in bins."""
-    iw, i_norm = preprocess(gray[None], apo, cfg, consts)
-    F_shift = torch.fft.fftshift(torch.fft.fft2(_pad_fft(iw, cfg)), dim=(-2, -1))
-    peak_f = (_search_carrier(torch.abs(F_shift[0]), cfg) if carrier_refined is None
+    and refined there, or locked to ``carrier_refined`` (x, y) in bins;
+    ``streams`` as in ``preprocess``."""
+    iw, i_norm = preprocess(gray[..., None, :, :], apo, cfg, consts, streams=streams)
+    F_shift = torch.fft.fftshift(each(torch.fft.fft2, _pad_fft(iw, cfg), streams=streams,
+                                      cpu_only=True), dim=(-2, -1))
+    peak_f = (_search_carrier(torch.abs(F_shift[..., 0, :, :]), cfg) if carrier_refined is None
               else carrier_refined.to(torch.float32))
-    field = _fft2_field(F_shift, peak_f, cfg, consts)
+    field = _fft2_field(F_shift, peak_f, cfg, consts, streams=streams)
     return _results(field, peak_f, i_norm, tuple(F_shift.shape[-2:]), cfg)[0]

@@ -39,6 +39,16 @@ jitted one: captured once into a CUDA graph and replayed for every frame
 nodes of that graph (``device_while``, ``device_if``).  Debug and
 ``stop_after`` pipelines and the CPU run the forward op by op
 (``forward_eager``).
+
+``forward_eager`` is one body for a frame pair and for a stack of them: on
+(B, H, W, 3) stacks every op runs once over the (B, ...) arrays and every
+kernel is launched once with the streams in its grid, as ``jax.vmap`` of the
+JAX forward runs them; the few ops whose bits depend on how many streams
+share a call run once a stream (``ops/streams.py``), so each stream's
+result is bit for bit its own forward's.  Stacks take that
+route where ``batch_route`` holds (no stage of the forward is a WHILE node
+or K4: the ECC is K5 or off, no prealignment, the unwrap is K6); elsewhere
+a caller runs the streams one by one (``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -57,7 +67,7 @@ from vistaf_torch.kernels import unwrap_kernel
 from vistaf_torch.ops import geometry
 from vistaf_torch.ops.color import bgr_to_gray
 from vistaf_torch.ops.components import (dominant_component, filter_components_by_peak,
-                                         largest_component)
+                                         largest_component, plane_any)
 from vistaf_torch.ops.consts import DeviceConsts
 from vistaf_torch.ops.distance import erode_by_distance, get_distance_fn
 from vistaf_torch.ops.filters import (box_filter, gaussian_blur, hanning_window,
@@ -68,6 +78,8 @@ from vistaf_torch.ops.morphology import dilate, ellipse_kernel
 from vistaf_torch.ops.percentile import get_percentile_fn, masked_max
 from vistaf_torch.ops.polyfit import robust_polyfit2d
 from vistaf_torch.ops.registration import ECC_MODES, ecc_align, phase_correlate
+from vistaf_torch.ops.registration import batch_route as ecc_batch_route
+from vistaf_torch.ops.streams import each
 from vistaf_torch.ops.unwrap import unwrap_wls
 from vistaf_torch.ops.warp import (translate_bilinear, warp_affine_inverse_map,
                                    warp_affine_inverse_shear)
@@ -101,18 +113,24 @@ class FTPGeometry:
 
 def detect_internal_holes(container: torch.Tensor, known: torch.Tensor, ksize: int,
                           frac_thr: float, min_dist_edge_px: float, consts: DeviceConsts,
-                          metric: str = "chamfer3") -> torch.Tensor:
+                          metric: str = "chamfer3", streams: bool = False) -> torch.Tensor:
     """The reference's ``compute_internal_holes_within_mask``: unknown
     pixels inside ``container`` whose (k x k) neighbourhood is mostly known
     (box-filter count fraction >= frac_thr) and that lie at least
-    ``min_dist_edge_px`` inside the container's edge."""
+    ``min_dist_edge_px`` inside the container's edge.  ``streams``: the
+    leading axis is a batched forward's stream axis (``ops/streams.py``)."""
     container = container.to(torch.bool)
     known = known.to(torch.bool) & container
     k = max(3, int(ksize) | 1)
-    frac = (box_filter(known.to(torch.float32), k, consts)
-            / (box_filter(container.to(torch.float32), k, consts) + 1e-6))
+    frac = (box_filter(known.to(torch.float32), k, consts, streams=streams)
+            / (box_filter(container.to(torch.float32), k, consts, streams=streams) + 1e-6))
     dist = get_distance_fn(metric)(container, max_dist=int(min_dist_edge_px) + 4)
     return container & ~known & (frac >= float(frac_thr)) & (dist >= float(min_dist_edge_px))
+
+
+def _plane_sum(x: torch.Tensor) -> torch.Tensor:
+    """Each (..., H, W) plane's sum, (..., 1, 1)."""
+    return x.sum(dim=(-2, -1), keepdim=True)
 
 
 def _curve01(t: torch.Tensor, kind: str) -> torch.Tensor:
@@ -221,6 +239,39 @@ class FTPPipeline:
         if bad:
             raise NotImplementedError(f"vistaf_torch does not run {bad}")
 
+    def _ecc_plan(self):
+        """(use_ds, ds, use_c2f, cds): whether the ECC runs on the
+        ``ecc_downsample`` pooled crop, and whether a coarse solve on the
+        ``ecc_coarse_downsample`` grid seeds it."""
+        cfg, g = self.cfg, self.geom
+        ds = int(cfg.ecc_downsample)
+        use_ds = ds > 1 and min(g.crop_h, g.crop_w) >= cfg.ecc_downsample_min_px
+        cds = int(cfg.ecc_coarse_downsample)
+        use_c2f = (use_ds and int(cfg.ecc_polish_iters) > 0 and cds > ds
+                   and cfg.ecc_warp_mode == "euclidean")
+        return use_ds, ds, use_c2f, cds
+
+    def batch_route(self) -> bool:
+        """Whether ``forward_eager`` takes (B, H, W, 3) stacks of frame
+        pairs, every stream in one batched forward (``jax.vmap``): by
+        configuration and shape only, where no stage holds a WHILE node or
+        a K4 solve, which take no stream axis: the crop ECC is K5
+        (``registration.batch_route``) or off, there is no grating-band
+        prealignment (its ECC is K4 or the device loop), and the unwrap is
+        K6 (the pooled and the plain PCG are device loops).  The 640
+        deploy preset qualifies; the parity presets and the native-4K
+        routes do not."""
+        cfg, g = self.cfg, self.geom
+        if cfg.use_grating_band_prealign:
+            return False
+        if cfg.use_ecc_crop_alignment:
+            use_ds, ds, use_c2f, _ = self._ecc_plan()
+            shape = (g.crop_h // ds, g.crop_w // ds) if use_ds else (g.crop_h, g.crop_w)
+            if not ecc_batch_route(cfg.ecc_warp_mode, cfg.ecc_sampler, shape,
+                                   cfg.ecc_loop_kernel, seeded=use_c2f):
+                return False
+        return unwrap_route(cfg, (g.crop_h, g.crop_w))[0] == "k6"
+
     def graph_route(self) -> bool:
         """Whether ``forward`` replays a CUDA graph: on the card, with
         neither ``stop_after`` nor ``debug_outputs``.
@@ -251,14 +302,17 @@ class FTPPipeline:
         return res
 
     # ------------------------------------------------------------------
-    def _reliable_mask(self, dref, ddef, roi, pctl):
+    def _reliable_mask(self, dref, ddef, roi, pctl, streams=False):
         """Smoothed amplitude-product quality, percentile threshold inside
-        the ROI, morphological close, dominant component, distance erode."""
+        the ROI, morphological close, dominant component, distance erode.
+        ``streams`` here and below: the leading axis is a batched forward's
+        stream axis (``ops/streams.py``)."""
         cfg = self.cfg
         quality = dref.amp * ddef.amp
         if cfg.quality_smooth_sigma_px > 0:
-            quality = gaussian_blur(quality, cfg.quality_smooth_sigma_px, self.consts)
-        amp_thr = pctl(quality, roi, cfg.amp_valid_percentile)
+            quality = gaussian_blur(quality, cfg.quality_smooth_sigma_px, self.consts,
+                                    streams=streams)
+        amp_thr = pctl(quality, roi, cfg.amp_valid_percentile)[..., None, None]
         reliable = roi & (quality >= amp_thr) & torch.isfinite(quality)
         if cfg.valid_morph_close:
             ksz = max(3, cfg.valid_close_kernel | 1)
@@ -273,66 +327,64 @@ class FTPPipeline:
                                          metric=cfg.distance_metric)
         return reliable, quality
 
-    def _polyfit(self, z, mask, order):
+    def _polyfit(self, z, mask, order, streams=False):
         cfg = self.cfg
         return robust_polyfit2d(z, mask, order=order, iters=cfg.polyfit_iters,
                                 resigma_iters=cfg.polyfit_resigma_iters,
                                 fused=cfg.polyfit_kernel,
-                                percentile_method=cfg.percentile_method)[1]
+                                percentile_method=cfg.percentile_method, streams=streams)[1]
 
-    def _pool_crop(self, crop01, d):
+    def _pool_crop(self, crop01, d, streams=False):
         """d x d mean-pooled crop pair, its circle mask (pooled mean > 0.5)
         and the shear reach max(4, ceil(K / d))."""
         g = self.geom
         hh, ww = (g.crop_h // d) * d, (g.crop_w // d) * d
-        pooled = crop01[:, :hh, :ww].reshape(2, hh // d, d, ww // d, d).mean(dim=(2, 4))
+        pooled = each(lambda c: c[..., :hh, :ww].reshape(
+            *c.shape[:-2], hh // d, d, ww // d, d).mean(dim=(-3, -1)), crop01, streams=streams)
         circ_p = self.circ[:hh, :ww].to(torch.float32).reshape(
             hh // d, d, ww // d, d).mean(dim=(1, 3)) > 0.5
         return pooled, circ_p, max(4, -(-self.cfg.ecc_shear_k // d))
 
-    def _ecc(self, crop01):
+    def _ecc(self, crop01, streams=False):
         """ECC crop alignment: on the ``ecc_downsample`` pooled crop when it
         engages (translations scaled back up), seeded by a coarse solve on
         the ``ecc_coarse_downsample`` grid when ``ecc_polish_iters`` > 0."""
-        cfg, g = self.cfg, self.geom
+        cfg = self.cfg
         kw = dict(mode=cfg.ecc_warp_mode, eps=cfg.ecc_eps, stride=cfg.ecc_stride,
                   sampler=cfg.ecc_sampler, stall_patience=cfg.ecc_stall_patience)
-        ds = int(cfg.ecc_downsample)
-        use_ds = ds > 1 and min(g.crop_h, g.crop_w) >= cfg.ecc_downsample_min_px
-        cds = int(cfg.ecc_coarse_downsample)
-        use_c2f = (use_ds and int(cfg.ecc_polish_iters) > 0 and cds > ds
-                   and cfg.ecc_warp_mode == "euclidean")
+        use_ds, ds, use_c2f, cds = self._ecc_plan()
         p_seed = None
         if use_c2f:
-            pooled_c, circ_c, k_c = self._pool_crop(crop01, cds)
-            warp_c, _, _ = ecc_align(pooled_c[0], pooled_c[1], circ_c,
+            pooled_c, circ_c, k_c = self._pool_crop(crop01, cds, streams)
+            warp_c, _, _ = ecc_align(pooled_c[..., 0, :, :], pooled_c[..., 1, :, :], circ_c,
                                      max_iters=cfg.ecc_iters, shear_k=k_c,
                                      loop_kernel=False, **kw)
-            theta_c = torch.atan2(warp_c[1, 0], warp_c[0, 0])
-            p_seed = torch.stack([theta_c, warp_c[0, 2] * (float(cds) / float(ds)),
-                                  warp_c[1, 2] * (float(cds) / float(ds))])
+            theta_c = torch.atan2(warp_c[..., 1, 0], warp_c[..., 0, 0])
+            p_seed = torch.stack([theta_c, warp_c[..., 0, 2] * (float(cds) / float(ds)),
+                                  warp_c[..., 1, 2] * (float(cds) / float(ds))], dim=-1)
         if use_ds:
-            pooled, circ_p, shear_k = self._pool_crop(crop01, ds)
-            ecc_in0, ecc_in1, ecc_mask = pooled[0], pooled[1], circ_p
+            pooled, circ_p, shear_k = self._pool_crop(crop01, ds, streams)
+            ecc_in0, ecc_in1, ecc_mask = pooled[..., 0, :, :], pooled[..., 1, :, :], circ_p
         else:
-            ecc_in0, ecc_in1, ecc_mask = crop01[0], crop01[1], self.circ
+            ecc_in0, ecc_in1, ecc_mask = crop01[..., 0, :, :], crop01[..., 1, :, :], self.circ
             shear_k = cfg.ecc_shear_k
         warp, rho, it = ecc_align(
             ecc_in0, ecc_in1, ecc_mask,
             max_iters=int(cfg.ecc_polish_iters) if use_c2f else cfg.ecc_iters,
-            shear_k=shear_k, loop_kernel=cfg.ecc_loop_kernel, p_init=p_seed, **kw)
+            shear_k=shear_k, loop_kernel=cfg.ecc_loop_kernel, p_init=p_seed, streams=streams,
+            **kw)
         if use_ds:
-            warp = torch.cat([warp[:, :2], warp[:, 2:] * float(ds)], dim=1)
+            warp = torch.cat([warp[..., :2], warp[..., 2:] * float(ds)], dim=-1)
         return warp, rho, it
 
-    def _demod(self, ref_gray, def_gray):
+    def _demod(self, ref_gray, def_gray, streams=False):
         """The pair with the carrier locked to the reference peak, or each
         frame on its own spectrum (``lock_carrier_to_reference`` off)."""
         cfg, apo, consts = self.cfg, self.apo, self.consts
         if cfg.lock_carrier_to_reference:
-            return ftp_complex_demod_pair(ref_gray, def_gray, apo, cfg, consts)
-        return (ftp_complex_demod(ref_gray, apo, cfg, consts),
-                ftp_complex_demod(def_gray, apo, cfg, consts))
+            return ftp_complex_demod_pair(ref_gray, def_gray, apo, cfg, consts, streams=streams)
+        return (ftp_complex_demod(ref_gray, apo, cfg, consts, streams=streams),
+                ftp_complex_demod(def_gray, apo, cfg, consts, streams=streams))
 
     def _grating_band_prealign(self, ref_gray, def_gray, pctl):
         """The reference's grating prealignment: a pass-1 demod of the pair
@@ -387,18 +439,18 @@ class FTPPipeline:
                                stall_patience=cfg.ecc_stall_patience, loop_kernel=False)
         return torch.where(align_mask.any(), warp, self._identity_warp)
 
-    def _detrend_two_pass(self, phase_unwrapped, reliable, pctl):
+    def _detrend_two_pass(self, phase_unwrapped, reliable, pctl, streams=False):
         """The two-pass detrend: a first fit over the reliable mask, the
         contact region from its residual's percentiles (dilated), the final
         fit over the background and its median removed.  Returns
         (phase_zeroed, contact_d)."""
         cfg = self.cfg
-        fit0 = self._polyfit(phase_unwrapped, reliable, cfg.poly_order)
+        fit0 = self._polyfit(phase_unwrapped, reliable, cfg.poly_order, streams=streams)
         abs_res = torch.abs(phase_unwrapped - fit0)
-        thrs = pctl(abs_res, reliable, (cfg.contact_percentile, 95.0, 98.0))
-        thr, thr95, thr98 = thrs[0], thrs[1], thrs[2]
+        thrs = pctl(abs_res, reliable, (cfg.contact_percentile, 95.0, 98.0))[..., None, None, :]
+        thr, thr95, thr98 = thrs[..., 0], thrs[..., 1], thrs[..., 2]
         contact = (abs_res >= thr) & reliable & torch.isfinite(abs_res)
-        frac = contact.sum() / torch.clamp(reliable.sum(), min=1)
+        frac = _plane_sum(contact) / torch.clamp(_plane_sum(reliable), min=1)
         thr2 = torch.where(frac < cfg.min_contact_frac, thr95,
                            torch.where(frac > cfg.max_contact_frac, thr98, thr))
         contact = (abs_res >= thr2) & reliable & torch.isfinite(abs_res)
@@ -406,17 +458,17 @@ class FTPPipeline:
                                                    cfg.dilate_kernel_size),
                            iterations=cfg.dilate_iters) & reliable
         background = reliable & ~contact_d
-        bg_small = background.sum() < 0.15 * reliable.sum()
+        bg_small = _plane_sum(background) < 0.15 * _plane_sum(reliable)
         background = torch.where(bg_small, reliable, background)
         phase_detrended = phase_unwrapped - self._polyfit(phase_unwrapped, background,
-                                                          cfg.poly_order)
-        phase_zeroed = phase_detrended - pctl(phase_detrended, background, 50.0)
+                                                          cfg.poly_order, streams=streams)
+        phase_zeroed = phase_detrended - pctl(phase_detrended, background, 50.0)[..., None, None]
         return phase_zeroed, contact_d
 
     def _unwrap(self, phase_wrapped, reliable):
         """The pooled PCG, K6 or the plain PCG, as ``unwrap_route`` says."""
         cfg = self.cfg
-        kind, _ = unwrap_route(cfg, tuple(phase_wrapped.shape))
+        kind, _ = unwrap_route(cfg, tuple(phase_wrapped.shape[-2:]))
         kw = dict(cg_iters=cfg.unwrap_cg_iters, tol=cfg.unwrap_cg_tol)
         if kind == "pooled":
             return unwrap_wls(phase_wrapped, reliable, self.consts,
@@ -442,38 +494,54 @@ class FTPPipeline:
                       ) -> Dict[str, torch.Tensor]:
         """The forward op by op on device tensors (BGR uint8 frames): what
         the CUDA graph captures, and the route of every pipeline that does
-        not replay one."""
+        not replay one.  Two (B, H, W, 3) stacks (where ``batch_route``
+        holds) run as one batched forward: every output gains the leading
+        stream axis."""
+        lead = ref_bgr.shape[:-3]
+        if len(lead) > 1 or (lead and not self.batch_route()):
+            raise ValueError(f"a stack of {tuple(lead)} frame pairs: this configuration's "
+                             f"forward runs per stream (FTPPipeline.batch_route)")
+        return self._forward_ops(ref_bgr, def_bgr, lead)
+
+    def _forward_ops(self, ref_bgr: torch.Tensor, def_bgr: torch.Tensor, lead
+                     ) -> Dict[str, torch.Tensor]:
+        """``forward_eager``'s ops, over frames with the leading ``lead``
+        (the stream axis, or none).  The ops that split a batched forward's
+        stream axis (``ops/streams.py``) get ``**stream_kw``: ``streams=True``
+        in a batched forward, nothing in a single one."""
         cfg = self.cfg
+        stream_kw = {"streams": True} if lead else {}
         consts = self.consts
         x1, x2, y1, y2 = self.geom.bbox
         pctl = get_percentile_fn(cfg.percentile_method)
         roi = self.roi
         dev = self.device
 
-        gray_pair = bgr_to_gray(torch.stack([ref_bgr, def_bgr]))
-        ref_gray_full, def_gray_full = gray_pair[0], gray_pair[1]
+        gray_pair = bgr_to_gray(torch.stack([ref_bgr, def_bgr], dim=-4))
+        ref_gray_full, def_gray_full = gray_pair[..., 0, :, :], gray_pair[..., 1, :, :]
 
         # --- global shift: full-frame phase correlation of the blurred pair
-        gs_dx = torch.zeros((), device=dev)
-        gs_dy = torch.zeros((), device=dev)
+        gs_dx = torch.zeros(lead, device=dev)
+        gs_dy = torch.zeros(lead, device=dev)
         if cfg.apply_global_shift:
-            blur_pair = gaussian_blur(gray_pair, cfg.global_shift_blur_sigma, consts)
-            gs_dx, gs_dy, _ = phase_correlate(blur_pair[0], blur_pair[1], self.hann_full)
+            blur_pair = gaussian_blur(gray_pair, cfg.global_shift_blur_sigma, consts, **stream_kw)
+            gs_dx, gs_dy, _ = phase_correlate(blur_pair[..., 0, :, :], blur_pair[..., 1, :, :],
+                                              self.hann_full, **stream_kw)
             def_gray_full = translate_bilinear(def_gray_full, gs_dx, gs_dy,
                                                max_shift=cfg.global_shift_max_px)
 
-        ref_gray = ref_gray_full[y1:y2, x1:x2]
-        def_gray = def_gray_full[y1:y2, x1:x2]
+        ref_gray = ref_gray_full[..., y1:y2, x1:x2]
+        def_gray = def_gray_full[..., y1:y2, x1:x2]
 
         # --- ECC crop alignment
-        ecc_warp = self._identity_warp.clone()
-        ecc_rho = torch.full((), float("nan"), device=dev)
-        ecc_it = torch.zeros((), dtype=torch.int32, device=dev)
+        ecc_warp = self._identity_warp.expand(*lead, 2, 3).clone()
+        ecc_rho = torch.full(lead, float("nan"), device=dev)
+        ecc_it = torch.zeros(lead, dtype=torch.int32, device=dev)
         if cfg.use_ecc_crop_alignment:
-            crop01 = torch.stack([ref_gray, def_gray]) / 255.0
+            crop01 = torch.stack([ref_gray, def_gray], dim=-3) / 255.0
             if cfg.ecc_gauss_filt and cfg.ecc_gauss_filt > 0:
-                crop01 = gaussian_blur(crop01, cfg.ecc_gauss_filt, consts)
-            ecc_warp, ecc_rho, ecc_it = self._ecc(crop01)
+                crop01 = gaussian_blur(crop01, cfg.ecc_gauss_filt, consts, **stream_kw)
+            ecc_warp, ecc_rho, ecc_it = self._ecc(crop01, **stream_kw)
             if cfg.ecc_sampler == "shear":
                 def_gray = warp_affine_inverse_shear(def_gray, ecc_warp, K=cfg.ecc_shear_k)
             else:
@@ -484,22 +552,22 @@ class FTPPipeline:
             return {"x": def_gray}
 
         # --- demodulation, locked to the reference peak or frame by frame
-        dref, ddef = self._demod(ref_gray, def_gray)
+        dref, ddef = self._demod(ref_gray, def_gray, **stream_kw)
         hf, wf = dref.fft_shape
         if self.stop_after == "demod":
             return {"x": torch.abs(ddef.complex_demod) + dref.amp}
 
         # --- reliable mask
-        reliable, quality = self._reliable_mask(dref, ddef, roi, pctl)
+        reliable, quality = self._reliable_mask(dref, ddef, roi, pctl, **stream_kw)
         if self.stop_after == "reliable":
             return {"x": reliable.to(torch.float32) * quality}
 
         # --- wrapped phase difference; unlocked, the carrier-difference ramp
         ratio = ddef.complex_demod * torch.conj(dref.complex_demod)
         if cfg.apply_dk_ramp_correction and not cfg.lock_carrier_to_reference:
-            h, w = ratio.shape
-            dkx = ddef.k[0] - dref.k[0]
-            dky = ddef.k[1] - dref.k[1]
+            h, w = ratio.shape[-2:]
+            dkx = (ddef.k[..., 0] - dref.k[..., 0])[..., None, None]
+            dky = (ddef.k[..., 1] - dref.k[..., 1])[..., None, None]
             phase = (2.0 * math.pi) * (dkx * consts.iota(h, w, 1) / wf
                                        + dky * consts.iota(h, w, 0) / hf)
             ratio = ratio * torch.polar(torch.ones_like(phase), phase)
@@ -516,15 +584,16 @@ class FTPPipeline:
                 cfg.detrend_fold_plane and cfg.use_two_pass_detrend
                 and cfg.poly_order >= cfg.plane_order_for_removal):
             phase_unwrapped = phase_unwrapped - self._polyfit(
-                phase_unwrapped, reliable, cfg.plane_order_for_removal)
+                phase_unwrapped, reliable, cfg.plane_order_for_removal, **stream_kw)
 
         if cfg.use_two_pass_detrend:
-            phase_zeroed, contact_d = self._detrend_two_pass(phase_unwrapped, reliable, pctl)
+            phase_zeroed, contact_d = self._detrend_two_pass(phase_unwrapped, reliable, pctl,
+                                                             **stream_kw)
         else:
             # --- single-pass detrend over the whole reliable mask
             phase_detrended = phase_unwrapped - self._polyfit(phase_unwrapped, reliable,
-                                                              cfg.poly_order)
-            phase_zeroed = phase_detrended - pctl(phase_detrended, reliable, 50.0)
+                                                              cfg.poly_order, **stream_kw)
+            phase_zeroed = phase_detrended - pctl(phase_detrended, reliable, 50.0)[..., None, None]
             contact_d = torch.zeros_like(reliable)
         if self.stop_after == "detrend":
             return {"x": phase_zeroed}
@@ -534,14 +603,14 @@ class FTPPipeline:
         if cfg.reliable_smooth_sigma_px > 0:
             height_map = masked_gaussian_smooth(
                 height_map, reliable & torch.isfinite(height_map),
-                cfg.reliable_smooth_sigma_px, consts)
+                cfg.reliable_smooth_sigma_px, consts, **stream_kw)
 
         # --- auto sign flip
         if cfg.auto_flip_sign:
-            core_thr = pctl(height_map, reliable, cfg.contact_core_percentile)
+            core_thr = pctl(height_map, reliable, cfg.contact_core_percentile)[..., None, None]
             core = reliable & torch.isfinite(height_map) & (height_map <= core_thr)
-            med_core = pctl(height_map, core, 50.0)
-            flip = torch.where(core.any() & (med_core > 0), -1.0, 1.0)
+            med_core = pctl(height_map, core, 50.0)[..., None, None]
+            flip = torch.where(plane_any(core) & (med_core > 0), -1.0, 1.0)
             height_map = height_map * flip
 
         known_height = reliable & torch.isfinite(height_map)
@@ -552,8 +621,10 @@ class FTPPipeline:
         if cfg.fill_internal_holes_in_reliable:
             cand = detect_internal_holes(
                 reliable, known_height, cfg.hole_neighborhood_px, cfg.hole_known_fraction,
-                cfg.hole_min_dist_from_reliable_edge_px, consts, metric=cfg.distance_metric)
-            tmp = torch.where(known_height, height_map, pctl(height_map, known_height, 50.0))
+                cfg.hole_min_dist_from_reliable_edge_px, consts, metric=cfg.distance_metric,
+                **stream_kw)
+            tmp = torch.where(known_height, height_map,
+                              pctl(height_map, known_height, 50.0)[..., None, None])
             filled = inpaint_within_roi(tmp, reliable, cand, iters=cfg.inpaint_iters)
             height_rel_filled = torch.where(cand & torch.isfinite(filled), filled,
                                             height_rel_filled)
@@ -575,8 +646,9 @@ class FTPPipeline:
         height_final = torch.where(roi, self._base, float("nan"))
         height_final = torch.where(output_reliable, height_rel_filled, height_final)
         if cfg.smooth_unreliable_region and cfg.unreliable_smooth_sigma_px > 0:
-            smooth_all = masked_gaussian_smooth(height_final, roi,
-                                                cfg.unreliable_smooth_sigma_px, consts)
+            smooth_all = masked_gaussian_smooth(height_final, roi.expand(height_final.shape),
+                                                cfg.unreliable_smooth_sigma_px, consts,
+                                                **stream_kw)
             height_final = torch.where(roi & ~output_reliable, smooth_all, height_final)
 
         # --- frontier outside band -> base
@@ -602,12 +674,12 @@ class FTPPipeline:
             height_out = -depth_mm if cfg.mm_keep_indentation_negative else depth_mm
 
         # --- contact blob filter
-        contact_kept = torch.zeros_like(roi)
+        contact_kept = torch.zeros_like(reliable)
         if cfg.filter_small_contact_blobs and cfg.output_height_in_mm:
             roi_f = roi & torch.isfinite(height_out)
             depth = -height_out if cfg.mm_keep_indentation_negative else height_out
             cand = roi_f & (depth > cfg.contact_blob_cand_eps_mm)
-            gmax = masked_max(depth, cand)
+            gmax = masked_max(depth, cand)[..., None, None]
             thr = torch.clamp(cfg.contact_blob_min_peak_rel_frac * gmax,
                               min=cfg.contact_blob_min_peak_mm)
             kept = filter_components_by_peak(cand, depth, thr,
@@ -616,8 +688,8 @@ class FTPPipeline:
             contact_kept = kept
 
         # --- estimated grating period
-        period_ref = wf / torch.clamp(torch.abs(dref.k[0]), min=1e-9)
-        period_def = wf / torch.clamp(torch.abs(ddef.k[0]), min=1e-9)
+        period_ref = wf / torch.clamp(torch.abs(dref.k[..., 0]), min=1e-9)
+        period_def = wf / torch.clamp(torch.abs(ddef.k[..., 0]), min=1e-9)
 
         out = {
             "height_map_mm_crop": height_out.to(torch.float32),
@@ -643,7 +715,7 @@ class FTPPipeline:
                 "dbg_ecc_warp": ecc_warp,
                 "dbg_ecc_rho": ecc_rho,
                 "dbg_ecc_iters": ecc_it,
-                "dbg_global_shift": torch.stack([gs_dx, gs_dy]),
+                "dbg_global_shift": torch.stack([gs_dx, gs_dy], dim=-1),
                 "dbg_phase_ref": torch.angle(dref.complex_demod).to(torch.float32),
                 "dbg_phase_def": torch.angle(ddef.complex_demod).to(torch.float32),
                 "dbg_i_norm_ref": dref.i_norm,

@@ -114,22 +114,22 @@ _SIGNATURES = {
     # S, T, SM, p0, coeffs, out, part, h, w, K, nr, nc, max_iters, eps,
     # stall_patience, stream
     "vt_gn_loop_euclidean": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-    # S, T, SM, out, h, w, K, max_iters, eps, stall_patience, stream
-    "vt_ecc_loop_euclidean": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # S, T, SM, out, solves, h, w, K, max_iters, eps, stall_patience, stream
+    "vt_ecc_loop_euclidean": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     # Hp, Wp -> float elements of the scratch
     "vt_unwrap_work_elems": (_I, _I),
-    # wrapped, Dh, DhT, Dw, DwT, inv_denom, mask, out, work, h, w, Hp, Wp,
-    # cg_iters, tol2, stream
-    "vt_unwrap_wls": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    # z, mask, out, h, w, ncoef, iters, resigma_iters, c, levels, stream
-    "vt_robust_polyfit2d": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    # wrapped, Dh, DhT, Dw, DwT, inv_denom, mask, out, work, planes, h, w,
+    # Hp, Wp, cg_iters, tol2, stream
+    "vt_unwrap_wls": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # z, mask, out, planes, h, w, ncoef, iters, resigma_iters, c, levels, stream
+    "vt_robust_polyfit2d": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # bgr, roi_eff, csup_pre, wide_out, color_out, csup_out, n, params (host
     # struct), tables (node programs and segments), stream
     "vt_fused_temperature": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P),
     # -> sizeof(TempParams)
     "vt_temp_params_size": (),
-    # mask, parent scratch, out, h, w, stream
-    "vt_label_components": (_P, _P, _P, _I, _I, _P),
+    # mask, parent scratch, out, planes, h, w, stream
+    "vt_label_components": (_P, _P, _P, _I, _I, _I, _P),
     # the graph conditional nodes (graph_cond_kernel): handle out, stream
     "vt_cond_handle": (_P, _P),
     # handle, predicate (1 byte), stream

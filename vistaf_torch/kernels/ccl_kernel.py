@@ -33,16 +33,18 @@ def _neighbor_min(lab: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def label_components_plain(mask: torch.Tensor) -> torch.Tensor:
     """Plain version: rounds of neighbour-min plus 8 pointer jumps, then a
-    convergence check (one host sync per round)."""
-    h, w = mask.shape
+    convergence check (one host sync per round).  A (..., H, W) stack runs
+    its planes together, each plane's pointers within it; a converged plane
+    is a fixed point of a round, so each plane's labels are its own."""
+    h, w = mask.shape[-2:]
     n = h * w
     idx = torch.arange(n, device=mask.device, dtype=torch.int64).reshape(h, w)
     lab = torch.where(mask, idx, _BIG)
     while True:
-        flat = _neighbor_min(lab, mask).reshape(-1)
+        flat = _neighbor_min(lab, mask).reshape(*mask.shape[:-2], n)
         for _ in range(8):
-            flat = torch.where(flat < n, flat[torch.clamp(flat, max=n - 1)], flat)
-        new = flat.reshape(h, w)
+            flat = torch.where(flat < n, flat.gather(-1, torch.clamp(flat, max=n - 1)), flat)
+        new = flat.reshape(mask.shape)
         changed = bool((new != lab).any())
         lab = new
         if not changed:
@@ -50,18 +52,23 @@ def label_components_plain(mask: torch.Tensor) -> torch.Tensor:
 
 
 def label_components(mask: torch.Tensor) -> torch.Tensor:
-    """8-connected labels of the (H, W) boolean ``mask`` as int64: each True
-    pixel the flat index of its component's minimum pixel, False pixels -1."""
+    """8-connected labels of the (..., H, W) boolean ``mask`` as int64: each
+    True pixel the flat index (within its plane) of its component's minimum
+    pixel, False pixels -1.  The planes of a stack are labelled in one call,
+    on the card in the kernel's three launches with the planes on its grid."""
     if kernels.route(mask) == "cpu":
         return label_components_plain(mask)
     m = mask.to(torch.bool).contiguous()
     kernels.check_cuda("label_components", m)
-    if m.dim() != 2 or m.numel() == 0 or m.numel() >= 2 ** 31:
-        raise ValueError(f"label_components: a non-empty (H, W) mask of fewer than 2**31 "
-                         f"pixels, got {tuple(m.shape)}")
-    h, w = m.shape
-    parent = torch.empty((h, w), dtype=torch.int32, device=m.device)
-    out = torch.empty((h, w), dtype=torch.int64, device=m.device)
+    if m.dim() < 2 or m.numel() == 0 or m.shape[-2] * m.shape[-1] >= 2 ** 31:
+        raise ValueError(f"label_components: non-empty (..., H, W) masks of fewer than "
+                         f"2**31 pixels a plane, got {tuple(m.shape)}")
+    h, w = m.shape[-2:]
+    planes = m.numel() // (h * w)
+    if planes > 65535:
+        raise ValueError(f"label_components: {planes} planes, the grid holds 65535")
+    parent = torch.empty(m.shape, dtype=torch.int32, device=m.device)
+    out = torch.empty(m.shape, dtype=torch.int64, device=m.device)
     kernels.launch("vt_label_components", "label_components", m.device, m.data_ptr(),
-                   parent.data_ptr(), out.data_ptr(), h, w)
+                   parent.data_ptr(), out.data_ptr(), planes, h, w)
     return out

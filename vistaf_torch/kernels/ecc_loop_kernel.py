@@ -132,6 +132,19 @@ def ecc_loop_euclidean_plain(S_cf: torch.Tensor, T: torch.Tensor,
             torch.tensor(failed, device=dev))
 
 
+def ecc_loop_euclidean_batched_plain(S_cf: torch.Tensor, T: torch.Tensor,
+                                     stride_mask: torch.Tensor, K: int = 4,
+                                     max_iters: int = 300, eps: float = 1e-7,
+                                     stall_patience: int = 0):
+    """Plain version of a (..., 4, H, W) stack of solves: each solve through
+    ``ecc_loop_euclidean_plain`` (its own loop and stop), stacked."""
+    lead = T.shape[:-2]
+    outs = [ecc_loop_euclidean_plain(s, t, stride_mask, K, max_iters, eps, stall_patience)
+            for s, t in zip(S_cf.reshape(-1, *S_cf.shape[-3:]), T.reshape(-1, *T.shape[-2:]))]
+    return tuple(torch.stack([o[i] for o in outs]).reshape((*lead, *outs[0][i].shape))
+                 for i in range(4))
+
+
 def ecc_loop_euclidean(S_cf: torch.Tensor, T: torch.Tensor,
                        stride_mask: torch.Tensor, K: int = 4,
                        max_iters: int = 300, eps: float = 1e-7,
@@ -140,23 +153,28 @@ def ecc_loop_euclidean(S_cf: torch.Tensor, T: torch.Tensor,
     [I, gx, gy, mask01] centred like ``ecc_align``, ``T`` the centred
     template, ``stride_mask`` the 0/1 statistics grid.  Returns device
     tensors (p (3,), rho, n_iters, failed); failure handling (identity warp,
-    NaN rho) stays with the caller."""
+    NaN rho) stays with the caller.  A (B, 4, H, W) stack with (B, H, W)
+    templates is B solves in one launch (one cluster each, each with its
+    own loop), returning (B, 3), (B,), (B,), (B,)."""
     if kernels.route(S_cf) == "cpu":
-        return ecc_loop_euclidean_plain(S_cf, T, stride_mask, K, max_iters, eps,
-                                        stall_patience)
+        return ecc_loop_euclidean_batched_plain(S_cf, T, stride_mask, K, max_iters, eps,
+                                                stall_patience)
     S = S_cf.to(torch.float32).contiguous()
     t = T.to(torch.float32).contiguous()
     sm = stride_mask.to(torch.float32).contiguous()
     kernels.check_cuda("ecc_loop_euclidean", S, t, sm)
-    if S.shape[0] != 4 or S.shape[1:] != t.shape or sm.shape != t.shape:
+    if (S.dim() not in (3, 4) or S.shape[-3] != 4 or S.shape[:-3] != t.shape[:-2]
+            or S.shape[-2:] != t.shape[-2:] or sm.shape != t.shape[-2:]):
         raise ValueError(f"ecc_loop_euclidean: shapes {tuple(S.shape)}, "
                          f"{tuple(t.shape)}, {tuple(sm.shape)}")
-    h, w = t.shape
+    h, w = t.shape[-2:]
     if not fits((h, w)):
         raise ValueError(f"ecc_loop_euclidean: {h}x{w} is above the whole-solve "
                          f"budget (ecc_loop_kernel.fits)")
-    out = torch.empty(6, dtype=torch.float32, device=S.device)
+    lead = t.shape[:-2]
+    solves = int(np.prod(lead, dtype=np.int64))
+    out = torch.empty((*lead, 6), dtype=torch.float32, device=S.device)
     kernels.launch("vt_ecc_loop_euclidean", "ecc_loop_euclidean", S.device,
-                   S.data_ptr(), t.data_ptr(), sm.data_ptr(), out.data_ptr(), h, w,
+                   S.data_ptr(), t.data_ptr(), sm.data_ptr(), out.data_ptr(), solves, h, w,
                    int(K), int(max_iters), float(eps), int(stall_patience))
-    return out[:3], out[3], out[4].to(torch.int32), out[5] > 0.5
+    return out[..., :3], out[..., 3], out[..., 4].to(torch.int32), out[..., 5] > 0.5

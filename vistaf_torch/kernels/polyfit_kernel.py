@@ -127,25 +127,40 @@ def robust_polyfit2d_coef_plain(z: torch.Tensor, mask: torch.Tensor, order: int 
     return torch.where(n >= 200.0, out, 0.0)
 
 
+def robust_polyfit2d_coef_batched_plain(z: torch.Tensor, mask: torch.Tensor,
+                                        order: int = 2, iters: int = 6, c: float = 4.685,
+                                        resigma_iters: int = 6) -> torch.Tensor:
+    """Plain version of a (..., H, W) stack of fits: each plane through
+    ``robust_polyfit2d_coef_plain``, stacked to (..., ncoef)."""
+    h, w = z.shape[-2:]
+    m = mask.expand(z.shape).reshape(-1, h, w)
+    coefs = [robust_polyfit2d_coef_plain(zp, mp, order, iters, c, resigma_iters)
+             for zp, mp in zip(z.reshape(-1, h, w), m)]
+    return torch.stack(coefs).reshape(*z.shape[:-2], -1)
+
+
 def robust_polyfit2d_coef(z: torch.Tensor, mask: torch.Tensor, order: int = 2,
                           iters: int = 6, c: float = 4.685,
                           resigma_iters: int = 6) -> torch.Tensor:
     """IRLS coefficients of a plane (order 1, 3 coefficients) or quadratic
-    (order 2, 6 coefficients) fit to the (H, W) plane ``z`` over ``mask``."""
+    (order 2, 6 coefficients) fit to the (H, W) plane ``z`` over ``mask``;
+    a (..., H, W) stack is one fit a plane, (..., ncoef), in one launch."""
     if kernels.route(z) == "cpu":
-        return robust_polyfit2d_coef_plain(z, mask, order, iters, c, resigma_iters)
+        return robust_polyfit2d_coef_batched_plain(z, mask, order, iters, c, resigma_iters)
     zz = z.to(torch.float32).contiguous()
-    m = mask.to(torch.bool).contiguous()
+    m = mask.to(torch.bool).expand(zz.shape).contiguous()
     kernels.check_cuda("robust_polyfit2d", zz, m)
-    if zz.dim() != 2 or m.shape != zz.shape:
+    if zz.dim() < 2:
         raise ValueError(f"robust_polyfit2d: shapes {tuple(zz.shape)}, {tuple(m.shape)}")
-    if not fits(zz.shape):
-        raise ValueError(f"robust_polyfit2d: plane {tuple(zz.shape)} is above the kernel's "
-                         f"budget of {_MAX_PADDED_ELEMS} padded elements")
+    if not fits(zz.shape[-2:]):
+        raise ValueError(f"robust_polyfit2d: plane {tuple(zz.shape[-2:])} is above the "
+                         f"kernel's budget of {_MAX_PADDED_ELEMS} padded elements")
     ncoef = 6 if order >= 2 else 3
-    h, w = zz.shape
-    out = torch.empty(ncoef, dtype=torch.float32, device=zz.device)
+    h, w = zz.shape[-2:]
+    lead = zz.shape[:-2]
+    planes = int(np.prod(lead, dtype=np.int64))
+    out = torch.empty((*lead, ncoef), dtype=torch.float32, device=zz.device)
     kernels.launch("vt_robust_polyfit2d", "robust_polyfit2d", zz.device,
-                   zz.data_ptr(), m.data_ptr(), out.data_ptr(), h, w, ncoef,
+                   zz.data_ptr(), m.data_ptr(), out.data_ptr(), planes, h, w, ncoef,
                    int(iters), int(resigma_iters), float(c), LEVELS)
     return out

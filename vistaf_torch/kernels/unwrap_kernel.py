@@ -156,28 +156,52 @@ def unwrap_wls_plain(wrapped: torch.Tensor, mask: torch.Tensor, consts: DeviceCo
     return torch.where(mask, phi[:h, :w], float("nan"))
 
 
+# the solves one launch takes (csrc/unwrap.cu kMaxPlanes); a larger stack
+# is launched MAX_PLANES planes at a time
+MAX_PLANES = 16
+
+
+def unwrap_wls_batched_plain(wrapped: torch.Tensor, mask: torch.Tensor,
+                             consts: DeviceConsts, cg_iters: int = 30,
+                             tol: float = 1e-8) -> torch.Tensor:
+    """Plain version of a (..., H, W) stack of unwraps: each plane through
+    ``unwrap_wls_plain``, stacked."""
+    h, w = wrapped.shape[-2:]
+    m = mask.expand(wrapped.shape).reshape(-1, h, w)
+    outs = [unwrap_wls_plain(x, mp, consts, cg_iters, tol)
+            for x, mp in zip(wrapped.reshape(-1, h, w), m)]
+    return torch.stack(outs).reshape(wrapped.shape)
+
+
 def unwrap_wls(wrapped: torch.Tensor, mask: torch.Tensor, consts: DeviceConsts,
                cg_iters: int = 30, tol: float = 1e-8) -> torch.Tensor:
     """Congruent WLS unwrap of the (H, W) ``wrapped`` phase over ``mask``,
     anchored to its masked mean; NaN off the mask.  ``consts`` holds the
-    DCT matrices on the tensors' device."""
+    DCT matrices on the tensors' device.  A (..., H, W) stack is one solve
+    a plane, ``MAX_PLANES`` planes a launch."""
     if kernels.route(wrapped) == "cpu":
-        return unwrap_wls_plain(wrapped, mask, consts, cg_iters, tol)
-    h, w = wrapped.shape
+        return unwrap_wls_batched_plain(wrapped, mask, consts, cg_iters, tol)
+    h, w = wrapped.shape[-2:]
     if not fits((h, w)):
         raise ValueError(f"unwrap_wls: {h}x{w} is above the kernel's budget "
                          f"(unwrap_kernel.fits)")
-    msk = mask.to(torch.bool).contiguous()
     wr = wrapped.to(torch.float32).contiguous()
-    if msk.shape != wr.shape:
-        raise ValueError(f"unwrap_wls: mask {tuple(msk.shape)} for phase {(h, w)}")
+    if mask.shape != wr.shape:
+        raise ValueError(f"unwrap_wls: mask {tuple(mask.shape)} for phase {tuple(wr.shape)}")
+    msk = mask.to(torch.bool).contiguous()
+    planes = int(np.prod(wr.shape[:-2], dtype=np.int64))
+    if planes < 1:
+        raise ValueError(f"unwrap_wls: an empty stack {tuple(wr.shape)}")
     Hp, Wp = padded_shape((h, w))
     mats = _matrices(Hp, Wp, consts)
     kernels.check_cuda("unwrap_wls", wr, msk, *mats)
-    out = torch.empty((h, w), dtype=torch.float32, device=wr.device)
-    work = torch.empty(int(kernels.library().vt_unwrap_work_elems(Hp, Wp)),
-                       dtype=torch.float32, device=wr.device)
-    kernels.launch("vt_unwrap_wls", "unwrap_wls", wr.device, wr.data_ptr(),
-                   *(a.data_ptr() for a in mats), msk.data_ptr(), out.data_ptr(),
-                   work.data_ptr(), h, w, Hp, Wp, int(cg_iters), float(tol * tol))
+    out = torch.empty(wr.shape, dtype=torch.float32, device=wr.device)
+    work = torch.empty(min(planes, MAX_PLANES) * int(kernels.library().vt_unwrap_work_elems(
+        Hp, Wp)), dtype=torch.float32, device=wr.device)
+    wr3, msk3, out3 = (x.view(planes, h, w) for x in (wr, msk, out))
+    for p0 in range(0, planes, MAX_PLANES):
+        kernels.launch("vt_unwrap_wls", "unwrap_wls", wr.device, wr3[p0].data_ptr(),
+                       *(a.data_ptr() for a in mats), msk3[p0].data_ptr(),
+                       out3[p0].data_ptr(), work.data_ptr(), min(MAX_PLANES, planes - p0),
+                       h, w, Hp, Wp, int(cg_iters), float(tol * tol))
     return out

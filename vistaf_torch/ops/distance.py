@@ -35,8 +35,9 @@ def _jfa_steps(h: int, w: int, max_dist: int):
 def distance_transform_edt(mask: torch.Tensor, max_dist: int = 0) -> torch.Tensor:
     """For each True pixel of the (H, W) mask, the Euclidean distance to the
     nearest False pixel by jump flooding; 0 on False pixels, float32.
-    ``max_dist`` > 0 bounds the flood schedule (exact up to max_dist)."""
-    h, w = mask.shape
+    ``max_dist`` > 0 bounds the flood schedule (exact up to max_dist).  A
+    (..., H, W) stack is a transform a plane."""
+    h, w = mask.shape[-2:]
     yy = torch.arange(h, device=mask.device, dtype=torch.int32)[:, None].expand(h, w)
     xx = torch.arange(w, device=mask.device, dtype=torch.int32)[None, :].expand(h, w)
     seed = ~mask
@@ -67,9 +68,10 @@ def distance_transform_edt(mask: torch.Tensor, max_dist: int = 0) -> torch.Tenso
 def distance_transform_chamfer3(mask: torch.Tensor, max_dist: int = 0) -> torch.Tensor:
     """cv2.distanceTransform(DIST_L2, 3): the 3x3 chamfer metric (edge 0.955,
     diagonal 1.3693) by descending power-of-2 min-plus relaxation; exact up
-    to ``max_dist`` when it is > 0, farther pixels saturate."""
+    to ``max_dist`` when it is > 0, farther pixels saturate.  A (..., H, W)
+    stack is a transform a plane."""
     a, b = 0.955, 1.3693
-    h, w = mask.shape
+    h, w = mask.shape[-2:]
     big = 3.0e8
     d = torch.where(mask, big, 0.0)
     reach = max(h, w) if not max_dist or max_dist <= 0 else min(max(h, w),

@@ -4,7 +4,9 @@ cascade over the full and the half spectrum, sub-bin parabolic refinement,
 the fractional phase ramp, the sparse-patch inverse DFT and the temperature
 segmentation's windowed bandpass over the full shifted spectrum and over
 the rfft2 half spectrum.  Peak positions stay 0-d device tensors and
-windows are taken with index tensors; nothing here syncs."""
+windows are taken with index tensors; nothing here syncs.  The carrier
+search, the refinement and the ramp take (..., H, W) stacks of spectra
+(``jax.vmap`` of the JAX functions), one peak each."""
 from __future__ import annotations
 
 import math
@@ -14,11 +16,23 @@ import numpy as np
 import torch
 
 from vistaf_torch.ops.consts import DeviceConsts
+from vistaf_torch.ops.streams import each
+
+
+def _argmax2(x: torch.Tensor) -> torch.Tensor:
+    """Flat (row-major) index of each (..., H, W) plane's first maximum."""
+    return torch.argmax(x.flatten(-2), dim=-1)
+
+
+def take_flat(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x.flatten(-2)[..., idx] of each (..., H, W) plane at its own (...,)
+    flat index: ``torch.take`` of a plane, a gather of a stack."""
+    return x.flatten(-2).gather(-1, idx[..., None])[..., 0]
 
 
 def dc_notch(mag: torch.Tensor, dc_exclusion: int) -> torch.Tensor:
     """Zero the (2 dc_exclusion)^2 square around the DC bin."""
-    h, w = mag.shape
+    h, w = mag.shape[-2:]
     cy, cx = h // 2, w // 2
     iy = torch.arange(h, device=mag.device)[:, None]
     ix = torch.arange(w, device=mag.device)[None, :]
@@ -32,10 +46,10 @@ def find_top_peaks(mag: torch.Tensor, dc_exclusion: int, n_peaks: int = 12):
     (xs, ys, mags).  Equal magnitudes keep the lower flat index first, as
     ``lax.top_k`` does (a stable sort; ``torch.topk`` promises no order
     among ties, and a real spectrum's mirror peaks can tie)."""
-    w = mag.shape[1]
-    m = dc_notch(mag.to(torch.float32), dc_exclusion).reshape(-1)
-    vals, idx = torch.sort(m, descending=True, stable=True)
-    vals, idx = vals[:n_peaks], idx[:n_peaks]
+    w = mag.shape[-1]
+    m = dc_notch(mag.to(torch.float32), dc_exclusion).flatten(-2)
+    vals, idx = torch.sort(m, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :n_peaks], idx[..., :n_peaks]
     return idx % w, idx // w, vals
 
 
@@ -50,13 +64,13 @@ def choose_carrier_peak(xs, ys, mags, h: int, w: int,
     keep = torch.ones_like(mags, dtype=torch.bool)
     if force_right_half_plane:
         m1 = xs > cx
-        keep = torch.where(m1.any(), m1, keep)
+        keep = torch.where(m1.any(dim=-1, keepdim=True), m1, keep)
     if prefer_near_center_row:
         m2 = keep & (torch.abs(ys - cy) <= int(peak_max_dy_frac * h))
-        keep = torch.where(m2.any(), m2, keep)
-    i = torch.argmax(torch.where(keep, mags, -math.inf))
+        keep = torch.where(m2.any(dim=-1, keepdim=True), m2, keep)
+    i = torch.argmax(torch.where(keep, mags, -math.inf), dim=-1, keepdim=True)
     # gathers: indexing by the 0-dim ``i`` would read it on the host
-    return torch.take(xs, i), torch.take(ys, i)
+    return xs.gather(-1, i)[..., 0], ys.gather(-1, i)[..., 0]
 
 
 def carrier_peak_cascade(mag: torch.Tensor, dc_exclusion: int,
@@ -66,7 +80,7 @@ def carrier_peak_cascade(mag: torch.Tensor, dc_exclusion: int,
     """Full-plane carrier pick as masked argmaxes: (notch & right half &
     near row), else (notch & right half), else the notched plane.  Returns
     (x, y) bins."""
-    h, w = mag.shape
+    h, w = mag.shape[-2:]
     cy, cx = h // 2, w // 2
     iy = torch.arange(h, device=mag.device)[:, None]
     ix = torch.arange(w, device=mag.device)[None, :]
@@ -76,17 +90,18 @@ def carrier_peak_cascade(mag: torch.Tensor, dc_exclusion: int,
     m2 = (m1 & (torch.abs(iy - cy) <= int(peak_max_dy_frac * h))
           if prefer_near_center_row else m1)
     mf = mag.to(torch.float32)
-    i2 = torch.argmax(torch.where(m2, mf, -3.0e38))
-    i1 = torch.argmax(torch.where(m1, mf, -3.0e38))
-    i0 = torch.argmax(torch.where(notch, mf, -3.0e38))
+    i2 = _argmax2(torch.where(m2, mf, -3.0e38))
+    i1 = _argmax2(torch.where(m1, mf, -3.0e38))
+    i0 = _argmax2(torch.where(notch, mf, -3.0e38))
     idx = torch.where(m2.any(), i2, torch.where(m1.any(), i1, i0))
     return idx % w, idx // w
 
 
 def refine_peak_parabolic_log(mag: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     """Sub-bin parabolic refinement on the log magnitude around (px, py);
-    returns float (x, y)."""
-    h, w = mag.shape
+    returns float (x, y), each (...,) for a (..., H, W) stack with (...,)
+    peaks."""
+    h, w = mag.shape[-2:]
     lm = torch.log(mag.to(torch.float32) + 1e-12)
 
     def sub(fm1, f0, fp1):
@@ -99,7 +114,7 @@ def refine_peak_parabolic_log(mag: torch.Tensor, px: torch.Tensor, py: torch.Ten
 
     def at(yy, xx):
         # a gather: indexing by 0-dim tensors would read them on the host
-        return torch.take(lm, yy * w + xx)
+        return take_flat(lm, yy * w + xx)
     dx = sub(at(y, x - 1), at(y, x), at(y, x + 1))
     dy = sub(at(y - 1, x), at(y, x), at(y + 1, x))
     interior = (px > 0) & (px < w - 1) & (py > 0) & (py < h - 1)
@@ -110,9 +125,12 @@ def refine_peak_parabolic_log(mag: torch.Tensor, px: torch.Tensor, py: torch.Ten
 
 def frac_ramp(h: int, w: int, dkx: torch.Tensor, dky: torch.Tensor,
               consts: DeviceConsts, sign: float = -1.0) -> torch.Tensor:
-    """exp(sign * i * 2pi * (dkx * x / w + dky * y / h)), complex64 (h, w)."""
+    """exp(sign * i * 2pi * (dkx * x / w + dky * y / h)), complex64 (h, w);
+    (..., h, w) for (...,) offsets."""
     yy = consts.iota(h, w, 0)
     xx = consts.iota(h, w, 1)
+    dkx = torch.as_tensor(dkx)[..., None, None]
+    dky = torch.as_tensor(dky)[..., None, None]
     phase = (2.0 * math.pi) * (dkx * (xx / w) + dky * (yy / h))
     return torch.polar(torch.ones_like(phase), sign * phase)
 
@@ -126,15 +144,17 @@ def _sparse_patch_twiddles(hf: int, wf: int, psz: int, row0: int, col0: int):
 
 
 def ifft2_sparse_patch(patch: torch.Tensor, hf: int, wf: int, row0: int, col0: int,
-                       consts: DeviceConsts) -> torch.Tensor:
+                       consts: DeviceConsts, streams: bool = False) -> torch.Tensor:
     """ifft2(ifftshift(Z)) for Z zero except ``patch`` (..., psz, psz) at
     [row0:, col0:] of the shifted spectrum, as two twiddle matmuls
-    Ey @ patch @ Ex (exact by DFT linearity)."""
+    Ey @ patch @ Ex (exact by DFT linearity; with ``streams``, patch's
+    leading axis a batched forward's stream axis, one pair a stream,
+    ``ops/streams.py``)."""
     psz = patch.shape[-1]
     key = ("sparse_patch", hf, wf, psz, row0, col0)
     Ey = consts.get(key + ("y",), lambda: _sparse_patch_twiddles(hf, wf, psz, row0, col0)[0])
     Ex = consts.get(key + ("x",), lambda: _sparse_patch_twiddles(hf, wf, psz, row0, col0)[1])
-    return torch.matmul(torch.matmul(Ey, patch), Ex)
+    return each(lambda p: torch.matmul(torch.matmul(Ey, p), Ex), patch, streams=streams)
 
 
 def carrier_peak_cascade_half(mag_half: torch.Tensor, dc_exclusion: int,

@@ -17,6 +17,7 @@ import torch
 
 from vistaf_torch.ops.consts import DeviceConsts
 from vistaf_torch.ops.padding import fold_index, pad_last2
+from vistaf_torch.ops.streams import each
 
 
 def gaussian_kernel1d(sigma: float, ksize: int = 0, u8: bool = False) -> np.ndarray:
@@ -74,16 +75,18 @@ def _shift_add_sep2d(x: torch.Tensor, ky: np.ndarray, kx: np.ndarray) -> torch.T
 
 
 def sep_conv2d(x: torch.Tensor, ky: np.ndarray, kx: np.ndarray,
-               consts: DeviceConsts, vpu: bool = False) -> torch.Tensor:
+               consts: DeviceConsts, vpu: bool = False, streams: bool = False) -> torch.Tensor:
     """Separable 2-D convolution of the trailing (H, W) planes of ``x``,
     REFLECT_101 border, float32: shift-adds when ``vpu`` and the kernels
-    have at most 63 taps with radius < size, else the banded matmuls."""
+    have at most 63 taps with radius < size, else the banded matmuls (with
+    ``streams``, x's leading axis a batched forward's stream axis, one pair
+    of products a stream, ``ops/streams.py``)."""
     x = x.float()
     h, w = x.shape[-2:]
     if _shift_adds(h, w, ky, kx, vpu):
         return _shift_add_sep2d(x, ky, kx)
-    out = torch.matmul(_band(consts, h, ky), x)
-    return torch.matmul(out, _band(consts, w, kx).T)
+    by, bx = _band(consts, h, ky), _band(consts, w, kx).T
+    return each(lambda v: torch.matmul(torch.matmul(by, v), bx), x, streams=streams)
 
 
 def _shift_adds(h: int, w: int, ky: np.ndarray, kx: np.ndarray, vpu: bool) -> bool:
@@ -93,12 +96,13 @@ def _shift_adds(h: int, w: int, ky: np.ndarray, kx: np.ndarray, vpu: bool) -> bo
 
 def gaussian_blur(x: torch.Tensor, sigma: float, consts: DeviceConsts,
                   sigma_y: float = 0.0, ksize: int = 0, u8: bool = False,
-                  vpu: bool = False) -> torch.Tensor:
+                  vpu: bool = False, streams: bool = False) -> torch.Tensor:
     """cv2.GaussianBlur(x, (ksize, ksize), sigma, sigma_y) on float32,
-    REFLECT_101 border; ``sigma_y`` 0 means ``sigma``."""
+    REFLECT_101 border; ``sigma_y`` 0 means ``sigma``; ``streams`` as in
+    ``sep_conv2d``."""
     kx = gaussian_kernel1d(sigma, ksize, u8=u8)
     ky = gaussian_kernel1d(sigma_y if sigma_y > 0 else sigma, ksize, u8=u8)
-    return sep_conv2d(x, ky, kx, consts, vpu=vpu)
+    return sep_conv2d(x, ky, kx, consts, vpu=vpu, streams=streams)
 
 
 def gaussian_blur_constants(shape, sigma: float, consts: DeviceConsts,
@@ -122,10 +126,12 @@ def gaussian_blur_u8_round(x: torch.Tensor, ksize: int, consts: DeviceConsts,
     return torch.clamp(torch.round(out), 0.0, 255.0)
 
 
-def box_filter(x: torch.Tensor, ksize: int, consts: DeviceConsts) -> torch.Tensor:
-    """cv2.boxFilter(normalize=False) with REFLECT_101 border."""
+def box_filter(x: torch.Tensor, ksize: int, consts: DeviceConsts,
+               streams: bool = False) -> torch.Tensor:
+    """cv2.boxFilter(normalize=False) with REFLECT_101 border; ``streams``
+    as in ``sep_conv2d``."""
     k = np.ones(ksize, np.float32)
-    return sep_conv2d(x, k, k, consts)
+    return sep_conv2d(x, k, k, consts, streams=streams)
 
 
 def _shift_add_conv3(x: torch.Tensor, ky: np.ndarray, kx: np.ndarray) -> torch.Tensor:
@@ -164,14 +170,15 @@ def gradient_magnitude(x: torch.Tensor) -> torch.Tensor:
 
 
 def masked_gaussian_smooth(z: torch.Tensor, mask: torch.Tensor, sigma: float,
-                           consts: DeviceConsts) -> torch.Tensor:
-    """Normalized-convolution smoothing blur(z*m) / (blur(m) + 1e-6)."""
+                           consts: DeviceConsts, streams: bool = False) -> torch.Tensor:
+    """Normalized-convolution smoothing blur(z*m) / (blur(m) + 1e-6);
+    ``streams`` as in ``sep_conv2d``."""
     if sigma <= 0:
         return z
     m = mask.float()
     z0 = torch.where(mask, z, 0.0).float()
-    num = gaussian_blur(z0, sigma, consts)
-    den = gaussian_blur(m, sigma, consts) + 1e-6
+    num = gaussian_blur(z0, sigma, consts, streams=streams)
+    den = gaussian_blur(m, sigma, consts, streams=streams) + 1e-6
     return num / den
 
 

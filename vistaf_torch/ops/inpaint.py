@@ -44,8 +44,8 @@ def inpaint_within_roi(z: torch.Tensor, roi: torch.Tensor, fill_mask: torch.Tens
     z = z.to(torch.float32)
     known = roi & torch.isfinite(z) & ~fill_mask
     missing = roi & fill_mask
-    vmin = masked_min(z, known)
-    vmax = masked_max(z, known)
+    vmin = masked_min(z, known)[..., None, None]
+    vmax = masked_max(z, known)[..., None, None]
     span = vmax - vmin
     if quantize_u8:
         scaled = torch.where(known, torch.clamp(

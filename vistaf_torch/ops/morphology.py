@@ -135,8 +135,8 @@ def dilate_disk_px(mask: torch.Tensor, px: int) -> torch.Tensor:
 
 
 def _dilate3x3(mask: torch.Tensor) -> torch.Tensor:
-    x = mask.to(torch.float32)[None, None]
-    return F.max_pool2d(x, 3, stride=1, padding=1)[0, 0] > 0.5
+    x = mask.to(torch.float32).reshape(-1, 1, *mask.shape[-2:])
+    return F.max_pool2d(x, 3, stride=1, padding=1).reshape(mask.shape) > 0.5
 
 
 def _shift_fill(x: torch.Tensor, k: int, axis: int, fill: bool) -> torch.Tensor:
@@ -174,8 +174,8 @@ _SWEEP_MIN_PX = 1_000_000
 
 def reconstruct(seed: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Morphological reconstruction by dilation: grow ``seed`` inside the
-    (H, W) ``mask`` (8-connectivity) to its fixed point, i.e. keep the
-    components of ``mask`` that hold a seed pixel.  On the card that is what
+    (..., H, W) ``mask`` (8-connectivity) to its fixed point, i.e. keep the
+    components of ``mask`` that hold a seed pixel, plane by plane.  On the card that is what
     it computes, from the labelling kernel (``reconstruct_by_labels``, no
     host read); on the CPU the JAX package's loop: below 1 Mpx a round is 8
     3x3 dilations, from 1 Mpx (the native-4K reliable mask) the four axis
@@ -190,11 +190,12 @@ def reconstruct_by_labels(seed: torch.Tensor, mask: torch.Tensor) -> torch.Tenso
     """The components of ``mask`` that hold a pixel of ``seed & mask``: the
     labels, a mark on each root a seed pixel reaches (a scatter of one
     value, so order-free), and ``mask & marked[label]``."""
-    lab = label_components(mask).reshape(-1)
-    n = lab.numel()
-    hit = torch.where((seed & mask).reshape(-1), lab, n)      # n: a slot no root has
-    marked = torch.zeros(n + 1, dtype=torch.uint8, device=mask.device).scatter_(0, hit, 1)
-    keep = torch.take(marked, torch.where(lab >= 0, lab, n)) > 0
+    lab = label_components(mask).flatten(-2)
+    n = lab.shape[-1]
+    hit = torch.where((seed & mask).flatten(-2), lab, n)      # n: a slot no root has
+    marked = torch.zeros((*lab.shape[:-1], n + 1), dtype=torch.uint8,
+                         device=mask.device).scatter_(-1, hit, 1)
+    keep = marked.gather(-1, torch.where(lab >= 0, lab, n)) > 0
     return keep.reshape(mask.shape) & mask
 
 
@@ -202,13 +203,13 @@ def reconstruct_plain(seed: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """The JAX package's reconstruction loop (the CPU route of
     ``reconstruct``)."""
     s = seed & mask
-    use_sweeps = mask.shape[0] * mask.shape[1] >= _SWEEP_MIN_PX
+    use_sweeps = mask.shape[-2] * mask.shape[-1] >= _SWEEP_MIN_PX
     while True:
         if use_sweeps:
-            t = _sweep(s, mask, axis=1, reverse=False)
-            t = _sweep(t, mask, axis=1, reverse=True)
-            t = _sweep(t, mask, axis=0, reverse=False)
-            t = _sweep(t, mask, axis=0, reverse=True)
+            t = _sweep(s, mask, axis=-1, reverse=False)
+            t = _sweep(t, mask, axis=-1, reverse=True)
+            t = _sweep(t, mask, axis=-2, reverse=False)
+            t = _sweep(t, mask, axis=-2, reverse=True)
             t = _dilate3x3(t) & mask
         else:
             t = s

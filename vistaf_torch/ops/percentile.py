@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from vistaf_torch.kernels.quantile_kernel import masked_quantiles
+from vistaf_torch.ops.streams import each
 
 _BIG = 3.0e38
 
@@ -181,11 +182,14 @@ def _valid(arr: torch.Tensor, mask: torch.Tensor):
     return x, mask & torch.isfinite(x)
 
 
-def masked_mean(arr: torch.Tensor, mask: torch.Tensor, fallback: float = 0.0) -> torch.Tensor:
-    """Mean over the finite ``mask`` pixels, ``fallback`` where there are none."""
+def masked_mean(arr: torch.Tensor, mask: torch.Tensor, fallback: float = 0.0,
+                streams: bool = False) -> torch.Tensor:
+    """Mean over the finite ``mask`` pixels, ``fallback`` where there are
+    none (with ``streams``, arr's leading axis a batched forward's stream
+    axis, the sum one call a stream, ``ops/streams.py``)."""
     x, m = _valid(arr, mask)
     n = m.sum(dim=(-2, -1)).to(torch.float32)
-    s = torch.where(m, x, 0.0).sum(dim=(-2, -1))
+    s = each(lambda a: a.sum(dim=(-2, -1)), torch.where(m, x, 0.0), streams=streams)
     return torch.where(n > 0, s / torch.clamp(n, min=1.0), float(fallback))
 
 

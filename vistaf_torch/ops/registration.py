@@ -19,34 +19,41 @@ import torch
 from vistaf_torch.kernels import ecc_kernel, ecc_loop_kernel
 from vistaf_torch.kernels.ecc_loop_kernel import ecc_loop_euclidean
 from vistaf_torch.ops.consts import DeviceConsts
+from vistaf_torch.ops.streams import each
 from vistaf_torch.ops.filters import gaussian_blur
 from vistaf_torch.ops.warp import (sample_bilinear_stack, shear_warp_stack,
                                    warp_affine_inverse_map)
 
 
-def phase_correlate(src1: torch.Tensor, src2: torch.Tensor, window: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def phase_correlate(src1: torch.Tensor, src2: torch.Tensor, window: torch.Tensor,
+                    streams: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """cv2.phaseCorrelate: (dx, dy, response), the translation of ``src1``
     relative to ``src2``, from the whitened cross-power spectrum and a 5x5
-    weighted centroid around the correlation peak (0-d tensors)."""
-    h, w = src1.shape
+    weighted centroid around the correlation peak: 0-d tensors for (H, W)
+    planes, (...,) for (..., H, W) stacks.  With ``streams`` (the leading
+    axis a batched forward's stream axis) the centroid's sums, and on the
+    CPU the FFTs, run once a stream (``ops/streams.py``)."""
+    h, w = src1.shape[-2:]
     a = src1.to(torch.float32) * window
     b = src2.to(torch.float32) * window
-    F = torch.fft.rfft2(torch.stack([a, b]))
-    P = F[0] * torch.conj(F[1])
+    F = each(torch.fft.rfft2, torch.stack([a, b], dim=-3), streams=streams, cpu_only=True)
+    P = F[..., 0, :, :] * torch.conj(F[..., 1, :, :])
     P = P / torch.clamp(torch.abs(P), min=1e-20)
-    C = torch.fft.fftshift(torch.fft.irfft2(P, s=(h, w)))
-    peak = torch.argmax(C)
+    C = torch.fft.fftshift(each(lambda q: torch.fft.irfft2(q, s=(h, w)), P, streams=streams,
+                                cpu_only=True), dim=(-2, -1))
+    peak = torch.argmax(C.flatten(-2), dim=-1)[..., None, None]
     py = peak // w
     px = peak % w
     yy = torch.arange(h, device=C.device)[:, None]
     xx = torch.arange(w, device=C.device)[None, :]
     inwin = ((torch.abs(yy - py) <= 2) & (torch.abs(xx - px) <= 2)).to(torch.float32)
     vals = C * inwin
-    s = vals.sum()
+    s, sy, sx = each(lambda v: (v.sum(dim=(-2, -1)), (yy.to(torch.float32) * v).sum(dim=(-2, -1)),
+                                (xx.to(torch.float32) * v).sum(dim=(-2, -1))), vals,
+                      streams=streams)
     den = torch.where(torch.abs(s) < 1e-20, 1.0, s)
-    cy = (yy.to(torch.float32) * vals).sum() / den
-    cx = (xx.to(torch.float32) * vals).sum() / den
+    cy = sy / den
+    cx = sx / den
     return w / 2.0 - cx, h / 2.0 - cy, s / (h * w)
 
 
@@ -57,15 +64,20 @@ ECC_MODES = {"translation": 2, "euclidean": 3, "affine": 6}
 
 def warp_matrix(mode: str, p: torch.Tensor) -> torch.Tensor:
     """The (2, 3) inverse-map matrix of the warp parameters ``p``: [[cos t,
-    -sin t, tx], [sin t, cos t, ty]] for the euclidean p = (t, tx, ty)."""
+    -sin t, tx], [sin t, cos t, ty]] for the euclidean p = (t, tx, ty); a
+    (..., P) stack of parameters gives (..., 2, 3)."""
+    q = p.unbind(-1)
+
+    def mat(r0, r1):
+        return torch.stack([torch.stack(r0, dim=-1), torch.stack(r1, dim=-1)], dim=-2)
+
     if mode == "euclidean":
-        c, s = torch.cos(p[0]), torch.sin(p[0])
-        return torch.stack([torch.stack([c, -s, p[1]]), torch.stack([s, c, p[2]])])
-    one, zero = torch.ones_like(p[0]), torch.zeros_like(p[0])
+        c, s = torch.cos(q[0]), torch.sin(q[0])
+        return mat([c, -s, q[1]], [s, c, q[2]])
+    one, zero = torch.ones_like(q[0]), torch.zeros_like(q[0])
     if mode == "translation":
-        return torch.stack([torch.stack([one, zero, p[0]]), torch.stack([zero, one, p[1]])])
-    return torch.stack([torch.stack([1.0 + p[0], p[2], p[4]]),
-                        torch.stack([p[1], 1.0 + p[3], p[5]])])
+        return mat([one, zero, q[0]], [zero, one, q[1]])
+    return mat([1.0 + q[0], q[2], q[4]], [q[1], 1.0 + q[3], q[5]])
 
 
 def _warp_coords(mode: str, p: torch.Tensor, xx: torch.Tensor, yy: torch.Tensor):
@@ -99,21 +111,26 @@ def _moment_matrix(mode: str, p: torch.Tensor, samp: torch.Tensor, mf: torch.Ten
     return A @ A.T
 
 
-def ecc_prepare(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor):
+def ecc_prepare(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
+                streams: bool = False):
     """Centre both images on the template's masked mean and stack the
     image with its central-difference gradients and the mask:
-    returns (S_cf (4, H, W) = [I, gx, gy, mask01], centred template)."""
+    returns (S_cf (4, H, W) = [I, gx, gy, mask01], centred template); for
+    (..., H, W) stacks, (..., 4, H, W) and (..., H, W).  With ``streams``
+    (the leading axis a batched forward's stream axis) the mean's sum runs
+    once a stream (``ops/streams.py``)."""
     T = template.to(torch.float32)
     I = image.to(torch.float32)
     M01 = mask.to(torch.float32)
-    c0 = (T * M01).sum() / torch.clamp(M01.sum(), min=1.0)
+    c0 = (each(lambda t: (t * M01).sum(dim=(-2, -1)), T, streams=streams)
+          / torch.clamp(M01.sum(dim=(-2, -1)), min=1.0))[..., None, None]
     T = T - c0
     I = I - c0
     gx = torch.zeros_like(I)
-    gx[:, 1:-1] = 0.5 * (I[:, 2:] - I[:, :-2])
+    gx[..., :, 1:-1] = 0.5 * (I[..., :, 2:] - I[..., :, :-2])
     gy = torch.zeros_like(I)
-    gy[1:-1, :] = 0.5 * (I[2:, :] - I[:-2, :])
-    return torch.stack([I, gx, gy, M01]), T
+    gy[..., 1:-1, :] = 0.5 * (I[..., 2:, :] - I[..., :-2, :])
+    return torch.stack([I, gx, gy, M01.expand(I.shape)], dim=-3), T
 
 
 def _grid(h: int, w: int, device, stride: int = 1):
@@ -161,7 +178,7 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
               mode: str = "euclidean", max_iters: int = 300, eps: float = 1e-7,
               stride: int = 1, sampler: str = "shear", shear_k: int = 4,
               stall_patience: int = 0, loop_kernel: bool = True,
-              p_init: Optional[torch.Tensor] = None):
+              p_init: Optional[torch.Tensor] = None, streams: bool = False):
     """Warp maximizing the enhanced correlation coefficient between
     ``template`` and ``image`` sampled at W(x; p): returns (warp (2, 3),
     rho, n_iters).  On StsNoConv failure the warp is the identity and rho
@@ -172,11 +189,23 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
     mode's parameters) seeds the iteration instead of the identity; a seeded
     solve takes the per-iteration loop, as in the JAX package.  The defaults
     are the deploy route's (shear sampler, loop kernel); the JAX function
-    defaults to the gather sampler without the loop kernel."""
+    defaults to the gather sampler without the loop kernel.
+
+    (..., H, W) stacks of templates and images (one mask) are that many
+    solves, ``jax.vmap`` of this function, on the K5 route only
+    (``batch_route``): each its own loop and stop, in one launch, giving
+    (..., 2, 3), (...,) and (...,).  Any other route of a stack raises.
+    ``streams`` as in ``ecc_prepare``."""
     if mode not in ECC_MODES or sampler not in ("shear", "gather"):
         raise ValueError(f"ecc_align: unknown mode {mode!r} or sampler {sampler!r}")
     P = ECC_MODES[mode]
-    S_cf, T = ecc_prepare(template, image, mask)
+    S_cf, T = ecc_prepare(template, image, mask, streams=streams)
+    if T.dim() > 2 and not batch_route(mode, sampler, T.shape[-2:], loop_kernel,
+                                       p_init is not None):
+        raise ValueError(f"ecc_align: a stack of {tuple(T.shape[:-2])} solves runs on K5 "
+                         f"only (mode {mode!r}, sampler {sampler!r}, "
+                         f"{tuple(T.shape[-2:])}, loop_kernel={loop_kernel}, "
+                         f"seeded={p_init is not None}): the other routes run per stream")
     p0 = (torch.zeros(P, dtype=torch.float32, device=T.device) if p_init is None
           else p_init.to(torch.float32).reshape(P))
     if sampler == "gather":
@@ -186,10 +215,10 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
             lambda q: _gather_moments(S_cf, Ts, q, xx, yy, mode), p0, max_iters, eps,
             stall_patience, dtype=torch.float64)
         return _result(mode, p, rho.to(torch.float32), it, failed)
-    smask = torch.zeros_like(T)
+    smask = torch.zeros(T.shape[-2:], dtype=T.dtype, device=T.device)
     smask[::stride, ::stride] = 1.0
-    fused = mode == "euclidean" and ecc_kernel.fits(T.shape)
-    if fused and loop_kernel and p_init is None and ecc_loop_kernel.fits(T.shape):
+    fused = mode == "euclidean" and ecc_kernel.fits(T.shape[-2:])
+    if batch_route(mode, sampler, T.shape[-2:], loop_kernel, p_init is not None):
         p, rho, it, failed = ecc_loop_euclidean(S_cf, T, smask, K=shear_k,
                                                 max_iters=max_iters, eps=eps,
                                                 stall_patience=stall_patience)
@@ -204,10 +233,19 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
     return _result(mode, p, rho, it, failed)
 
 
+def batch_route(mode: str, sampler: str, shape, loop_kernel: bool, seeded: bool) -> bool:
+    """Whether ``ecc_align`` of this solve takes K5, the whole solve in one
+    launch (and so the one ECC route a stack of solves may take): the
+    euclidean shear solve, unseeded, with the loop kernel, within both
+    ``ecc_kernel.fits`` and ``ecc_loop_kernel.fits``."""
+    return (mode == "euclidean" and sampler == "shear" and loop_kernel and not seeded
+            and ecc_kernel.fits(shape) and ecc_loop_kernel.fits(shape))
+
+
 def _result(mode, p, rho, it, failed):
     """(warp, rho, n_iters): the identity and NaN rho on StsNoConv failure."""
     identity = warp_matrix(mode, torch.zeros_like(p))
-    warp = torch.where(failed, identity, warp_matrix(mode, p))
+    warp = torch.where(failed[..., None, None], identity, warp_matrix(mode, p))
     return warp, torch.where(failed, float("nan"), rho), it
 
 

@@ -111,18 +111,18 @@ def warp_affine_inverse_map(img: torch.Tensor, M: torch.Tensor,
 
 def hat_resample_axis(S: torch.Tensor, disp: torch.Tensor, K: int, axis: int,
                       border: str = "constant0") -> torch.Tensor:
-    """1-D linear resample of the (C, H, W) stack ``S`` along ``axis`` (1 =
-    rows, 2 = columns) by the per-pixel displacement ``disp`` (H, W):
-    out = sum_k max(0, 1 - |disp - k|) * shift(S, k) for k in [-K, K], in
-    that order.  'constant0' reads zeros beyond the edge, 'reflect' the
-    symmetric (cv2 BORDER_REFLECT) reflection."""
-    _, H, W = S.shape
+    """1-D linear resample of the (..., C, H, W) stack ``S`` along ``axis``
+    (1 = rows, 2 = columns) by the per-pixel displacement ``disp`` (...,
+    H, W): out = sum_k max(0, 1 - |disp - k|) * shift(S, k) for k in
+    [-K, K], in that order.  'constant0' reads zeros beyond the edge,
+    'reflect' the symmetric (cv2 BORDER_REFLECT) reflection."""
+    H, W = S.shape[-2:]
     pad = (0, 0, K, K) if axis == 1 else (K, K, 0, 0)
     P = pad_last2(S, pad, "symmetric" if border == "reflect" else "constant")
     out = torch.zeros_like(S)
     for k in range(-K, K + 1):
-        w = torch.clamp(1.0 - torch.abs(disp - k), min=0.0)
-        sl = P[:, K + k:K + k + H, :] if axis == 1 else P[:, :, K + k:K + k + W]
+        w = torch.clamp(1.0 - torch.abs(disp - k), min=0.0)[..., None, :, :]
+        sl = P[..., K + k:K + k + H, :] if axis == 1 else P[..., :, K + k:K + k + W]
         out = out + sl * w
     return out
 
@@ -130,9 +130,11 @@ def hat_resample_axis(S: torch.Tensor, disp: torch.Tensor, K: int, axis: int,
 def shear_coefficients(M: torch.Tensor):
     """Scalars of the two shear passes of the inverse-map warp M (2, 3):
     vertical displacement r*u + (a11 - r*a01 - 1)*v + (a12 - r*a02) with
-    r = a10/a00, horizontal (a00 - 1)*u + a01*v + a02."""
-    a00, a01, a02 = M[0, 0], M[0, 1], M[0, 2]
-    a10, a11, a12 = M[1, 0], M[1, 1], M[1, 2]
+    r = a10/a00, horizontal (a00 - 1)*u + a01*v + a02; each (..., 1, 1)
+    for a (..., 2, 3) stack of warps."""
+    M = M[..., None, None]
+    a00, a01, a02 = M[..., 0, 0, :, :], M[..., 0, 1, :, :], M[..., 0, 2, :, :]
+    a10, a11, a12 = M[..., 1, 0, :, :], M[..., 1, 1, :, :], M[..., 1, 2, :, :]
     r = a10 / a00
     return (r, a11 - r * a01 - 1.0, a12 - r * a02), (a00 - 1.0, a01, a02)
 
@@ -142,8 +144,9 @@ def shear_warp_stack(S: torch.Tensor, M: torch.Tensor, K: int = 4,
     """Affine inverse-map warp of a channel-first (C, H, W) stack by two 1-D
     shear passes, gather-free: dst(y, x) = S(M10 x + M11 y + M12,
     M00 x + M01 y + M02), valid while every displacement stays within
-    +-(K - 1) px."""
-    _, H, W = S.shape
+    +-(K - 1) px.  A (..., C, H, W) stack with (..., 2, 3) warps warps each
+    by its own."""
+    H, W = S.shape[-2:]
     vv = torch.arange(H, dtype=torch.float32, device=S.device)[:, None].expand(H, W)
     uu = torch.arange(W, dtype=torch.float32, device=S.device)[None, :].expand(H, W)
     (cy_u, cy_v, cy_c), (cx_u, cx_v, cx_c) = shear_coefficients(M)
@@ -156,8 +159,24 @@ def shear_warp_stack(S: torch.Tensor, M: torch.Tensor, K: int = 4,
 def warp_affine_inverse_shear(img: torch.Tensor, M: torch.Tensor,
                               K: int = 4) -> torch.Tensor:
     """Single-plane ``shear_warp_stack`` with the reflect border (small
-    warps, |disp| <= K - 1)."""
-    return shear_warp_stack(img.to(torch.float32)[None], M, K=K, border="reflect")[0]
+    warps, |disp| <= K - 1); (..., H, W) planes with (..., 2, 3) warps."""
+    return shear_warp_stack(img.to(torch.float32)[..., None, :, :], M, K=K,
+                            border="reflect")[..., 0, :, :]
+
+
+def window_rows_cols(x: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor
+                     ) -> torch.Tensor:
+    """x[..., rows, :][..., cols] for the (..., H, W) planes of ``x``, with
+    each plane's own (..., r) rows and (..., c) columns (device indices, so
+    no host read): ``index_select`` twice for one plane, gathers for a
+    stack (``jax.vmap`` of a ``dynamic_slice``)."""
+    if rows.dim() == 1 and cols.dim() == 1:
+        return x.index_select(-2, rows).index_select(-1, cols)
+    lead = x.shape[:-2]
+    r = rows.reshape(*rows.shape[:-1], *([1] * (x.dim() - 1 - rows.dim())), rows.shape[-1], 1)
+    x = x.gather(-2, r.expand(*lead, rows.shape[-1], x.shape[-1]))
+    c = cols.reshape(*cols.shape[:-1], *([1] * (x.dim() - 1 - cols.dim())), 1, cols.shape[-1])
+    return x.gather(-1, c.expand(*lead, rows.shape[-1], cols.shape[-1]))
 
 
 def translate_bilinear(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
@@ -165,23 +184,24 @@ def translate_bilinear(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
     """out(x, y) = img(x - dx, y - dy) with bilinear interpolation, as four
     shifted windows of a padded copy (cv2.warpAffine with a translation,
     INTER_LINEAR, BORDER_REFLECT, for |shift| <= max_shift).  ``dx`` and
-    ``dy`` are 0-d tensors; the window offsets stay on the device."""
-    h, w = img.shape
+    ``dy`` are 0-d tensors, or (...,) for a (..., H, W) stack; the window
+    offsets stay on the device."""
+    h, w = img.shape[-2:]
     pad = int(max_shift) + 2
     imp = pad_last2(img.to(torch.float32), (pad, pad, pad, pad), "symmetric")
-    sx = -dx.to(torch.float32)
-    sy = -dy.to(torch.float32)
+    sx = -dx.to(torch.float32)[..., None, None]
+    sy = -dy.to(torch.float32)[..., None, None]
     x0 = torch.floor(sx)
     y0 = torch.floor(sy)
     fx = sx - x0
     fy = sy - y0
-    x0i = torch.clamp(x0.to(torch.int64), -max_shift, max_shift)
-    y0i = torch.clamp(y0.to(torch.int64), -max_shift, max_shift)
+    x0i = torch.clamp(x0.to(torch.int64), -max_shift, max_shift)[..., 0]
+    y0i = torch.clamp(y0.to(torch.int64), -max_shift, max_shift)[..., 0]
     rows = torch.arange(h, device=img.device) + pad
     cols = torch.arange(w, device=img.device) + pad
 
     def window(iy, ix):
-        return imp.index_select(0, rows + iy).index_select(1, cols + ix)
+        return window_rows_cols(imp, rows + iy, cols + ix)
 
     a = window(y0i, x0i)
     b = window(y0i, x0i + 1)

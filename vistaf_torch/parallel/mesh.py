@@ -12,6 +12,14 @@ same reductions as ``torch.distributed`` collectives over the mesh's group
 (each rank writes its streams into a zero (B, ...) tensor), as in JAX: a
 sum with zeros is exact, so every rank receives the same bits.
 
+A rank's streams run as the JAX package runs ``vmap(_single)``: where the
+pipeline's ``batch_route`` holds (the 640 deploy preset: no WHILE node and
+no K4 solve in the forward) as one batched forward over the leading stream
+axis, every op once over (B, ...) and every kernel launched once with the
+streams in its grid (``BatchedForce.route() == "batched"``); elsewhere (the
+parity presets, the native-4K routes) one stream after the other through
+the single forward (``"per_stream"``), each with its ECC and PCG loops.
+
 On the card each of the JAX package's jitted entry points is one CUDA graph
 replayed a call (``utils/cuda_graph.py::ForwardGraph``), as ``jax.jit``
 compiles each into one program: ``BatchedForce.batched()`` and
@@ -19,11 +27,13 @@ compiles each into one program: ``BatchedForce.batched()`` and
 ``whole_limb_step`` / ``whole_limb_step_aux`` step one graph of the rank's
 streams and the head, its all-reduces on the NCCL group inside.  The first
 call runs eagerly (which also brings the communicator up) and captures;
-every later call replays.  A rank's streams are captured one after the
-other in stream order, each stream's forward with its ECC and PCG loops as
-WHILE nodes and its seed pick as an IF node, so each stream's result is bit
-for bit the single forward's and launches what it launches.  On the CPU and
-on a gloo mesh everything runs eagerly.
+every later call replays.  On the per-stream route a rank's streams are
+captured one after the other in stream order, each stream's forward with
+its ECC and PCG loops as WHILE nodes and its seed pick as an IF node, so
+each stream's result is bit for bit the single forward's.  On the batched
+route the batch is one forward with one IF node for the seed pick (taken
+when any stream's pooled seed fails, each stream selecting its own).  On
+the CPU and on a gloo mesh everything runs eagerly.
 """
 from __future__ import annotations
 
@@ -137,12 +147,16 @@ class BatchedForce:
     the JAX package's ``jit(vmap(_single))``: where ``graph_route`` holds
     (the pipeline's: on the card, no debug outputs, no ``stop_after``) one
     CUDA graph of ``batched_eager``, captured at the first call and replayed
-    at every later one (a stack of another shape raises); elsewhere each
-    stream through ``_single`` in turn (the seam a subclass that changes a
-    stream's forward overrides).  ``batched_eager`` runs the streams in
-    index order, each through ``_single_eager``, so each stream of a replay
-    is bit for bit ``_single``'s; the ``StreamingForce`` step and the
-    whole-limb steps run the same on both routes.
+    at every later one (a stack of another shape raises); elsewhere
+    ``batched_eager`` itself on the batched route, and on the per-stream
+    route each stream through ``_single`` in turn (the seam a subclass that
+    changes a stream's forward overrides).  ``batched_eager`` takes the
+    route ``route()`` names, by configuration and shape only: ``"batched"``,
+    the pipeline's forward once over the stacks (``FTPPipeline.
+    batch_route``), or ``"per_stream"``, ``per_stream_eager``: the streams
+    in index order, each through ``_single_eager``, bit for bit
+    ``_single``'s.  The ``StreamingForce`` step and the whole-limb steps
+    run ``batched_eager`` on and off the card.
 
     Keeps the JAX defaults: a 2 mm grating pitch, a 0.01 mm contact
     threshold, and a 1e-9 floor on the period (``ForcePipeline`` uses
@@ -162,12 +176,19 @@ class BatchedForce:
         forward would replay its own."""
         return self.pipe.graph_route()
 
-    def _tail(self, res: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """The volume -> force tail of one stream's forward outputs."""
+    def route(self) -> str:
+        """``"batched"`` where the pipeline's forward takes the stream axis
+        (``FTPPipeline.batch_route``), else ``"per_stream"``."""
+        return "batched" if self.pipe.batch_route() else "per_stream"
+
+    def _tail(self, res: Dict[str, torch.Tensor], streams: bool = False
+              ) -> Dict[str, torch.Tensor]:
+        """The volume -> force tail of one stream's forward outputs, or
+        with ``streams`` of a batched forward's, stream by stream."""
         height = res["height_map_mm_crop"]
         mm_per_px = self.grating_pitch_mm / torch.clamp(res["est_period_px"], min=1e-9)
         v, a, d = depth_map_to_volume_cm3(height, torch.isfinite(height), mm_per_px,
-                                          self.depth_eps_mm)
+                                          self.depth_eps_mm, streams=streams)
         return {
             "force_N": scalar_models.predict_force_from_volume(self.force_model, v),
             "volume_cm3": v,
@@ -187,13 +208,23 @@ class BatchedForce:
         """``_single`` op by op (``pipe.forward_eager``) on device tensors."""
         return self._tail(self.pipe.forward_eager(ref_bgr, def_bgr))
 
-    def batched_eager(self, refs: torch.Tensor, frames: torch.Tensor
-                      ) -> Dict[str, torch.Tensor]:
+    def per_stream_eager(self, refs: torch.Tensor, frames: torch.Tensor
+                         ) -> Dict[str, torch.Tensor]:
         """The streams of two (B, H, W, 3) device stacks in index order
-        through ``_single_eager``, stacked: what the batch graph, the
-        ``StreamingForce`` step and the whole-limb steps run."""
+        through ``_single_eager``, stacked: the per-stream route."""
         _check_stacks(refs, frames)
         return _stack([self._single_eager(refs[b], frames[b]) for b in range(frames.shape[0])])
+
+    def batched_eager(self, refs: torch.Tensor, frames: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        """Two (B, H, W, 3) device stacks through the route ``route()``
+        names: one batched forward and tail, or ``per_stream_eager``.  What
+        the batch graph, the ``StreamingForce`` step and the whole-limb
+        steps run."""
+        _check_stacks(refs, frames)
+        if self.route() == "batched":
+            return self._tail(self.pipe.forward_eager(refs, frames), streams=True)
+        return self.per_stream_eager(refs, frames)
 
     def batched(self):
         """A callable from (B, H, W, 3) uint8 ref and def stacks (numpy or
@@ -206,6 +237,8 @@ class BatchedForce:
                 if self._graph is None:
                     self._graph = ForwardGraph(self.batched_eager, self.device)
                 return self._graph(refs, frames)
+            if self.route() == "batched":
+                return self.batched_eager(refs, frames)
             return _stack([self._single(refs[b], frames[b]) for b in range(frames.shape[0])])
         return fn
 
@@ -245,6 +278,11 @@ class MeshStep:
     def graph_route(self) -> bool:
         return self.mesh.device_type == "cuda" and self.batched_force.graph_route()
 
+    def stream_route(self) -> str:
+        """The route of the step's streams: its force's ``route()``
+        (``"per_stream"`` for a stand-in force without one)."""
+        return stream_route(self.batched_force)
+
     def __call__(self, ref_local, def_local, aux=None) -> Dict[str, torch.Tensor]:
         extra = [aux[k] for k in self.aux_keys]
         inputs = [_on(self.mesh, x) for x in (ref_local, def_local, *extra)]
@@ -255,18 +293,30 @@ class MeshStep:
         return self.eager(*inputs)
 
 
+def stream_route(batched_force) -> str:
+    """``batched_force.route()``, or ``"per_stream"`` for a stand-in force
+    that offers only ``_single``."""
+    route = getattr(batched_force, "route", None)
+    return route() if route is not None else "per_stream"
+
+
 def _local_streams(batched_force, mesh: DeviceMesh, ref_local: torch.Tensor,
                    def_local: torch.Tensor, map_stride: int):
-    """This rank's streams (device stacks) one by one in stream order
-    through the force's ``_single_eager`` (a stand-in force without one:
-    its ``_single``): the stacked force, area and depth scalars and each
-    stream's contact-depth map on the rank's device.  The indentation side
-    is detected per stream as ``depth_map_to_volume_cm3`` detects it
-    (whichever of +Z and -Z integrates larger), so the map holds with
+    """This rank's streams (device stacks) through the force's
+    ``batched_eager`` (its route: one batched forward, or the streams one by
+    one; a stand-in force without one: its ``_single`` a stream): the
+    stacked force, area and depth scalars and each stream's contact-depth
+    map on the rank's device.  The indentation side is detected per stream
+    as ``depth_map_to_volume_cm3`` detects it (whichever of +Z and -Z
+    integrates larger), so the map holds with
     ``mm_keep_indentation_negative=True``."""
     dev = mesh_device(mesh)
-    one = getattr(batched_force, "_single_eager", None) or batched_force._single
-    res = _stack([one(ref_local[b], def_local[b]) for b in range(ref_local.shape[0])])
+    run = getattr(batched_force, "batched_eager", None)
+    if run is not None:
+        res = run(ref_local, def_local)
+    else:
+        res = _stack([batched_force._single(ref_local[b], def_local[b])
+                      for b in range(ref_local.shape[0])])
     forces, areas, depths, hm = (res[k].to(dev) for k in (
         "force_N", "contact_area_mm2", "max_depth_mm", "height_map_mm"))
     finite = torch.isfinite(hm)
@@ -286,7 +336,7 @@ def whole_limb_step(batched_force, mesh: DeviceMesh, map_stride: int = 1) -> Mes
     Returns ``step(ref_local, def_local) -> dict`` (a ``MeshStep``): the
     rank's (n, H, W, 3) uint8 streams (``shard_batch`` /
     ``shard_local_batch``) through the force (``_local_streams``: a
-    ``BatchedForce``, or any object with ``_single`` and
+    ``BatchedForce`` on its route, or any object with ``_single`` and
     ``depth_eps_mm``), then the head over the mesh, one CUDA graph a step
     on the card.  Every rank receives the same dict:
     ``per_stream_force`` (B,), ``total_force_N``, ``max_depth_mm`` and

@@ -19,24 +19,31 @@ from vistaf_torch.calib import artifacts, scalar_models
 from vistaf_torch.config import (HEIGHT_TO_FORCE_JSON, PHASE_TO_HEIGHT_JSON, ForceConfig,
                                  FTPConfig)
 from vistaf_torch.ftp.pipeline import FTPPipeline
+from vistaf_torch.ops.streams import each
 
 
 def depth_map_reductions(height_map_mm: torch.Tensor, roi_mask: torch.Tensor,
-                         depth_eps_mm: float = 0.01):
+                         depth_eps_mm: float = 0.01, streams: bool = False):
     """(depth_sum_mm, contact_px, max_depth_mm, any_contact) of the
-    indentation side (whichever of +Z / -Z integrates larger in the ROI)."""
+    indentation side (whichever of +Z / -Z integrates larger in the ROI);
+    each (...,) for a (..., H, W) stack of maps, side by side.  With
+    ``streams`` (the maps' leading axis a batched forward's stream axis)
+    the float sums run once a stream (``ops/streams.py``)."""
     Z = height_map_mm.to(torch.float32)
     Zf = torch.where(torch.isfinite(Z), Z, 0.0)
     pos = torch.clamp(Zf, min=0.0)
     neg = torch.clamp(-Zf, min=0.0)
-    pos_sum = torch.where(roi_mask, pos, 0.0).sum()
-    neg_sum = torch.where(roi_mask, neg, 0.0).sum()
+    pos_sum, neg_sum = each(lambda p, q: (p.sum(dim=(-2, -1), keepdim=True),
+                                         q.sum(dim=(-2, -1), keepdim=True)),
+                            torch.where(roi_mask, pos, 0.0), torch.where(roi_mask, neg, 0.0),
+                            streams=streams)
     depth = torch.where(roi_mask, torch.where(neg_sum > pos_sum, neg, pos), 0.0)
     contact = depth > depth_eps_mm
-    depth_sum = torch.where(contact, depth, 0.0).sum()
-    contact_px = contact.sum().to(torch.float32)
-    max_depth = torch.where(contact, depth, 0.0).amax()
-    return depth_sum, contact_px, max_depth, contact.any()
+    depth_sum = each(lambda d: d.sum(dim=(-2, -1)), torch.where(contact, depth, 0.0),
+                     streams=streams)
+    contact_px = contact.sum(dim=(-2, -1)).to(torch.float32)
+    max_depth = torch.where(contact, depth, 0.0).amax(dim=(-2, -1))
+    return depth_sum, contact_px, max_depth, contact.flatten(-2).any(dim=-1)
 
 
 def _px_area(mm_per_px: Union[float, torch.Tensor]):
@@ -49,12 +56,14 @@ def _px_area(mm_per_px: Union[float, torch.Tensor]):
 
 def depth_map_to_volume_cm3(height_map_mm: torch.Tensor, roi_mask: torch.Tensor,
                             mm_per_px: Union[float, torch.Tensor],
-                            depth_eps_mm: float = 0.01):
+                            depth_eps_mm: float = 0.01, streams: bool = False):
     """(volume_cm3, contact_area_mm2, max_depth_mm): V = sum(depth * px
-    area) over depth > eps within the ROI, as 0-d float32 tensors.
-    ``mm_per_px`` is a Python float or a 0-d float32 tensor."""
+    area) over depth > eps within the ROI, as 0-d float32 tensors (each
+    (...,) for a (..., H, W) stack).  ``mm_per_px`` is a Python float or a
+    float32 tensor, 0-d or one a map; ``streams`` as in
+    ``depth_map_reductions``."""
     depth_sum, contact_px, max_depth, any_contact = depth_map_reductions(
-        height_map_mm, roi_mask, depth_eps_mm)
+        height_map_mm, roi_mask, depth_eps_mm, streams=streams)
     px_area = _px_area(mm_per_px)
     volume_cm3 = torch.where(any_contact, depth_sum * px_area / 1000.0, 0.0)
     area_mm2 = torch.where(any_contact, contact_px * px_area, 0.0)
