@@ -86,10 +86,8 @@ forward's ECC and PCG loops and its seed pick, and the temperature
 forward's shear fold, as conditional nodes; ``step_fused`` one graph of
 both forwards; a stream batch's step or a limb step one graph of its
 streams, smoothing or head), else ``eager`` (the rows with no forward:
-decode, uploads); the stream and limb rows add ``stream_route``:
-``batched`` where a batch is one batched forward (``jax.vmap``; the 640
-deploy preset), ``per_stream`` where the streams' forwards run one by one.
-The profiled window counts the graph replays (``graph_launches_per_frame``)
+decode, uploads).  A stream batch is one batched forward (``jax.vmap``)
+under every configuration.  The profiled window counts the graph replays (``graph_launches_per_frame``)
 apart from the kernel launches.
 
 Correctness: each row holds its output to its gate once, before timing,
@@ -190,16 +188,9 @@ def forward_route(routed) -> Dict[str, Any]:
     graph (the ``graph_route`` of its ``FTPPipeline``,
     ``TemperaturePipeline``, ``MultimodalPipeline``, ``StreamingForce`` or
     whole-limb step), else 'eager' (on
-    the CPU, and rows with no forward); on the stream and limb rows also
-    ``stream_route``: 'batched' (one batched forward a batch) or
-    'per_stream' (the streams' forwards one by one), their
-    ``BatchedForce.route()``."""
+    the CPU, and rows with no forward)."""
     graph = bool(routed) and all(p.graph_route() for p in routed)
-    out = {"route": "graph" if graph else "eager"}
-    streams = sorted({p.stream_route() for p in routed if hasattr(p, "stream_route")})
-    if streams:
-        out["stream_route"] = "/".join(streams)
-    return out
+    return {"route": "graph" if graph else "eager"}
 
 
 def fps(p50_ms: float) -> Dict[str, float]:

@@ -14,7 +14,7 @@ a card it then captures the step's CUDA graph, the NCCL all-reduces
 inside), the second a replay that must equal it bit for bit but for the
 sums over the ranks (within 1e-6: NCCL may order a captured sum
 otherwise), the third the one kept.  On a card each step (a rank's streams
-in one batched forward, ``BatchedForce.route()`` ``batched``) must launch
+in one batched forward) must launch
 exactly what a ``limb640`` step launches, and
 each rank prints its ``timing`` lines (the fusion alone too, now over the
 interconnect), every step a replay.  When
@@ -87,7 +87,6 @@ def heads(device, card, rank_label=None):
             assert abs(a - b) <= 1e-6 * abs(b), (name, k, a, b)
         cs.same_outputs(name, got, want)
     out, out_aux = step(rs, ds), step_aux(rs, ds, aux)
-    assert bf.route() == "batched", bf.route()
     per_step = {k: v / 6 for k, v in kernels.LAUNCHES.items()}
     if dev.type == "cuda":
         assert step.graph is not None and step_aux.graph is not None

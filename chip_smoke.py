@@ -25,7 +25,9 @@ Phases, one line each, any failure raises and exits non-zero:
      budgets admit (584x512, 352x256, 448x384), and K5, K6, K7 and the
      labels at the stream batch's 4 planes a launch against their batched
      plain versions (K5 also at 8, a second wave of its clusters, and K6 at
-     17, one plane more than its launch takes, so two launches), with CUDA-event median
+     17, one plane more than its launch takes, so two launches), and K4 on
+     4 solves of the 295x295 grid, unseeded and seeded, in one launch, each
+     solve bit for bit its own launch, with CUDA-event median
      times of both, the kernel's device time under torch.profiler (its own
      kernels, without the host's enqueue), the bound (bytes over 3.35 TB/s
      or float32 operations over 67 TFLOP/s, whichever is longer) and, where
@@ -115,6 +117,16 @@ Phases, one line each, any failure raises and exits non-zero:
      then the force path under ``scaled_ftp_config(480, 640)`` with
      ``percentile_method="hist"`` (phase ``hist640``): K3 exactly twice a
      frame and no other kernel, the parity gates below;
+  8a'. the stream batches whose forward holds the ECC and PCG loops and K4
+     (phase ``loop_batches``, ``run_loop_batches``): ``streams640_parity``
+     and ``streams640_prealign`` (4 streams at 640x480) and ``streams4k``
+     (2 streams at 2160x3840, deploy), each one batched forward: every
+     stream bit for bit its single forward, each WHILE node's trips the
+     longest stream's, the batch's graph bit for bit its eager version
+     under the sync debug mode "error" with exact launches and condition
+     setter runs and one ``cudaGraphLaunch`` a call; the graph's p50 and
+     device time against the streams' single replays in a row; the parity
+     batch held to the JAX record;
   8b. the parity preset (the CLI's default numerics), end to end at 640x480
      (``scaled_ftp_config(480, 640)``, phase ``parity640``) and at 2160x3840
      (``FTPConfig()``, phase ``parity4k``): K3 must launch twice a frame (the
@@ -286,14 +298,19 @@ ALIGNMENT_UNDETERMINED = {"parity4k": ("free",), "mm4k_parity": ("free",),
 # warp the force is 0.0105% apart.  On the multimodal parity pair
 # (``mm4k_parity``) the shift lands 0.0094 px from JAX's and the ECC,
 # after the same 4 iterations, 0.0089 px: the volume 0.088% and the force
-# 1.54% apart free-running, 2.8e-5 given JAX's alignment
+# 1.54% apart free-running, 2.8e-5 given JAX's alignment.  The parity
+# stream batch (``streams640_parity``, the streams' own dents) leaves ty flat
+# too: on the port's CPU two of its four streams stop 0.06 and 0.47 px from
+# JAX's ty (13 and 16 iterations against 14 and 26), tx within 0.012 px, the
+# forces 0.0-0.16% apart free-running and 0.0-0.47% given JAX's alignment
 RECORD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
 RELIABLE_MIN = 0.995
 JAX_UNDETERMINED = {"4k": ("free",), "parity4k": ("ecc",), "takeda4k": ("ecc",),
-                    "window4k": ("free", "ecc"), "mm4k_parity": ("free",)}
+                    "window4k": ("free", "ecc"), "mm4k_parity": ("free",),
+                    "streams640_parity": ("ecc",)}
 JAX_PATHS = ("640", "parity640", "hist640", "4k", "parity4k", "temp4k", "temp4k_parity", "mm4k",
              "mm4k_parity", "takeda4k", "window4k", "prealign4k", "prealign640", "streams640",
-             "limb640")
+             "limb640", "streams640_parity")
 # the temperature deploy contract (the JAX TempConfig.deploy): scene mean
 # within 0.1 degC, hottest/coldest pixel within 0.75 degC
 T_MEAN_ATOL, T_EXTREME_ATOL, VALID_RTOL, COLOR_MIN_SHARE = 0.1, 0.75, 0.005, 0.01
@@ -473,6 +490,9 @@ MM_HEIGHT_RTOL, MM_HEIGHT_ATOL, MM_SCALAR_REL = 1e-5, 1e-6, 1e-4
 MM_TMAP_ATOL, MM_STATS_ATOL, MM_FETCH_REL = 1e-4, 1e-3, 1e-6
 # BASELINE config 4 (scripts/bench_streams.py): 4 streams, window 8, EMA 0.2
 STREAMS, WINDOW, EMA_ALPHA, BATCHES = 4, 8, 0.2, 6
+# K4 with a stream axis: a stack of K4_STACK solves of the 295x295 coarse
+# grid is one launch
+K4_STACK, K4_STACK_LAUNCHES = 4, 1
 DENTS_RAD = (0.8, 0.0, 0.5, 0.3, 0.7, 0.1)
 # BASELINE config 5 (scripts/bench_streams.py): the whole-limb heads over the
 # 4 streams at map stride 2, the aux head on a (2H, 2W) canvas; a stream
@@ -526,6 +546,16 @@ GRAPH_SETS = {"temp4k": 2, "temp4k_stats": 2, "temp4k_parity": 0, "temp4k_parity
 # (graph_timing), and the fold's angles (its quarter turns 0, 1, 1, -1, 2)
 GRAPH_TIMED = ("640", "4k", "parity4k", "temp4k", "temp4k_stats", "temp4k_parity_stats",
                "mm4k_fused_scalars", "mm4k_parity_fused_scalars", "limb640_aux")
+# the stream batches whose forward holds the ECC and PCG loops and K4
+# (run_loop_batches): name -> (the path whose configuration it runs, its
+# streams); a batch launches what one frame of that path launches, but K2
+# once a stream: the non-fused IRLS runs once a stream (ops/polyfit.py)
+LOOP_BATCHES = {"streams640_parity": ("parity640", STREAMS),
+                "streams640_prealign": ("prealign640", STREAMS), "streams4k": ("4k", 2)}
+PATH_EXACT_LAUNCHES.update({k: {kn: v * (n if kn == "masked_median_mad" else 1)
+                                for kn, v in GRAPH_LAUNCHES[b].items()}
+                            for k, (b, n) in LOOP_BATCHES.items()})
+PATH_KERNELS.update({k: tuple(GRAPH_LAUNCHES[b]) for k, (b, _) in LOOP_BATCHES.items()})
 # the stream batch's graphs (a batch, one batched forward, launches FRAME_640):
 # BatchedForce.batched(), the StreamingForce step, the two whole-limb steps
 STREAM_GRAPHS = ("streams640", "streams640_step", "limb640", "limb640_aux")
@@ -550,7 +580,6 @@ class GraphPath(NamedTuple):
     graph: Callable
     sets: Optional[int] = None
     state: Optional[Callable] = None
-    stream_route: Optional[str] = None
 # the runner's file contract without figures (matplotlib), as the JAX runner
 # writes it (tests/test_torch_runner.py and tests/test_torch_cli.py hold
 # these to the JAX trees): the force command with --export-heightmaps, and
@@ -723,6 +752,18 @@ def kernel_cases(device):
     k4_loop_args = (S_c, T_c, sm_c, torch.zeros(3, dtype=torch.float32, device=device), 4,
                     *loop4)
     k4_seeded_args = (S_c, T_c, sm_c, t(np.array([0.002, 0.5, -0.3], np.float32)), 4, *loop4)
+    # K4 with a stream axis: K4_STACK solves of the coarse grid at their own
+    # warps, unseeded and seeded, in one launch
+    k4_warps = [(0.002, 0.3, -0.2), (-0.003, -0.6, 0.4), (0.001, 0.8, 0.5), (0.004, -0.2, -0.7)]
+    moved_s = torch.stack([warp_affine_inverse_shear(base_c, t(np.array(
+        [[np.cos(a), -np.sin(a), x], [np.sin(a), np.cos(a), y]], np.float32)), K=4)
+        for a, x, y in k4_warps[:K4_STACK]])
+    S_s, T_s = ecc_prepare(base_c.expand(K4_STACK, n_c, n_c), moved_s, t(disk_c))
+    k4_stack_args = (S_s, T_s, sm_c, torch.zeros((K4_STACK, 3), dtype=torch.float32,
+                                                 device=device), 4, *loop4)
+    k4_stack_seeded_args = (S_s, T_s, sm_c, t(np.array(
+        [[a + 0.001, x - 0.1, y + 0.1] for a, x, y in k4_warps[:K4_STACK]], np.float32)), 4,
+        *loop4)
 
     # K6: wrapped phase of a smooth field with a ramp, over the crop's disk
     field = gaussian_blur(t(rng.standard_normal((h, w)).astype(np.float32)), 12.0,
@@ -749,10 +790,26 @@ def kernel_cases(device):
         return float(d.max())
 
     def k4_loop_check(a, b):
-        say("kernel_check", name="gn_loop_euclidean", iters=int(a[2]), iters_plain=int(b[2]),
-            p=a[0].tolist(), p_plain=b[0].tolist())
-        assert 1 <= int(a[2]), a
+        say("kernel_check", name="gn_loop_euclidean", iters=a[2].tolist(),
+            iters_plain=b[2].tolist(), p=a[0].tolist(), p_plain=b[0].tolist())
+        assert (a[2] >= 1).all(), a
         return k5_check(a, b)
+
+    def k4_stack_check(args):
+        """The stack's loop against the plain version's, and bit for bit
+        against each solve's own launch (``K4_STACK_LAUNCHES`` a stack)."""
+        def check(a, b):
+            from vistaf_torch import kernels
+            kernels.reset_launches()
+            ecc_kernel.gn_loop_euclidean(*args)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["gn_moments_euclidean"] == K4_STACK_LAUNCHES
+            one = [ecc_kernel.gn_loop_euclidean(args[0][i], args[1][i], args[2], args[3][i],
+                                                *args[4:]) for i in range(K4_STACK)]
+            for k, (x, y) in enumerate(zip(a, zip(*one))):
+                assert torch.equal(x, torch.stack(y)), ("K4 stack against single solves", k)
+            return k4_loop_check(a, b)
+        return check
 
     def k7_check(a, b):
         err = float((a - b).abs().max())
@@ -975,6 +1032,10 @@ def kernel_cases(device):
          k4_loop_check),
         (*k4, ecc_kernel.gn_moments_euclidean, ecc_kernel.gn_moments_euclidean_plain,
          k4_args, k4_check),
+        (*k4, ecc_kernel.gn_loop_euclidean, ecc_kernel.gn_loop_euclidean_plain, k4_stack_args,
+         k4_stack_check(k4_stack_args)),
+        (*k4, ecc_kernel.gn_loop_euclidean, ecc_kernel.gn_loop_euclidean_plain,
+         k4_stack_seeded_args, k4_stack_check(k4_stack_seeded_args)),
         (*k6, k6_args, k6_check),
         (*k5, k5_big_args, k5_check),
         (*k6, k6_big_args, k6_check),
@@ -1109,8 +1170,10 @@ def work(name: str, args, out):
     hw = args[1].numel()                  # every plane's pixels
     taps = 2 * int(args[3] if name == "ecc_loop_euclidean" else args[4]) + 1
     per_iter = hw * (2 * taps * (4 + 4 * 2) + 60)   # two hat passes, moment rows
-    if name == "gn_moments_euclidean" and isinstance(out, tuple):   # K4's loop
-        return 4 * (6 * hw + 3 + 6), per_iter * max(1, int(out[2]))
+    if name == "gn_moments_euclidean" and isinstance(out, tuple):   # K4's loop(s)
+        solves = out[2].numel()
+        trips = torch.clamp(out[2].to(torch.int64), min=1).reshape(-1)
+        return 4 * (6 * hw + 9 * solves), sum(per_iter // solves * int(k) for k in trips)
     if name == "gn_moments_euclidean":
         return 4 * (6 * hw + 8 + 36), per_iter
     if name == "ecc_loop_euclidean":     # each solve its own trips
@@ -1197,7 +1260,7 @@ def phase_kernels(device):
             one["lab_only_ms"] = cuda_ms(lambda: lab(*args))
             one["lab_only_device_ms"] = device_ms(lambda: lab(*args))
         if name == "gn_moments_euclidean" and isinstance(got, tuple):   # K4's loop
-            one["iters"] = int(got[2])
+            one["iters"] = got[2].tolist()
         say("kernel", name=name, **one)
         row = rows.setdefault(name, {"name": name, "route": "cuda", "source": source,
                                      "replaces": replaces, "launches": 0,
@@ -1362,9 +1425,15 @@ def warp_gap_px(a, b) -> float:
 def force_gaps(res, rec, reliable):
     """A force result's gaps to the JAX record's result ``rec`` (its
     reliable mask ``reliable``)."""
+    return dict(force_gap=rel_gap(res["force_N"], rec["force_N"]),
+                volume_gap=rel_gap(res["volume_cm3"], rec["volume_cm3"]),
+                **alignment_gaps(res, rec, reliable))
+
+
+def alignment_gaps(res, rec, reliable):
+    """``force_gaps`` but the force's: the alignment, carrier bins and
+    reliable mask against the JAX record's."""
     return dict(
-        force_gap=rel_gap(res["force_N"], rec["force_N"]),
-        volume_gap=rel_gap(res["volume_cm3"], rec["volume_cm3"]),
         ecc_warp_gap_px=warp_gap_px(res["dbg_ecc_warp"], rec["dbg_ecc_warp"]),
         global_shift_gap_px=float(np.abs(np.asarray(res["dbg_global_shift"], np.float64)
                                          - rec["dbg_global_shift"]).max()),
@@ -1958,21 +2027,6 @@ def no_syncs(on: bool = True):
         torch.cuda.set_sync_debug_mode(0)
 
 
-def single_stream_sets(cfg, batches, device) -> int:
-    """The condition setter's runs when each stream of ``batches`` (device
-    (ref, def) stacks) goes alone through a replayed single forward
-    (``FTPPipeline.forward``): what a stream batch's graph must run."""
-    from vistaf_torch.ftp.pipeline import FTPPipeline
-    from vistaf_torch.kernels import graph_cond_kernel
-    pipe = FTPPipeline(cfg, P2H_MODEL, device=device)
-    pipe.forward(batches[0][0][0], batches[0][1][0])      # the capture call
-    graph_cond_kernel.reset_sets(device)
-    for refs, frames in batches:
-        for r, d in zip(refs, frames):
-            pipe.forward(r, d)
-    return graph_cond_kernel.sets(device)
-
-
 def ecc_probe(ftp) -> list:
     """Wrap ``ftp._ecc`` to keep each call's iteration count tensor: in a
     captured forward the graph's own, which each replay rewrites."""
@@ -2106,23 +2160,15 @@ def run_graph(device, rows, card):
                 lambda r, d: se.eager(r, d, aux["pose_px"], aux["accel_mss"]), sg,
                 lambda: sg.graph, None)
 
-    stream_sets = None
     for path, make in (("streams640", batched), ("streams640_step", streaming),
                        ("limb640", limb), ("limb640_aux", limb_aux)):
         g, e = pair(cfg_s)
         bg, be = (BatchedForce(p.ftp, FORCE_MODEL) for p in (g, e))
         fn_g, fn_e, routed, graph, state = make(bg, be)
-        # the batched route: one batched forward a batch, one IF node (the
-        # seed pick, taken when any stream's pooled seed fails) a replay;
-        # the per-stream route: the streams' single forwards one by one
-        if bg.route() == "batched":
-            per_call, sets = 1, len(batches)
-        else:
-            if stream_sets is None:
-                stream_sets = single_stream_sets(cfg_s, batches, device)
-            per_call, sets = STREAMS, stream_sets
-        paths.append(GraphPath(path, fn_g, fn_e, batches, (g.ftp, e.ftp), per_call, routed,
-                               graph, sets, state, bg.route()))
+        # one batched forward a batch, one IF node (the seed pick, taken
+        # when any stream's pooled seed fails) a replay
+        paths.append(GraphPath(path, fn_g, fn_e, batches, (g.ftp, e.ftp), 1, routed,
+                               graph, len(batches), state))
     # the temperature forwards on thermochromic frames of distinct seeds,
     # and the fused multimodal steps on the multimodal force halves' pairs:
     # one pipeline a preset replays its graphs and runs its eager forward
@@ -2196,7 +2242,6 @@ def run_graph(device, rows, card):
         want = {k: v * gp.per_call * len(inputs) for k, v in GRAPH_LAUNCHES[path].items()}
         assert launches[0] == launches[1] == want, (path, launches, want)
         say("graph", path=path, pairs=len(inputs), bit_equal=True,
-            **({"stream_route": gp.stream_route} if gp.stream_route else {}),
             ecc_iters=[i[0] for i in iters[0]] if gp.ftps else None,
             launches=launches[0], launches_eager=launches[1], condition_sets=sets,
             captured_launches=gp.graph().launches, capture_s=capture_s,
@@ -2296,10 +2341,9 @@ def run_streams(device, rows, card):
     streams, window 8, EMA 0.2, a sequence of BATCHES batches through
     ``run_overlapped`` (launches counted from 0 over it, exact), held bit
     for bit to the serialized calls, each stream to ``_single`` and the
-    smoothing to the port's CPU ``update``, each stream of the batched
-    route to the per-stream route (``check_stream_route``) and, under the
-    parity preset, the per-stream route to ``_single``
-    (``check_per_stream_route``); the step's and the batch's CUDA
+    smoothing to the port's CPU ``update``, each stream of the batch to
+    the per-stream reference (``check_stream_route``); the step's and the
+    batch's CUDA
     graphs each held bit for bit to their eager versions on GRAPH_PAIRS
     batches (the smoothing state after each too), the replays under the
     sync debug mode "error"; then timed."""
@@ -2311,7 +2355,6 @@ def run_streams(device, rows, card):
 
     cfg, refs, seq = stream_inputs()
     bf = BatchedForce(FTPPipeline(cfg, P2H_MODEL, device=device), FORCE_MODEL)
-    assert bf.route() == "batched", bf.route()
     sf = StreamingForce(bf, STREAMS, window=WINDOW, ema_alpha=EMA_ALPHA)
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -2336,7 +2379,6 @@ def run_streams(device, rows, card):
             assert torch.equal(out[k][s], one[k]), (k, s, out[k], one[k])
     np.testing.assert_array_equal(over[0]["force_raw_N"], out["force_N"].cpu().numpy())
     check_stream_route(device, cfg, bf, refs, seq[:GRAPH_PAIRS])
-    check_per_stream_route(device, refs[:2], seq[0][:2])
     # each graph against its eager version on GRAPH_PAIRS batches of device
     # stacks, the replays under the sync debug mode "error": the step's
     # outputs and smoothing state after each batch, and the batch's forwards
@@ -2379,7 +2421,6 @@ def run_streams(device, rows, card):
         force_raw_N=[o["force_raw_N"].tolist() for o in over],
         force_median_N=[o["force_median_N"].tolist() for o in over],
         in_contact=[o["in_contact"].tolist() for o in over], launches=launches,
-        stream_route=bf.route(),
         launches_per_batch={k: v / BATCHES for k, v in launches.items()})
     say("timing", path="streams640", batches_timed=len(times) - 2,
         p50_ms_per_batch=p50, p90_ms_per_batch=float(np.percentile(times[2:], 90)),
@@ -2436,41 +2477,213 @@ def check_stream_route(device, cfg, bf, refs, batches) -> None:
             x, y = a[k].double().cpu(), p[k].double().cpu()
             gap = (x - y).abs() / torch.clamp(y.abs(), min=1e-30)
             force_rel = max(force_rel, float(torch.where(x == y, 0.0, gap).max()))
-    say("stream_route", route=bf.route(), batches=len(batches), ecc_iters=iters,
+    say("stream_route", batches=len(batches), ecc_iters=iters,
         masks_equal=list(STREAM_MASKS), warp_gap_px=warp_px, force_rel_gap=force_rel,
         not_bit_equal=sorted(not_equal))
     assert warp_px <= ECC_ATOL_PX, warp_px
     assert force_rel <= STREAM_ROUTE_RTOL, force_rel
 
 
-def check_per_stream_route(device, refs, frames) -> None:
-    """A configuration whose forward holds WHILE nodes (the parity preset at
-    640x480: the gather ECC's and the PCG's loops) keeps the per-stream
-    route: ``BatchedForce.route()`` is ``per_stream``, a stack refuses the
-    batched forward, and ``batched()`` (its capture call, then a replay of
-    the streams' single forwards one by one) gives each stream its
-    ``_single``'s bits; one ``stream_route`` line."""
+def loop_nodes(fn):
+    """``fn()`` run eagerly with its conditional nodes counted: (its result,
+    the WHILE nodes' trips in the order they ran, the IF nodes run).  A
+    captured graph of the same forward runs the condition setter
+    sum(trips + 1) + IF nodes times a replay."""
+    from vistaf_torch.kernels import ecc_kernel
+    from vistaf_torch.ops import components, unwrap
+    from vistaf_torch.utils import cuda_graph
+    trips, ifs = [], [0]
+
+    def counted_while(cond, body, state):
+        n = [0]
+
+        def counted(s):
+            n[0] += 1
+            body(s)
+        cuda_graph.device_while(cond, counted, state)
+        trips.append(n[0])
+
+    def counted_if(pred, fn_, out):
+        ifs[0] += 1
+        cuda_graph.device_if(pred, fn_, out)
+
+    saved = ecc_kernel.device_while, unwrap.device_while, components.device_if
+    ecc_kernel.device_while = unwrap.device_while = counted_while
+    components.device_if = counted_if
+    try:
+        return fn(), trips, ifs[0]
+    finally:
+        ecc_kernel.device_while, unwrap.device_while, components.device_if = saved
+
+
+def loop_batch_inputs():
+    """The batches whose forwards hold device loops (LOOP_BATCHES): each
+    one's configuration and (refs, defs) stacks; at 640x480 the first batch
+    of ``stream_inputs()``, at 2160x3840 the 4k path's pair and a second
+    stream's."""
+    from vistaf_torch.utils.synthetic import synthetic_pair
+    cfgs = force_path_configs()
+    _, refs, seq = stream_inputs()
+    out = {}
+    for name, (base, n) in LOOP_BATCHES.items():
+        cfg = cfgs[base][0]
+        if base == "4k":
+            pairs = [synthetic_pair(H4K, W4K, cfg, seed=SEED + s, dent_depth_rad=DENTS_RAD[s])
+                     for s in range(n)]
+            out[name] = (cfg, np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs]))
+        else:
+            out[name] = (cfg, refs[:n], seq[0][:n])
+    return out
+
+
+def run_loop_batches(device, rows, card):
+    """The stream batches whose forward holds the ECC and PCG loops and K4
+    (LOOP_BATCHES: ``parity640``, ``prealign640``, the 4K deploy), each one
+    batched forward (``jax.vmap``): a debug pipeline's batched
+    ``forward_eager`` against each stream's single ``forward_eager`` (every
+    output bit for bit, ``not_bit_equal`` empty), each WHILE node's trips
+    the longest stream's; ``BatchedForce.batched()``'s graph against
+    ``batched_eager`` bit for bit, its replay under the sync debug mode
+    "error" with the batch's exact launches (a frame's: each kernel once a
+    batch) and the condition setter's runs the eager trips' (each WHILE
+    node its trips plus one, an IF node one), one ``cudaGraphLaunch`` and
+    no kernel launch a call; each stream's force bit for bit its
+    ``_single``; one ``loop_batch`` line and one ``timing`` line a batch
+    (the graph's p50 and device time against the streams' ``_single``
+    replays in a row); then the parity batch held to the JAX record
+    (``hold_stream_batch_to_jax``)."""
     import torch
+    from vistaf_torch import kernels
+    from vistaf_torch.ftp.pipeline import FTPPipeline
+    from vistaf_torch.kernels import graph_cond_kernel
+    from vistaf_torch.parallel import BatchedForce
+    from vistaf_torch.utils import profiling
+    for name, (cfg, refs, defs) in loop_batch_inputs().items():
+        base, n = LOOP_BATCHES[name]
+        t0 = time.perf_counter()
+        r, d = torch.as_tensor(refs, device=device), torch.as_tensor(defs, device=device)
+        dbg = FTPPipeline(cfg, P2H_MODEL, device=device, debug_outputs=True)
+        got, trips, ifs = loop_nodes(lambda: dbg.forward_eager(r, d))
+        singles = [loop_nodes(lambda i=i: dbg.forward_eager(r[i], d[i])) for i in range(n)]
+        not_equal = []
+        for k, v in got.items():
+            try:
+                same_outputs(k, v, torch.stack([o[0][k] for o in singles]))
+            except AssertionError:
+                not_equal.append(k)
+        longest = [max(o[1][j] for o in singles) for j in range(len(trips))]
+
+        bf = BatchedForce(FTPPipeline(cfg, P2H_MODEL, device=device), FORCE_MODEL)
+        fn = bf.batched()
+        fn(r, d)                                  # eager, then the capture
+        kernels.reset_launches()
+        eager = bf.batched_eager(r, d)
+        torch.cuda.synchronize()
+        launches_eager = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        kernels.reset_launches()
+        graph_cond_kernel.reset_sets(device)
+        with no_syncs():
+            out = fn(r, d)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        sets = graph_cond_kernel.sets(device)
+        want_sets = sum(t + 1 for t in trips) + ifs
+        one = [bf._single(r[i], d[i]) for i in range(n)]
+        single_equal = all(torch.equal(out[k][i], o[k]) for i, o in enumerate(one)
+                           for k in ("force_N", "max_depth_mm", "volume_cm3"))
+        win = profiling.profile_window(lambda: fn(r, d), 1)
+        per_call = {k: win[k] for k in ("graph_launches_per_frame", "cuda_launches_per_frame",
+                                        "cooperative_or_cluster_launches_per_frame")}
+        say("loop_batch", path=name, streams=n, not_bit_equal=sorted(not_equal),
+            ecc_iters=got["dbg_ecc_iters"].tolist(), while_trips=trips,
+            while_trips_per_stream=[o[1] for o in singles], if_nodes=ifs,
+            condition_sets=sets, launches=launches, per_call=per_call,
+            single_bit_equal=single_equal, force_N=out["force_N"].tolist(),
+            seconds=time.perf_counter() - t0)
+        assert not not_equal and single_equal, (name, not_equal)
+        assert all(len(o[1]) == len(trips) and o[2] == ifs for o in singles), name
+        assert trips == longest, (name, trips, longest)
+        same_outputs(f"{name} graph", out, eager)
+        assert launches_eager == {k: v for k, v in launches.items() if v}, (name, launches)
+        assert sets == want_sets, (name, sets, want_sets)
+        assert per_call == {"graph_launches_per_frame": 1.0, "cuda_launches_per_frame": 0.0,
+                            "cooperative_or_cluster_launches_per_frame": 0.0}, (name, per_call)
+        record_launches(name, rows, launches)
+        # the batch's replay against the streams' single replays in a row
+        # (the route before the batched forward); the profiler's device time
+        # of a few replays only (it takes seconds a replay to tally)
+        t1 = time.perf_counter()
+        reps = 3 if base == "4k" else 10
+        say("timing", path=name, streams=n,
+            p50_ms_per_batch=profiling.cuda_ms(lambda: fn(r, d), reps=reps, warmup=1),
+            singles_p50_ms=profiling.cuda_ms(lambda: [bf._single(r[i], d[i]) for i in range(n)],
+                                             reps=reps, warmup=1),
+            device_ms_per_batch=profiling.device_ms(lambda: fn(r, d), reps=2),
+            seconds=time.perf_counter() - t1, card=card)
+        if name in JAX_PATHS:
+            hold_stream_batch_to_jax(name, cfg, refs, defs, got, out, device)
+        del dbg, bf, fn, got, singles, one, eager, out
+
+
+@jax_timed
+def hold_stream_batch_to_jax(path, cfg, refs, defs, dbg, out, device):
+    """The ``jax`` line of the parity stream batch: each stream of the
+    card's batch (``dbg``, a debug pipeline's batched forward; ``out``,
+    ``BatchedForce.batched()``'s) against the JAX record's batch with
+    parity640's gates, free-running (force within 1%, ECC within 0.05 px,
+    equal carrier bins, reliable masks agreeing on RELIABLE_MIN) and in a
+    second batched forward on the card given each stream's JAX alignment
+    (the global shift and the crop ECC's warp): its force within 1%, its
+    own ECC from JAX's shift within 0.05 px of JAX's warp; the ECC solves
+    reported, not gated, where JAX_UNDETERMINED names 'ecc'."""
+    import torch
+    import vistaf_torch.ftp.pipeline as ftp_pipeline
     from vistaf_torch.ftp.pipeline import FTPPipeline
     from vistaf_torch.parallel import BatchedForce
-    from vistaf_torch.utils.synthetic import scaled_ftp_config
-    bf = BatchedForce(FTPPipeline(scaled_ftp_config(H, W), P2H_MODEL, device=device),
-                      FORCE_MODEL)
-    assert bf.route() == "per_stream" and bf.graph_route(), bf.route()
-    r, d = torch.as_tensor(refs, device=device), torch.as_tensor(frames, device=device)
+    check_jax_inputs(path, refs=refs, defs=defs)
+    paths, bool_map = jax_record()
+    rec = paths[path]["result"]
+    reliable = bool_map(path, "reliable_crop")
+    host = {k: v.cpu().numpy() for k, v in dbg.items()}
+    # the forces within 1% (``contract_gap``: a stream without contact reads 0)
+    force_gap = contract_gap(out["force_N"].cpu(), rec["force_N"])
+    volume_gap = contract_gap(out["volume_cm3"].cpu(), rec["volume_cm3"])
+    free = [dict(force_gap=float(force_gap[i]), volume_gap=float(volume_gap[i]),
+                 **alignment_gaps({k: v[i] for k, v in host.items()}, s, reliable[i]))
+            for i, s in enumerate(rec["streams"])]
+
+    def t(key, dtype=torch.float32):
+        return torch.as_tensor(np.array([s[key] for s in rec["streams"]]), dtype=dtype,
+                               device=device)
+    shift = t("dbg_global_shift")
+    given_ecc = (t("dbg_ecc_warp"), t("dbg_ecc_rho"), t("dbg_ecc_iters", torch.int32))
+    pipe = FTPPipeline(cfg, P2H_MODEL, device=device, debug_outputs=True)
+    own_ecc, solved = pipe._ecc, []
+    pipe._ecc = lambda crop01, **kw: solved.append(own_ecc(crop01, **kw)) or given_ecc
+    phase_correlate = ftp_pipeline.phase_correlate
+    ftp_pipeline.phase_correlate = lambda a, b, win, **kw: (shift[:, 0], shift[:, 1],
+                                                            torch.zeros_like(shift[:, 0]))
     try:
-        bf.pipe.forward_eager(r, d)
-        raise AssertionError("a WHILE forward took a stack")
-    except ValueError:
-        pass
-    bf.batched()(r, d)                        # eager, then the capture
-    out = bf.batched()(r, d)
-    for i in range(r.shape[0]):
-        one = bf._single(r[i], d[i])
-        for k in ("force_N", "max_depth_mm"):
-            assert torch.equal(out[k][i], one[k]), (k, i, out[k], one[k])
-    say("stream_route", path="parity640", route=bf.route(), streams=int(r.shape[0]),
-        bit_equal_single=True, force_N=out["force_N"].tolist())
+        given = BatchedForce(pipe, FORCE_MODEL)._tail(
+            pipe.forward_eager(torch.as_tensor(refs, device=device),
+                               torch.as_tensor(defs, device=device)), streams=True)
+    finally:
+        ftp_pipeline.phase_correlate = phase_correlate
+    own = solved[0][0].cpu().numpy()
+    given_gap = contract_gap(given["force_N"].cpu(), rec["force_N"])
+    same = [dict(force_gap=float(given_gap[i]),
+                 own_ecc_gap_px=warp_gap_px(own[i], s["dbg_ecc_warp"]),
+                 own_ecc_iters=int(solved[0][2][i]))
+            for i, s in enumerate(rec["streams"])]
+    undetermined = JAX_UNDETERMINED.get(path, ())
+    say("jax", path=path, force_N=out["force_N"].tolist(), force_N_jax=rec["force_N"],
+        free=free, given_alignment=same, undetermined=list(undetermined))
+    for f, g in zip(free, same):
+        assert f["carrier_bins_equal"] and f["reliable_agreement"] >= RELIABLE_MIN, (path, f)
+        assert f["force_gap"] <= FORCE_RTOL and g["force_gap"] <= FORCE_RTOL, (path, f, g)
+        if "ecc" not in undetermined:
+            assert f["ecc_warp_gap_px"] < ECC_ATOL_PX, (path, f)
+            assert g["own_ecc_gap_px"] < ECC_ATOL_PX, (path, g)
 
 
 def contract_gap(card, cpu):
@@ -2605,7 +2818,7 @@ def run_limb(device, rows, card):
         contact_area_mm2=float(got["contact_area_mm2"]),
         map_max=limb.max(axis=(1, 2)).tolist(), canvas_max=float(canvas.max()),
         gaps_vs_cpu={k: float(v.max()) for k, v in gaps.items()}, gate_gap=gate_gap,
-        cpu_seconds=cpu_s, launches=launches, stream_route=bf.route(),
+        cpu_seconds=cpu_s, launches=launches,
         launches_per_step={k: v / 2 for k, v in launches.items()})
     for k, v in gaps.items():
         assert float(v.max()) <= FORCE_RTOL, (k, v)
@@ -3393,6 +3606,8 @@ def main() -> int:
     lap("streams640")
     runs["limb640"], runs["limb640_aux"] = run_limb(device, rows, card)
     lap("limb640")
+    run_loop_batches(device, rows, card)
+    lap("loop_batches")
     runs["hist640"] = run_path("hist640", device, rows, *cfgs["hist640"])[1]
     lap("hist640")
     runs["parity640"] = run_path("parity640", device, rows, *cfgs["parity640"])[1]

@@ -14,7 +14,10 @@ each path (its ``SEED``, calibration models and input helpers), and writes
   ``np.packbits`` of the map (its shape is in the JSON), compressed.
 
 into ``tests/fixtures/`` unless ``--out`` names another directory.  With
-``--only`` just those paths run and the files hold only them.  Where a
+``--only`` just those paths run and the files hold only them; with
+``--merge`` too, their entries and maps are added to the record already in
+that directory (every other entry and map kept as it is, this run's
+provenance under ``merged``).  Where a
 Pallas kernel of the JAX package would run on the CPU, it runs as the JAX
 tests run it: the fused temperature kernel in interpret mode under the
 temperature deploy preset, every other kernel through the package's own
@@ -270,6 +273,37 @@ def record_streams(maps):
     return entry
 
 
+def record_streams_parity(maps):
+    """The parity preset's stream batch: the JAX ``BatchedForce.batched()``
+    (``jit(vmap(_single))``) under ``scaled_ftp_config(H, W)`` on the first
+    batch of ``chip_smoke.stream_inputs()``; and each stream's alignment
+    (global shift, crop ECC), carrier bins and reliable mask from the JAX
+    ForcePipeline with debug outputs, which the card's batch is given."""
+    from vistaf_tpu.config import ForceConfig
+    from vistaf_tpu.ftp.pipeline import FTPPipeline
+    from vistaf_tpu.parallel.mesh import BatchedForce
+    from vistaf_tpu.pipelines.force import ForcePipeline
+    from vistaf_tpu.utils.synthetic import scaled_ftp_config
+    jcfg = scaled_ftp_config(H, W)
+    _, refs, seq = smoke.stream_inputs()
+    defs = seq[0]
+    entry = {"kind": "streams", "shape": [H, W], "config": asdict(jcfg),
+             "streams": smoke.STREAMS,
+             "inputs": {"refs": smoke.input_digest(refs), "defs": smoke.input_digest(defs)}}
+    out = BatchedForce(FTPPipeline(jcfg, smoke.P2H_MODEL), smoke.FORCE_MODEL).batched()(
+        refs, defs)
+    res = {k: plain(v) for k, v in out.items() if k != "height_map_mm"}
+    force = ForcePipeline(jcfg, ForceConfig(), smoke.P2H_MODEL, smoke.FORCE_MODEL,
+                          debug_outputs=True)
+    singles = [force(refs[b], defs[b]) for b in range(smoke.STREAMS)]
+    res["streams"] = [{k: plain(o[k]) for k in FORCE_ARRAYS + ("force_N", "volume_cm3")}
+                      for o in singles]
+    entry["result"] = res
+    maps.add(entry, "streams640_parity", "reliable_crop",
+             np.stack([o["reliable_crop"] for o in singles]))
+    return entry
+
+
 def record_limb(maps):
     from jax.sharding import NamedSharding, PartitionSpec as P
     from vistaf_tpu.ftp.pipeline import FTPPipeline
@@ -317,6 +351,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", nargs="*", choices=ORDER, help="paths to run (default: all)")
     ap.add_argument("--out", default=os.path.join(ROOT, "tests", "fixtures"))
+    ap.add_argument("--merge", action="store_true",
+                    help="add the paths run to the record in --out")
     args = ap.parse_args(argv)
     forces = force_configs()
     maps, paths = Maps(), {}
@@ -331,6 +367,8 @@ def main(argv=None) -> int:
             entry = record_multimodal(path, MM_PATHS[path], maps)
         elif path == "streams640":
             entry = record_streams(maps)
+        elif path == "streams640_parity":
+            entry = record_streams_parity(maps)
         else:
             entry = record_limb(maps)
         entry["seconds"] = time.perf_counter() - t0
@@ -339,6 +377,15 @@ def main(argv=None) -> int:
         jax.clear_caches()
     record = {"provenance": {**provenance(), "seconds": time.perf_counter() - t_all},
               "maps": "jax_record_maps.npz", "paths": paths}
+    if args.merge:
+        with open(os.path.join(args.out, "jax_record.json")) as f:
+            old = json.load(f)
+        with np.load(os.path.join(args.out, old["maps"])) as z:
+            arrays = {k: z[k] for k in z.files if k.split("/")[0] not in paths}
+        old["provenance"].setdefault("merged", []).append(
+            {**record["provenance"], "paths": sorted(paths)})
+        record = {**old, "paths": {**old["paths"], **paths}}
+        maps.arrays = {**arrays, **maps.arrays}
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "jax_record.json"), "w") as f:
         json.dump(record, f, indent=1, sort_keys=True)

@@ -20,8 +20,6 @@ It prints one JSON line:
 - ``per_stream_ms`` / ``per_stream_host_ms``: the batch as it ran before
   one graph held it: each stream through the forward's own graph, the
   volume -> force tail op by op, the stack and ``update``;
-- ``stream_route``: the route the step's batch takes (``batched``: one
-  batched forward, ``per_stream``: the streams one by one);
 - ``device_ops_batch`` / ``device_ops_frame`` / ``device_ops_per_stream``:
   device operations (kernels, copies, fills) one replay of the step's
   graph / of one stream's forward graph / the per-stream batch above runs,
@@ -118,7 +116,7 @@ def main() -> int:
                aux_step_host_ms=host_ms(lambda: step(rs, ds, aux)),
                aux_replay_ms=ms(step.graph.graph.replay),
                aux_replay_host_ms=host_ms(step.graph.graph.replay))
-    out.update(stream_route=bf.route(), device_ops_batch=device_ops(graph.replay),
+    out.update(device_ops_batch=device_ops(graph.replay),
                device_ops_frame=device_ops(single.replay),
                device_ops_per_stream=device_ops(per_stream))
     # the same replays once torch.profiler has traced the card in the process

@@ -20,8 +20,9 @@ the streams in its grid) on the CPU.
   stream, which compiles in about half the time of the vmapped forward)
   within ``test_torch_multimodal.py``'s deploy-contract tolerances; the
   batched body under the host-read guard.
-- The route: by configuration and shape only; a forward with a WHILE node
-  (the parity preset) runs its streams one by one and refuses a stack.
+- Every configuration is batched: the parity preset (the gather ECC's and
+  the PCG's WHILE nodes), the prealignment (K4), a PCG unwrap, K4's crop
+  ECC and the deploy preset's knobs each take a stack in one forward.
 """
 import dataclasses
 
@@ -228,9 +229,9 @@ def test_batched_forward_matches_the_per_stream_route(streams):
     """One forward over the (3, H, W, 3) stacks against each stream's single
     forward: every mask, the reliable mask's labels and the ECC iterations
     equal, every float within 1e-5 relative (of its map's largest
-    magnitude); and ``BatchedForce``'s two routes alike."""
+    magnitude); and ``BatchedForce``'s batched forward alike its
+    per-stream reference."""
     pipe = streams["pipe"]
-    assert pipe.batch_route()
     refs, defs = T(streams["refs"]), T(streams["defs"])
     kernels.reset_launches()
     got = pipe.forward_eager(refs, defs)
@@ -246,7 +247,6 @@ def test_batched_forward_matches_the_per_stream_route(streams):
     assert torch.equal(label(got["reliable_crop"]),
                        torch.stack([label(o["reliable_crop"]) for o in one]))
     bf = BatchedForce(FTPPipeline(streams["cfg"], P2H, device="cpu"), FORCE)
-    assert bf.route() == "batched"
     a, b = bf.batched_eager(refs, defs), bf.per_stream_eager(refs, defs)
     assert set(a) == set(b)
     for k in a:
@@ -287,21 +287,22 @@ def test_batched_body_reads_nothing_on_the_host(streams, monkeypatch):
 
 
 def test_route_is_by_configuration_and_shape(streams):
-    """The parity preset (the gather ECC's and the PCG's WHILE nodes), the
-    prealignment (K4) and a PCG unwrap run per stream and refuse a stack;
-    the deploy preset and its knobs that keep K5 and K6 run batched."""
+    """Every configuration is batched: the parity preset (the gather ECC's
+    and the PCG's WHILE nodes), the prealignment (K4), a PCG unwrap, K4's
+    crop ECC and the deploy preset's knobs each run a stack as one forward
+    (``BatchedForce.batched_eager``), each stream's force its single
+    forward's; a second stream axis raises."""
     cfg = streams["cfg"]
-    per_stream = {"parity": ftp_config_from_dict(dataclasses.asdict(scaled_ftp_config(H, W))),
-                  "prealign": cfg.replace(use_grating_band_prealign=True),
-                  "pcg": cfg.replace(unwrap_method="wls"),
-                  "k4": cfg.replace(ecc_loop_kernel=False)}
-    batched = {"deploy": cfg, "no_ecc": cfg.replace(use_ecc_crop_alignment=False),
+    configs = {"parity": ftp_config_from_dict(dataclasses.asdict(scaled_ftp_config(H, W))),
+               "prealign": cfg.replace(use_grating_band_prealign=True),
+               "pcg": cfg.replace(unwrap_method="wls"),
+               "k4": cfg.replace(ecc_loop_kernel=False),
+               "deploy": cfg, "no_ecc": cfg.replace(use_ecc_crop_alignment=False),
                "hist": cfg.replace(percentile_method="hist", polyfit_kernel=False)}
-    refs, defs = T(streams["refs"]), T(streams["defs"])
-    for name, c in per_stream.items():
+    refs, defs = T(streams["refs"][:2]), T(streams["defs"][:2])
+    for name, c in configs.items():
         bf = BatchedForce(FTPPipeline(c, P2H, device="cpu"), FORCE)
-        assert bf.route() == "per_stream" and not bf.pipe.batch_route(), name
-        with pytest.raises(ValueError, match="per stream"):
-            bf.pipe.forward_eager(refs, defs)
-    for name, c in batched.items():
-        assert BatchedForce(FTPPipeline(c, P2H, device="cpu"), FORCE).route() == "batched", name
+        got, want = bf.batched_eager(refs, defs), bf.per_stream_eager(refs, defs)
+        assert torch.equal(got["force_N"], want["force_N"]), name
+    with pytest.raises(ValueError, match="one stream axis"):
+        bf.pipe.forward_eager(refs[None], defs[None])

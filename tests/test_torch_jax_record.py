@@ -45,7 +45,8 @@ def port_configs():
     out.update(temp4k=(None, TempConfig().deploy()), temp4k_parity=(None, TempConfig()),
                mm4k=(FTPConfig().deploy(), TempConfig().deploy()),
                mm4k_parity=(FTPConfig(), TempConfig()),
-               streams640=(smoke.stream_inputs()[0], None), limb640=(smoke.limb_inputs()[0], None))
+               streams640=(smoke.stream_inputs()[0], None), limb640=(smoke.limb_inputs()[0], None),
+               streams640_parity=(forces["parity640"][0], None))
     return out
 
 
@@ -95,7 +96,7 @@ def test_configuration_is_the_ports_preset(record, port_configs, path):
         assert entry["temp_config"] == normal(temp)
     if "force_config" in entry:
         assert entry["force_config"] == normal(ForceConfig())
-    assert entry["shape"] == ([smoke.H, smoke.W] if path.endswith("640")
+    assert entry["shape"] == ([smoke.H, smoke.W] if "640" in path
                               else [smoke.H4K, smoke.W4K])
 
 

@@ -80,17 +80,18 @@ def J(a):
 
 def given(alignment, own):
     """While the block runs, every port FTPPipeline takes the global shift
-    and ECC warp ``alignment()`` returns (keys of ``ALIGNMENT``, numpy),
-    solving its own ECC too, appended to ``own``."""
+    and ECC warp ``alignment()`` returns (keys of ``ALIGNMENT``, numpy; a
+    batched forward's stacked a stream), solving its own ECC too, appended
+    to ``own``."""
     saved = tpipe.phase_correlate, tpipe.FTPPipeline._ecc
 
-    def ecc(pipe, crop01):
-        own.append(saved[1](pipe, crop01))
+    def ecc(pipe, crop01, **stream_kw):
+        own.append(saved[1](pipe, crop01, **stream_kw))
         return tuple(T(alignment()[k]) for k in ALIGNMENT[1:])
 
-    def correlate(a, b, win):
+    def correlate(a, b, win, **stream_kw):
         shift = T(alignment()["dbg_global_shift"])
-        return shift[0], shift[1], torch.zeros(())
+        return shift[..., 0], shift[..., 1], torch.zeros(shift.shape[:-1])
 
     class Patch:
         def __enter__(self):
@@ -116,20 +117,6 @@ class _JaxAlignedForce(jmesh.BatchedForce):
                 "height_map_mm": height, **{k: res[k] for k in ALIGNMENT}}
 
 
-class _GivenAlignment(tmesh.BatchedForce):
-    """The port's ``BatchedForce`` with each stream given JAX's alignment of
-    that stream (found by its reference frame)."""
-
-    def __init__(self, pipe, model, refs, jres, own):
-        super().__init__(pipe, model)
-        self.refs, self.jres, self.own, self.k = T(refs), jres, own, 0
-
-    def _single(self, ref, de):
-        self.k = next(i for i in range(len(self.refs)) if torch.equal(self.refs[i], ref))
-        with given(lambda: {n: self.jres[n][self.k] for n in ALIGNMENT}, self.own):
-            return super()._single(ref, de)
-
-
 @pytest.fixture(scope="module")
 def streams():
     jc = scaled_ftp_config(H, W).deploy().replace(**BUDGETS).replace(
@@ -142,11 +129,16 @@ def streams():
     kernels.reset_launches()
     free = tmesh.BatchedForce(FTPPipeline(tc, gates.P2H, device="cpu"),
                               gates.FORCE).batched()(refs, defs)
+    # the batched forward given each stream's JAX alignment, its own ECC
+    # solved beside it (one batched solve, split a stream)
     own = []
-    aligned = _GivenAlignment(FTPPipeline(tc, gates.P2H, device="cpu"), gates.FORCE, refs, jres,
-                              own).batched()(refs, defs)
+    with given(lambda: {n: jres[n] for n in ALIGNMENT}, own):
+        aligned = tmesh.BatchedForce(FTPPipeline(tc, gates.P2H, device="cpu"),
+                                     gates.FORCE).batched()(refs, defs)
+    (solved,) = own
     return dict(jres=jres, free={k: v.numpy() for k, v in free.items()},
-                aligned={k: v.numpy() for k, v in aligned.items()}, own=own,
+                aligned={k: v.numpy() for k, v in aligned.items()},
+                own=[tuple(x[i] for x in solved) for i in range(len(STREAMS))],
                 launches=dict(kernels.LAUNCHES))
 
 

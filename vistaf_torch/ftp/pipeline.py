@@ -45,10 +45,10 @@ nodes of that graph (``device_while``, ``device_if``).  Debug and
 kernel is launched once with the streams in its grid, as ``jax.vmap`` of the
 JAX forward runs them; the few ops whose bits depend on how many streams
 share a call run once a stream (``ops/streams.py``), so each stream's
-result is bit for bit its own forward's.  Stacks take that
-route where ``batch_route`` holds (no stage of the forward is a WHILE node
-or K4: the ECC is K5 or off, no prealignment, the unwrap is K6); elsewhere
-a caller runs the streams one by one (``parallel/mesh.py``).
+result is bit for bit its own forward's.  Every configuration takes
+stacks: the ECC and PCG loops run while any stream's solve is live, a
+stopped stream's state frozen (one WHILE node a loop under a capture), and
+K4, like K5 and K6, takes every stream's solve in one launch.
 """
 from __future__ import annotations
 
@@ -78,7 +78,6 @@ from vistaf_torch.ops.morphology import dilate, ellipse_kernel
 from vistaf_torch.ops.percentile import get_percentile_fn, masked_max
 from vistaf_torch.ops.polyfit import robust_polyfit2d
 from vistaf_torch.ops.registration import ECC_MODES, ecc_align, phase_correlate
-from vistaf_torch.ops.registration import batch_route as ecc_batch_route
 from vistaf_torch.ops.streams import each
 from vistaf_torch.ops.unwrap import unwrap_wls
 from vistaf_torch.ops.warp import (translate_bilinear, warp_affine_inverse_map,
@@ -251,27 +250,6 @@ class FTPPipeline:
                    and cfg.ecc_warp_mode == "euclidean")
         return use_ds, ds, use_c2f, cds
 
-    def batch_route(self) -> bool:
-        """Whether ``forward_eager`` takes (B, H, W, 3) stacks of frame
-        pairs, every stream in one batched forward (``jax.vmap``): by
-        configuration and shape only, where no stage holds a WHILE node or
-        a K4 solve, which take no stream axis: the crop ECC is K5
-        (``registration.batch_route``) or off, there is no grating-band
-        prealignment (its ECC is K4 or the device loop), and the unwrap is
-        K6 (the pooled and the plain PCG are device loops).  The 640
-        deploy preset qualifies; the parity presets and the native-4K
-        routes do not."""
-        cfg, g = self.cfg, self.geom
-        if cfg.use_grating_band_prealign:
-            return False
-        if cfg.use_ecc_crop_alignment:
-            use_ds, ds, use_c2f, _ = self._ecc_plan()
-            shape = (g.crop_h // ds, g.crop_w // ds) if use_ds else (g.crop_h, g.crop_w)
-            if not ecc_batch_route(cfg.ecc_warp_mode, cfg.ecc_sampler, shape,
-                                   cfg.ecc_loop_kernel, seeded=use_c2f):
-                return False
-        return unwrap_route(cfg, (g.crop_h, g.crop_w))[0] == "k6"
-
     def graph_route(self) -> bool:
         """Whether ``forward`` replays a CUDA graph: on the card, with
         neither ``stop_after`` nor ``debug_outputs``.
@@ -358,7 +336,7 @@ class FTPPipeline:
             pooled_c, circ_c, k_c = self._pool_crop(crop01, cds, streams)
             warp_c, _, _ = ecc_align(pooled_c[..., 0, :, :], pooled_c[..., 1, :, :], circ_c,
                                      max_iters=cfg.ecc_iters, shear_k=k_c,
-                                     loop_kernel=False, **kw)
+                                     loop_kernel=False, streams=streams, **kw)
             theta_c = torch.atan2(warp_c[..., 1, 0], warp_c[..., 0, 0])
             p_seed = torch.stack([theta_c, warp_c[..., 0, 2] * (float(cds) / float(ds)),
                                   warp_c[..., 1, 2] * (float(cds) / float(ds))], dim=-1)
@@ -386,7 +364,7 @@ class FTPPipeline:
         return (ftp_complex_demod(ref_gray, apo, cfg, consts, streams=streams),
                 ftp_complex_demod(def_gray, apo, cfg, consts, streams=streams))
 
-    def _grating_band_prealign(self, ref_gray, def_gray, pctl):
+    def _grating_band_prealign(self, ref_gray, def_gray, pctl, streams=False):
         """The reference's grating prealignment: a pass-1 demod of the pair
         and its reliable mask, the alignment band (ROI pixels outside the
         optionally dilated reliable region, within
@@ -394,10 +372,11 @@ class FTPPipeline:
         when the pass-1 mask is empty), the percentile-normalised high-pass
         of both frames rounded to 8 bits, the ECC over the band
         (``_prealign_ecc``; the identity for an empty band), and
-        ``def_gray`` warped by it."""
+        ``def_gray`` warped by it.  On stacks every test of a mask is the
+        stream's own plane's."""
         cfg, roi = self.cfg, self.roi
-        dref1, ddef1 = self._demod(ref_gray, def_gray)
-        reliable1, _ = self._reliable_mask(dref1, ddef1, roi, pctl)
+        dref1, ddef1 = self._demod(ref_gray, def_gray, streams=streams)
+        reliable1, _ = self._reliable_mask(dref1, ddef1, roi, pctl, streams=streams)
         rel = reliable1 & roi
         if cfg.grating_prealign_dilate_reliable_px > 0:
             d = int(cfg.grating_prealign_dilate_reliable_px)
@@ -407,37 +386,39 @@ class FTPPipeline:
         if band > 0:
             dist = get_distance_fn(cfg.distance_metric)(~rel, max_dist=band + 4)
             banded = align_mask & (torch.clamp(dist - 1.0, min=0.0) <= float(band))
-            align_mask = torch.where(rel.any(), banded, align_mask)
+            align_mask = torch.where(plane_any(rel), banded, align_mask)
 
         def highpass_u8(img):
             x = img.to(torch.float32)
             sig = float(cfg.grating_prealign_hp_sigma_px)
-            hp = x - gaussian_blur(x, sig, self.consts) if sig > 0 else x
-            p = pctl(hp, align_mask, (1.0, 99.0))
-            span = torch.clamp(p[1] - p[0], min=1e-6)
-            return torch.round(255.0 * torch.clamp((hp - p[0]) / span, 0.0, 1.0))
+            hp = x - gaussian_blur(x, sig, self.consts, streams=streams) if sig > 0 else x
+            p = pctl(hp, align_mask, (1.0, 99.0))[..., None, None, :]
+            span = torch.clamp(p[..., 1] - p[..., 0], min=1e-6)
+            return torch.round(255.0 * torch.clamp((hp - p[..., 0]) / span, 0.0, 1.0))
 
-        hp_pair = torch.stack([highpass_u8(ref_gray), highpass_u8(def_gray)]) / 255.0
+        hp_pair = torch.stack([highpass_u8(ref_gray), highpass_u8(def_gray)], dim=-3) / 255.0
         if cfg.grating_prealign_ecc_gauss_filt > 0:
             hp_pair = gaussian_blur(hp_pair, float(cfg.grating_prealign_ecc_gauss_filt),
-                                    self.consts)
-        warp = self._prealign_ecc(hp_pair, align_mask)
+                                    self.consts, streams=streams)
+        warp = self._prealign_ecc(hp_pair, align_mask, **({"streams": True} if streams else {}))
         if cfg.ecc_sampler == "shear":
             return warp_affine_inverse_shear(def_gray, warp, K=cfg.ecc_shear_k)
         return warp_affine_inverse_map(def_gray, warp, border="reflect")
 
-    def _prealign_ecc(self, hp_pair, align_mask):
-        """The prealignment's ECC on the high-passed pair, the identity when
-        the band is empty.  ``loop_kernel=False``, as the JAX package calls
-        it: within K4's budget the per-iteration loop, never K5."""
+    def _prealign_ecc(self, hp_pair, align_mask, streams=False):
+        """The prealignment's ECC on the high-passed (..., 2, H, W) pair, the
+        identity where the band is empty.  ``loop_kernel=False``, as the JAX
+        package calls it: within K4's budget the per-iteration loop, never
+        K5."""
         cfg = self.cfg
-        warp, _, _ = ecc_align(hp_pair[0], hp_pair[1], align_mask,
+        warp, _, _ = ecc_align(hp_pair[..., 0, :, :], hp_pair[..., 1, :, :], align_mask,
                                mode=cfg.grating_prealign_ecc_mode,
                                max_iters=cfg.grating_prealign_ecc_iters,
                                eps=cfg.grating_prealign_ecc_eps, stride=cfg.ecc_stride,
                                sampler=cfg.ecc_sampler, shear_k=cfg.ecc_shear_k,
-                               stall_patience=cfg.ecc_stall_patience, loop_kernel=False)
-        return torch.where(align_mask.any(), warp, self._identity_warp)
+                               stall_patience=cfg.ecc_stall_patience, loop_kernel=False,
+                               streams=streams)
+        return torch.where(plane_any(align_mask), warp, self._identity_warp)
 
     def _detrend_two_pass(self, phase_unwrapped, reliable, pctl, streams=False):
         """The two-pass detrend: a first fit over the reliable mask, the
@@ -494,13 +475,11 @@ class FTPPipeline:
                       ) -> Dict[str, torch.Tensor]:
         """The forward op by op on device tensors (BGR uint8 frames): what
         the CUDA graph captures, and the route of every pipeline that does
-        not replay one.  Two (B, H, W, 3) stacks (where ``batch_route``
-        holds) run as one batched forward: every output gains the leading
-        stream axis."""
+        not replay one.  Two (B, H, W, 3) stacks run as one batched
+        forward (``jax.vmap``): every output gains the leading stream axis."""
         lead = ref_bgr.shape[:-3]
-        if len(lead) > 1 or (lead and not self.batch_route()):
-            raise ValueError(f"a stack of {tuple(lead)} frame pairs: this configuration's "
-                             f"forward runs per stream (FTPPipeline.batch_route)")
+        if len(lead) > 1:
+            raise ValueError(f"frames of shape {tuple(ref_bgr.shape)}: one stream axis at most")
         return self._forward_ops(ref_bgr, def_bgr, lead)
 
     def _forward_ops(self, ref_bgr: torch.Tensor, def_bgr: torch.Tensor, lead
@@ -547,7 +526,7 @@ class FTPPipeline:
             else:
                 def_gray = warp_affine_inverse_map(def_gray, ecc_warp, border="reflect")
         if cfg.use_grating_band_prealign:
-            def_gray = self._grating_band_prealign(ref_gray, def_gray, pctl)
+            def_gray = self._grating_band_prealign(ref_gray, def_gray, pctl, **stream_kw)
         if self.stop_after == "align":
             return {"x": def_gray}
 

@@ -114,6 +114,12 @@ _SIGNATURES = {
     # S, T, SM, p0, coeffs, out, part, h, w, K, nr, nc, max_iters, eps,
     # stall_patience, stream
     "vt_gn_loop_euclidean": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # n, h, w, K, nr, nc -> the solves a wave of an n-solve stack holds
+    "vt_gn_loop_stack_slots": (_I, _I, _I, _I, _I, _I),
+    # S, T, SM, p0, out, part, n, h, w, K, nr, nc, max_iters, eps,
+    # stall_patience, stream
+    "vt_gn_loop_euclidean_stack": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                   _P),
     # S, T, SM, out, solves, h, w, K, max_iters, eps, stall_patience, stream
     "vt_ecc_loop_euclidean": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     # Hp, Wp -> float elements of the scratch

@@ -30,6 +30,14 @@ on the same bits.  ``gn_moments_euclidean`` is the same kernel run for one
 iteration from given shear scalars, writing the summed matrix.
 ``LAUNCHES["gn_moments_euclidean"]`` counts one per solve or matrix.  A
 shape above ``fits`` raises ``ValueError`` before any launch.
+
+A stack of B solves (``jax.vmap`` of the JAX loop, K4 vmapped inside it) is
+one cooperative launch counted once: as many solves' tilings as are resident
+at once, the stack in waves of that many, each solve with its own sums, step
+and stop, frozen once it stops.  A solve's tiling depends on its shape only
+(``tile_plan`` against the SM count, never B), so each solve of a stack is
+bit for bit its single launch.  The plain version of a stack is ``gn_loop``
+over the stacked plain moments, the loop running while any solve is live.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from typing import Callable, List
 import torch
 
 from vistaf_torch import kernels
+from vistaf_torch.ops.streams import each, keep_live
 from vistaf_torch.ops.warp import hat_resample_axis
 from vistaf_torch.utils.cuda_graph import device_while
 
@@ -57,39 +66,45 @@ def fits(shape) -> bool:
 
 def shear_coeffs(p: torch.Tensor) -> torch.Tensor:
     """The 8 scalars of the euclidean warp p = (theta, tx, ty), on p's
-    device, in the JAX package's order (``ops/registration.py:257-264``)."""
-    c, s = torch.cos(p[0]), torch.sin(p[0])
-    a00, a01, a02 = c, -s, p[1]
-    a10, a11, a12 = s, c, p[2]
+    device, in the JAX package's order (``ops/registration.py:257-264``);
+    (..., 8) for a (..., 3) stack of warps."""
+    c, s = torch.cos(p[..., 0]), torch.sin(p[..., 0])
+    a00, a01, a02 = c, -s, p[..., 1]
+    a10, a11, a12 = s, c, p[..., 2]
     r = a10 / a00
     return torch.stack([r, a11 - r * a01 - 1.0, a12 - r * a02,
-                        a00 - 1.0, a01, a02, c, s])
+                        a00 - 1.0, a01, a02, c, s], dim=-1)
 
 
 def moment_rows(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor, co,
                 K: int) -> torch.Tensor:
     """(6, H*W) moment rows of the warp given by its 8 scalars ``co`` (floats
-    or 0-d tensors): the JAX package's ``warp_moment_rows``."""
-    cy_u, cy_v, cy_c, cx_u, cx_v, cx_c, c, s = co
-    H, W = T.shape
+    or 0-d tensors): the JAX package's ``warp_moment_rows``.  A (..., 4, H,
+    W) stack with (..., H, W) templates and (...,) scalars gives (..., 6,
+    H*W)."""
+    cy_u, cy_v, cy_c, cx_u, cx_v, cx_c, c, s = (
+        x[..., None, None] if isinstance(x, torch.Tensor) else x for x in co)
+    H, W = T.shape[-2:]
     vv = torch.arange(H, dtype=torch.float32, device=T.device)[:, None].expand(H, W)
     uu = torch.arange(W, dtype=torch.float32, device=T.device)[None, :].expand(H, W)
     mid = hat_resample_axis(S_cf, cy_u * uu + cy_v * vv + cy_c, K, axis=1)
-    iw, gxw, gyw, mw = hat_resample_axis(mid, cx_u * uu + cx_v * vv + cx_c, K, axis=2)
+    iw, gxw, gyw, mw = hat_resample_axis(mid, cx_u * uu + cx_v * vv + cx_c, K,
+                                         axis=2).unbind(-3)
     mf = torch.where(mw > 0.95, 1.0, 0.0) * sm
     gxm = gxw * mf
     gym = gyw * mf
     dwx = -s * uu - c * vv
     dwy = c * uu - s * vv
     rows: List[torch.Tensor] = [mf, T * mf, iw * mf, gxm * dwx + gym * dwy, gxm, gym]
-    return torch.stack(rows).reshape(6, -1)
+    return torch.stack(rows, dim=-3).reshape(*T.shape[:-2], 6, -1)
 
 
 def gn_moments_euclidean_plain(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor,
                                coeffs: torch.Tensor, K: int = 4) -> torch.Tensor:
-    """Plain PyTorch version of one iteration's (6, 6) moment matrix."""
-    rows = moment_rows(S_cf, T, sm, [coeffs[i] for i in range(8)], K)
-    return rows @ rows.T
+    """Plain PyTorch version of one iteration's (6, 6) moment matrix;
+    (..., 6, 6) for stacks, the product once a plane (``ops/streams.py``)."""
+    rows = moment_rows(S_cf, T, sm, coeffs.unbind(-1), K)
+    return each(lambda r: r @ r.T, rows, streams=rows.dim() > 2)
 
 
 def gn_loop(moments: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tensor,
@@ -106,63 +121,80 @@ def gn_loop(moments: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tensor,
     failed, best rho, best p, stall) is made by fills and updated in place;
     under a capture the loop is a WHILE node, elsewhere its condition is
     read on the host once a trip.  Returns (p, rho, n_iters, failed) as
-    tensors."""
-    dev = p0.device
-    eye = 1e-12 * torch.eye(p0.numel(), dtype=torch.float32, device=dev)
-    state = (p0.clone(), torch.full((), -2.0, dtype=dtype, device=dev),
-             torch.full((), -1.0, dtype=dtype, device=dev),
-             torch.zeros((), dtype=torch.int32, device=dev),
-             torch.zeros((), dtype=torch.bool, device=dev),
-             torch.full((), -2.0, dtype=dtype, device=dev), p0.clone(),
-             torch.zeros((), dtype=torch.int32, device=dev))
+    tensors.
 
-    def cond(s):
+    A (B, P) ``p0`` is B solves, ``jax.vmap`` of the loop: ``moments``
+    gives (B, 3 + P, 3 + P), each solve has its own stop, the loop runs
+    while any solve is live and a trip writes only the live solves' state,
+    so a solve that has stopped stays as it stopped.  The solve and the
+    dot products run once a solve (``ops/streams.py``), so each solve has
+    its own loop's bits."""
+    dev = p0.device
+    lead = p0.shape[:-1]
+    batched = len(lead) > 0
+    eye = 1e-12 * torch.eye(p0.shape[-1], dtype=torch.float32, device=dev)
+    state = (p0.clone(), torch.full(lead, -2.0, dtype=dtype, device=dev),
+             torch.full(lead, -1.0, dtype=dtype, device=dev),
+             torch.zeros(lead, dtype=torch.int32, device=dev),
+             torch.zeros(lead, dtype=torch.bool, device=dev),
+             torch.full(lead, -2.0, dtype=dtype, device=dev), p0.clone(),
+             torch.zeros(lead, dtype=torch.int32, device=dev))
+
+    def live(s):
         p, last_rho, rho, it, failed, best_rho, best_p, stall = s
         go = (it < max_iters) & (torch.abs(rho - last_rho) >= eps) & ~failed
         if stall_patience > 0:
             go = go & (stall < stall_patience)
         return go
 
+    def cond(s):
+        return live(s).any() if batched else live(s)
+
     def body(s):
         p, last_rho, rho, it, failed, best_rho, best_p, stall = s
         M = moments(p)
-        n = torch.clamp(M[0, 0], min=1.0)
-        st, si = M[0, 1], M[0, 2]
-        sg = M[0, 3:]
-        corr = M[1, 2] - st * si / n
-        tnorm2 = M[1, 1] - st * st / n
-        inorm2 = M[2, 2] - si * si / n
-        Gt = M[1, 3:] - (st / n) * sg
-        Gi = M[2, 3:] - (si / n) * sg
-        UV = torch.linalg.solve_ex(M[3:, 3:] + eye, torch.stack([Gt, Gi], dim=1))[0]
-        u, v1 = UV[:, 0], UV[:, 1]
-        lam_num = inorm2 - Gi @ v1
-        lam_den = corr - Gt @ v1
+        n = torch.clamp(M[..., 0, 0], min=1.0)
+        st, si = M[..., 0, 1], M[..., 0, 2]
+        sg = M[..., 0, 3:]
+        corr = M[..., 1, 2] - st * si / n
+        tnorm2 = M[..., 1, 1] - st * st / n
+        inorm2 = M[..., 2, 2] - si * si / n
+        Gt = M[..., 1, 3:] - (st / n)[..., None] * sg
+        Gi = M[..., 2, 3:] - (si / n)[..., None] * sg
+        UV = each(lambda a, b: torch.linalg.solve_ex(a, b)[0], M[..., 3:, 3:] + eye,
+                  torch.stack([Gt, Gi], dim=-1), streams=batched)
+        u, v1 = UV[..., 0], UV[..., 1]
+        lam_num = inorm2 - each(torch.dot, Gi, v1, streams=batched)
+        lam_den = corr - each(torch.dot, Gt, v1, streams=batched)
         lam = lam_num / torch.where(torch.abs(lam_den) < 1e-12, 1e-12, lam_den)
-        p_new = p + (lam * u - v1).to(p.dtype)
+        p_new = p + (lam[..., None] * u - v1).to(p.dtype)
         new_rho = corr / torch.clamp(torch.sqrt(torch.clamp(tnorm2, min=0.0)
                                                 * torch.clamp(inorm2, min=0.0)), min=1e-12)
         now_failed = (lam_den <= 0.0) | torch.isnan(new_rho)
-        p_new = torch.where(now_failed, p, p_new)
+        p_new = torch.where(now_failed[..., None], p, p_new)
         improved = new_rho > best_rho
         best_rho_new = torch.where(improved, new_rho, best_rho)
-        best_p_new = torch.where(improved, p, best_p)
+        best_p_new = torch.where(improved[..., None], p, best_p)
         stall_new = torch.where(improved, 0, stall + 1)
+        go = live(s) if batched else None
+
+        def keep(new, old):   # only the live solves move
+            return new if go is None else keep_live(go, new, old)
         # in place, once every read of the old state is done
-        best_rho.copy_(best_rho_new)
-        best_p.copy_(best_p_new)
-        stall.copy_(stall_new)
-        last_rho.copy_(rho)
-        rho.copy_(new_rho)
-        p.copy_(p_new)
-        failed.logical_or_(now_failed)
-        it.add_(1)
+        best_rho.copy_(keep(best_rho_new, best_rho))
+        best_p.copy_(keep(best_p_new, best_p))
+        stall.copy_(keep(stall_new, stall))
+        last_rho.copy_(keep(rho, last_rho))
+        rho.copy_(keep(new_rho, rho))
+        p.copy_(keep(p_new, p))
+        failed.logical_or_(now_failed if go is None else now_failed & go)
+        it.add_(1 if go is None else go.to(torch.int32))
 
     device_while(cond, body, state)
     p, _, rho, it, failed, best_rho, best_p, stall = state
     if stall_patience > 0:
         stalled = stall >= stall_patience
-        p = torch.where(stalled, best_p, p)
+        p = torch.where(stalled[..., None], best_p, p)
         rho = torch.where(stalled, best_rho, rho)
     return p, rho, it, failed
 
@@ -170,9 +202,11 @@ def gn_loop(moments: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tensor,
 def gn_loop_euclidean_plain(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor,
                             p0: torch.Tensor, K: int = 4, max_iters: int = 300,
                             eps: float = 1e-7, stall_patience: int = 0):
-    """Plain version of K4: ``gn_loop`` over the plain moments."""
+    """Plain version of K4: ``gn_loop`` over the plain moments; a (B, 4, H,
+    W) stack with (B, H, W) templates and (B, 3) seeds is B solves."""
     return gn_loop(lambda q: gn_moments_euclidean_plain(S_cf, T, sm, shear_coeffs(q), K),
-                   p0.to(torch.float32).reshape(3), max_iters, eps, stall_patience)
+                   p0.to(torch.float32).reshape(*T.shape[:-2], 3), max_iters, eps,
+                   stall_patience)
 
 
 def tile_bytes(h: int, w: int, K: int, nr: int, nc: int) -> int:
@@ -222,20 +256,36 @@ def _launch(name: str, S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor, K:
             p0=None, coeffs=None, max_iters: int = 0, eps: float = 0.0,
             stall_patience: int = 0) -> torch.Tensor:
     """One launch of the K4 kernel: the loop from ``p0``, or one iteration
-    at ``coeffs``.  Returns its output vector (6 or 36 floats)."""
+    at ``coeffs``; for a (B, 4, H, W) stack with (B, H, W) templates and
+    (B, 3) seeds, the B loops.  Returns its output vector (6 or 36 floats),
+    (B, 6) for a stack."""
     S = S_cf.to(torch.float32).contiguous()
     t = T.to(torch.float32).contiguous()
-    m = sm.to(torch.float32).contiguous()
     seed = (p0 if coeffs is None else coeffs).to(torch.float32).contiguous()
+    lead = t.shape[:-2]
+    m = sm.to(torch.float32).expand(t.shape).contiguous()
     kernels.check_cuda(name, S, t, m, seed)
-    if S.shape[0] != 4 or S.shape[1:] != t.shape or m.shape != t.shape \
-            or seed.shape != ((3,) if coeffs is None else (8,)):
+    if len(lead) > 1 or (lead and coeffs is not None) or S.shape != (*lead, 4, *t.shape[-2:]) \
+            or seed.shape != ((*lead, 3) if coeffs is None else (8,)):
         raise ValueError(f"{name}: shapes {tuple(S.shape)}, {tuple(t.shape)}, "
-                         f"{tuple(m.shape)}, {tuple(seed.shape)}")
-    h, w = t.shape
+                         f"{tuple(sm.shape)}, {tuple(seed.shape)}")
+    h, w = t.shape[-2:]
     if not fits((h, w)):
         raise ValueError(f"{name}: {h}x{w} is above K4's budget (ecc_kernel.fits)")
     nr, nc = tile_plan(h, w, int(K), _sm_count(S.device.index or 0))
+    if lead:
+        n = lead[0]
+        with torch.cuda.device(S.device):
+            slots = kernels.library().vt_gn_loop_stack_slots(n, h, w, int(K), nr, nc)
+        if slots < 1:
+            raise RuntimeError(f"{name}: CUDA error {-slots}")
+        work = torch.empty(6 * n + 2 * slots * nr * nc * (MOMENTS + 1), dtype=torch.float32,
+                           device=S.device)
+        kernels.launch("vt_gn_loop_euclidean_stack", "gn_moments_euclidean", S.device,
+                       S.data_ptr(), t.data_ptr(), m.data_ptr(), seed.data_ptr(),
+                       work.data_ptr(), work.data_ptr() + 4 * 6 * n, n, h, w, int(K), nr, nc,
+                       int(max_iters), float(eps), int(stall_patience))
+        return work[:6 * n].reshape(n, 6)
     n_out = 6 if coeffs is None else 36
     work = torch.empty(n_out + 2 * nr * nc * MOMENTS, dtype=torch.float32, device=S.device)
     kernels.launch("vt_gn_loop_euclidean", "gn_moments_euclidean", S.device,
@@ -263,9 +313,12 @@ def gn_loop_euclidean(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor,
     """The whole per-iteration ECC loop from the seed ``p0`` = (theta, tx,
     ty): ``S_cf``, ``T`` and ``sm`` as for ``gn_moments_euclidean``.
     Returns device tensors (p (3,), rho, n_iters, failed); failure handling
-    (identity warp, NaN rho) stays with the caller."""
+    (identity warp, NaN rho) stays with the caller.  A (B, 4, H, W) stack
+    with (B, H, W) templates and (B, 3) seeds (``sm`` (H, W) or (B, H, W))
+    is B solves in one launch, each bit for bit its own: (B, 3), (B,),
+    (B,), (B,)."""
     if kernels.route(S_cf) == "cpu":
         return gn_loop_euclidean_plain(S_cf, T, sm, p0, K, max_iters, eps, stall_patience)
-    out = _launch("gn_loop_euclidean", S_cf, T, sm, K, p0=p0.reshape(3), max_iters=max_iters,
-                  eps=eps, stall_patience=stall_patience)
-    return out[:3], out[3], out[4].to(torch.int32), out[5] > 0.5
+    out = _launch("gn_loop_euclidean", S_cf, T, sm, K, p0=p0.reshape(*T.shape[:-2], 3),
+                  max_iters=max_iters, eps=eps, stall_patience=stall_patience)
+    return out[..., :3], out[..., 3], out[..., 4].to(torch.int32), out[..., 5] > 0.5

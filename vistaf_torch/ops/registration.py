@@ -9,7 +9,8 @@ in a captured forward).  Every other solve is that loop over the plain
 moments, as the JAX package runs plain XLA for it on a TPU: the shear
 sampler in translation or affine mode (the stride folded into the mask), and
 the bilinear-gather sampler (the parity preset's) in any mode, at a stride
-on the subsampled grid."""
+on the subsampled grid.  Every route takes a stack of solves (``jax.vmap``
+of ``ecc_align``), each solve bit for bit its own."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -82,7 +83,8 @@ def warp_matrix(mode: str, p: torch.Tensor) -> torch.Tensor:
 
 def _warp_coords(mode: str, p: torch.Tensor, xx: torch.Tensor, yy: torch.Tensor):
     """(sx, sy) where W(x; p) samples the image, in the JAX package's term
-    order."""
+    order; (..., h, w) each for a (..., P) stack of parameters."""
+    p = [q[..., None, None] for q in p.unbind(-1)]
     if mode == "translation":
         return xx + p[0], yy + p[1]
     if mode == "euclidean":
@@ -97,18 +99,22 @@ def _moment_matrix(mode: str, p: torch.Tensor, samp: torch.Tensor, mf: torch.Ten
     """Every Gauss-Newton statistic as an entry of A A^T, A the (3 + P, N)
     rows [m, T m, I m, G_1 .. G_P] of the sampled [I, gx, gy, ...] stack
     ``samp`` under the 0/1 mask ``mf``, G_k = gx dWx/dp_k + gy dWy/dp_k (the
-    JAX ``_steepest_descent``), the product in ``dtype``."""
-    gxm = samp[1] * mf
-    gym = samp[2] * mf
+    JAX ``_steepest_descent``), the product in ``dtype``.  A (..., C, h, w)
+    stack with (..., P) parameters gives (..., 3 + P, 3 + P), the product
+    once a solve (``ops/streams.py``)."""
+    gxm = samp[..., 1, :, :] * mf
+    gym = samp[..., 2, :, :] * mf
     if mode == "translation":
         G = [gxm, gym]
     elif mode == "euclidean":
-        c, s = torch.cos(p[0]), torch.sin(p[0])
+        th = p[..., 0, None, None]
+        c, s = torch.cos(th), torch.sin(th)
         G = [gxm * (-s * xx - c * yy) + gym * (c * xx - s * yy), gxm, gym]
     else:
         G = [gxm * xx, gym * xx, gxm * yy, gym * yy, gxm, gym]
-    A = torch.stack([mf, T * mf, samp[0] * mf] + G).reshape(3 + len(G), -1).to(dtype)
-    return A @ A.T
+    A = torch.stack([mf, T * mf, samp[..., 0, :, :] * mf] + G, dim=-3).reshape(
+        *mf.shape[:-2], 3 + len(G), -1).to(dtype)
+    return each(lambda a: a @ a.T, A, streams=A.dim() > 2)
 
 
 def ecc_prepare(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
@@ -122,8 +128,8 @@ def ecc_prepare(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
     T = template.to(torch.float32)
     I = image.to(torch.float32)
     M01 = mask.to(torch.float32)
-    c0 = (each(lambda t: (t * M01).sum(dim=(-2, -1)), T, streams=streams)
-          / torch.clamp(M01.sum(dim=(-2, -1)), min=1.0))[..., None, None]
+    c0 = (each(lambda t, m: (t * m).sum(dim=(-2, -1)), T, M01.expand(T.shape),
+               streams=streams) / torch.clamp(M01.sum(dim=(-2, -1)), min=1.0))[..., None, None]
     T = T - c0
     I = I - c0
     gx = torch.zeros_like(I)
@@ -148,8 +154,8 @@ def _plain_moments(S_cf: torch.Tensor, T: torch.Tensor, sm: torch.Tensor, p: tor
     W(p), the mask thresholded at 0.95 times the stride grid ``sm``, the
     steepest-descent rows and A A^T as one product."""
     samp = shear_warp_stack(S_cf, warp_matrix(mode, p), K=K)
-    mf = (samp[3] > 0.95).to(torch.float32) * sm
-    yy, xx = _grid(*T.shape, T.device)
+    mf = (samp[..., 3, :, :] > 0.95).to(torch.float32) * sm
+    yy, xx = _grid(*T.shape[-2:], T.device)
     return _moment_matrix(mode, p, samp, mf, T, xx, yy)
 
 
@@ -170,7 +176,7 @@ def _gather_moments(S_cf: torch.Tensor, T: torch.Tensor, p: torch.Tensor, xx: to
     grating leaves nearly flat."""
     sx, sy = _warp_coords(mode, p, xx, yy)
     samp = sample_bilinear_stack(S_cf, sy, sx)
-    mf = (samp[3] > 0.95).to(torch.float32)
+    mf = (samp[..., 3, :, :] > 0.95).to(torch.float32)
     return _moment_matrix(mode, p, samp, mf, T, xx, yy, dtype=torch.float64)
 
 
@@ -191,26 +197,22 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
     are the deploy route's (shear sampler, loop kernel); the JAX function
     defaults to the gather sampler without the loop kernel.
 
-    (..., H, W) stacks of templates and images (one mask) are that many
-    solves, ``jax.vmap`` of this function, on the K5 route only
-    (``batch_route``): each its own loop and stop, in one launch, giving
-    (..., 2, 3), (...,) and (...,).  Any other route of a stack raises.
-    ``streams`` as in ``ecc_prepare``."""
+    (B, H, W) stacks of templates and images (one mask, or one a solve),
+    with (B, P) seeds, are B solves, ``jax.vmap`` of this function, on every route: K5
+    and K4 take the stack in one launch, the device loop runs while any
+    solve is live (``ecc_kernel.gn_loop``); each solve keeps its own loop,
+    stop and bits, giving (B, 2, 3), (B,) and (B,).  ``streams`` as in
+    ``ecc_prepare``."""
     if mode not in ECC_MODES or sampler not in ("shear", "gather"):
         raise ValueError(f"ecc_align: unknown mode {mode!r} or sampler {sampler!r}")
     P = ECC_MODES[mode]
     S_cf, T = ecc_prepare(template, image, mask, streams=streams)
-    if T.dim() > 2 and not batch_route(mode, sampler, T.shape[-2:], loop_kernel,
-                                       p_init is not None):
-        raise ValueError(f"ecc_align: a stack of {tuple(T.shape[:-2])} solves runs on K5 "
-                         f"only (mode {mode!r}, sampler {sampler!r}, "
-                         f"{tuple(T.shape[-2:])}, loop_kernel={loop_kernel}, "
-                         f"seeded={p_init is not None}): the other routes run per stream")
-    p0 = (torch.zeros(P, dtype=torch.float32, device=T.device) if p_init is None
-          else p_init.to(torch.float32).reshape(P))
+    lead = T.shape[:-2]
+    p0 = (torch.zeros(*lead, P, dtype=torch.float32, device=T.device) if p_init is None
+          else p_init.to(torch.float32).reshape(*lead, P))
     if sampler == "gather":
-        yy, xx = _grid(*T.shape, T.device, stride)
-        Ts = T[::stride, ::stride]
+        yy, xx = _grid(*T.shape[-2:], T.device, stride)
+        Ts = T[..., ::stride, ::stride]
         p, rho, it, failed = ecc_kernel.gn_loop(
             lambda q: _gather_moments(S_cf, Ts, q, xx, yy, mode), p0, max_iters, eps,
             stall_patience, dtype=torch.float64)
@@ -218,7 +220,7 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
     smask = torch.zeros(T.shape[-2:], dtype=T.dtype, device=T.device)
     smask[::stride, ::stride] = 1.0
     fused = mode == "euclidean" and ecc_kernel.fits(T.shape[-2:])
-    if batch_route(mode, sampler, T.shape[-2:], loop_kernel, p_init is not None):
+    if fused and loop_kernel and p_init is None and ecc_loop_kernel.fits(T.shape[-2:]):
         p, rho, it, failed = ecc_loop_euclidean(S_cf, T, smask, K=shear_k,
                                                 max_iters=max_iters, eps=eps,
                                                 stall_patience=stall_patience)
@@ -231,15 +233,6 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, mask: torch.Tensor,
             lambda q: _plain_moments(S_cf, T, smask, q, shear_k, mode), p0, max_iters, eps,
             stall_patience)
     return _result(mode, p, rho, it, failed)
-
-
-def batch_route(mode: str, sampler: str, shape, loop_kernel: bool, seeded: bool) -> bool:
-    """Whether ``ecc_align`` of this solve takes K5, the whole solve in one
-    launch (and so the one ECC route a stack of solves may take): the
-    euclidean shear solve, unseeded, with the loop kernel, within both
-    ``ecc_kernel.fits`` and ``ecc_loop_kernel.fits``."""
-    return (mode == "euclidean" and sampler == "shear" and loop_kernel and not seeded
-            and ecc_kernel.fits(shape) and ecc_loop_kernel.fits(shape))
 
 
 def _result(mode, p, rho, it, failed):

@@ -9,7 +9,8 @@ call, on the card and on a multi-threaded CPU), and, on the CPU only, an
 FFT (the CPU library's vectorised transforms).  Those ops take a
 ``streams`` flag, passed down from the forward that knows the stream axis,
 and run through ``each``: once a stream where it is set, else one call.
-So each stream of a batch gets its single forward's bits.
+So each stream of a batch gets its single forward's bits.  A device loop
+over a stack (``keep_live``) writes only the live solves' state.
 """
 from __future__ import annotations
 
@@ -33,3 +34,10 @@ def each(fn: Callable, *xs: torch.Tensor, streams: bool, cpu_only: bool = False)
     if isinstance(outs[0], tuple):
         return tuple(torch.stack(o) for o in zip(*outs))
     return torch.stack(outs)
+
+
+def keep_live(live: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """A batched loop's update of one state tensor: ``new`` for the solves
+    of the (B,) mask ``live``, ``old`` for the others (the per-stream select
+    of ``jax.vmap`` of a ``lax.while_loop``), over (B, ...) state."""
+    return torch.where(live.reshape(live.shape + (1,) * (old.dim() - live.dim())), new, old)

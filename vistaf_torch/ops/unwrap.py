@@ -9,7 +9,13 @@ package's ``jax.scipy.fft.dct``; the full-resolution parity solve at native
 4K takes it).  The PCG ``while_loop`` is a ``device_while``: a WHILE node in
 a captured forward, else a loop whose condition is read on the host once an
 iteration.  The K6 kernel
-(``kernels/unwrap_kernel.py``) is the ``wls_pallas`` route."""
+(``kernels/unwrap_kernel.py``) is the ``wls_pallas`` route.
+
+A (B, H, W) stack is B solves, ``jax.vmap`` of ``unwrap_wls``: every op
+runs once over the stack, the PCG loops while any solve is live and a trip
+writes only the live solves' state; the plane sums, the dense DCT and
+resize products and the FFT DCT run once a plane (``ops/streams.py``), so
+each solve keeps its own bits."""
 from __future__ import annotations
 
 import math
@@ -19,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from vistaf_torch.ops.consts import DeviceConsts
+from vistaf_torch.ops.streams import each, keep_live
 from vistaf_torch.utils.cuda_graph import device_while
 
 
@@ -101,7 +108,10 @@ def idct_ortho(X: torch.Tensor, dim: int, consts: DeviceConsts) -> torch.Tensor:
 
 def _poisson_dct_solve(rho: torch.Tensor, consts: DeviceConsts) -> torch.Tensor:
     """Neumann Poisson solve Laplacian(phi) = rho via DCT-II: dense matmuls
-    below ``_DCT_FFT_MIN_PX``, FFTs from it on."""
+    below ``_DCT_FFT_MIN_PX``, FFTs from it on; a (B, H, W) stack plane by
+    plane (``ops/streams.py``)."""
+    if rho.dim() > 2:
+        return each(lambda r: _poisson_dct_solve(r, consts), rho, streams=True)
     h, w = rho.shape
     denom = consts.get(("poisson_denom", h, w), lambda: _poisson_denominator(h, w))
     if not dense_dct_solve((h, w)):
@@ -119,25 +129,38 @@ def _div2(fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
     """Divergence of edge fluxes with zero flux outside."""
     fxp = F.pad(fx, (1, 1))
     fyp = F.pad(fy, (0, 0, 1, 1))
-    return (fxp[:, 1:] - fxp[:, :-1]) + (fyp[1:, :] - fyp[:-1, :])
+    return (fxp[..., 1:] - fxp[..., :-1]) + (fyp[..., 1:, :] - fyp[..., :-1, :])
 
 
 def _apply_wlap(phi: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> torch.Tensor:
-    return _div2(wx * (phi[:, 1:] - phi[:, :-1]), wy * (phi[1:, :] - phi[:-1, :]))
+    return _div2(wx * (phi[..., 1:] - phi[..., :-1]), wy * (phi[..., 1:, :] - phi[..., :-1, :]))
+
+
+def _psum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of an (H, W) plane, 0-d; (B,) for a stack, plane by plane."""
+    return each(torch.sum, x, streams=x.dim() > 2)
 
 
 def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a * b).sum()
+    return _psum(a * b)
+
+
+def _bc(x: torch.Tensor) -> torch.Tensor:
+    """A 0-d or (B,) per-solve scalar against the (..., H, W) planes."""
+    return x[..., None, None]
 
 
 def _wls_pcg_solve(psi: torch.Tensor, m: torch.Tensor, cg_iters: int, tol: float,
                    consts: DeviceConsts) -> torch.Tensor:
     """The JAX ``lax.while_loop`` PCG as a ``device_while`` over the state
-    (phi, r, p, rz, the int32 trip count), updated in place."""
-    wx = m[:, 1:] * m[:, :-1]
-    wy = m[1:, :] * m[:-1, :]
-    dx = wrap_angle(psi[:, 1:] - psi[:, :-1]) * wx
-    dy = wrap_angle(psi[1:, :] - psi[:-1, :]) * wy
+    (phi, r, p, rz, the int32 trip count), updated in place.  A (B, H, W)
+    stack has a stop, rz and trip count a solve; the loop runs while any
+    solve is live, and a trip writes only the live solves'."""
+    batched = psi.dim() > 2
+    wx = m[..., 1:] * m[..., :-1]
+    wy = m[..., 1:, :] * m[..., :-1, :]
+    dx = wrap_angle(psi[..., 1:] - psi[..., :-1]) * wx
+    dy = wrap_angle(psi[..., 1:, :] - psi[..., :-1, :]) * wy
     rhs = _div2(dx, dy)
     phi = torch.zeros_like(psi)
     r = rhs - _apply_wlap(phi, wx, wy)
@@ -145,38 +168,44 @@ def _wls_pcg_solve(psi: torch.Tensor, m: torch.Tensor, cg_iters: int, tol: float
     p = z
     rz = _vdot(r, z)
     stop = tol * tol * _vdot(r, r)
-    state = (phi, r, p, rz, torch.zeros((), dtype=torch.int32, device=psi.device))
+    state = (phi, r, p, rz, torch.zeros(rz.shape, dtype=torch.int32, device=psi.device))
 
-    def cond(s):
+    def live(s):
         phi, r, p, rz, it = s
         return (it < cg_iters) & (_vdot(r, r) > stop)
 
     def body(s):
         phi, r, p, rz, it = s
+        go = live(s) if batched else None
+
+        def keep(new, old):   # only the live solves move
+            return new if go is None else keep_live(go, new, old)
+
         Ap = _apply_wlap(p, wx, wy)
         pAp = _vdot(p, Ap)
-        alpha = rz / torch.where(torch.abs(pAp) < 1e-30, 1e-30, pAp)
-        phi.copy_(phi + alpha * p)
-        r.copy_(r - alpha * Ap)
-        z = _poisson_dct_solve(r, consts)
-        rz_new = _vdot(r, z)
-        beta = rz_new / torch.where(torch.abs(rz) < 1e-30, 1e-30, rz)
-        p.copy_(z + beta * p)
-        rz.copy_(rz_new)
-        it.add_(1)
+        alpha = _bc(rz / torch.where(torch.abs(pAp) < 1e-30, 1e-30, pAp))
+        phi.copy_(keep(phi + alpha * p, phi))
+        r_new = r - alpha * Ap
+        z = _poisson_dct_solve(r_new, consts)
+        rz_new = _vdot(r_new, z)
+        beta = _bc(rz_new / torch.where(torch.abs(rz) < 1e-30, 1e-30, rz))
+        p.copy_(keep(z + beta * p, p))
+        r.copy_(keep(r_new, r))
+        rz.copy_(keep(rz_new, rz))
+        it.add_(1 if go is None else go.to(torch.int32))
 
-    device_while(cond, body, state)
+    device_while(lambda s: live(s).any() if batched else live(s), body, state)
     return phi
 
 
 def _gauge_and_project(phi: torch.Tensor, psi: torch.Tensor, m: torch.Tensor,
                        mask: torch.Tensor) -> torch.Tensor:
     """Anchor phi to the wrapped input's masked mean (two-pass), snap to
-    psi + 2 pi k (congruence), NaN outside the mask."""
-    n = torch.clamp(m.sum(), min=1.0)
+    psi + 2 pi k (congruence), NaN outside the mask; a stack plane by plane."""
+    n = torch.clamp(_psum(m), min=1.0)
     d = psi - phi
-    s1 = (d * m).sum() / n
-    phi = phi + (s1 + ((d - s1) * m).sum() / n)
+    s1 = _bc(_psum(d * m) / n)
+    phi = phi + (s1 + _bc(_psum((d - s1) * m) / n))
     two_pi = 2.0 * math.pi
     phi = psi + two_pi * torch.round((phi - psi) / two_pi)
     return torch.where(mask, phi, float("nan"))
@@ -202,11 +231,12 @@ def _linear_upsample_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 def resize_linear(x: torch.Tensor, shape, consts: DeviceConsts) -> torch.Tensor:
     """``jax.image.resize(x, shape, 'linear')`` of an (h, w) plane for an
-    upsample, as two weight-matrix products."""
-    (h, w), (H, W) = x.shape, shape
+    upsample, as two weight-matrix products; a (B, h, w) stack plane by
+    plane (``ops/streams.py``)."""
+    (h, w), (H, W) = x.shape[-2:], shape
     Wy = consts.get(("resize_linear", h, H), lambda: _linear_upsample_matrix(h, H))
     Wx = consts.get(("resize_linear", w, W), lambda: _linear_upsample_matrix(w, W))
-    return Wy.T @ x @ Wx
+    return each(lambda a: Wy.T @ a @ Wx, x, streams=x.dim() > 2)
 
 
 def unwrap_wls(wrapped: torch.Tensor, mask: torch.Tensor, consts: DeviceConsts,
@@ -216,24 +246,24 @@ def unwrap_wls(wrapped: torch.Tensor, mask: torch.Tensor, consts: DeviceConsts,
     the mask.  ``downsample=d`` solves on the d x d sum-pooled grid (the
     wrapped phase pooled as the angle of the masked phasor sum) and
     upsamples the smooth solution before the full-resolution gauge and
-    congruence step."""
+    congruence step.  A (B, H, W) stack is B solves (``jax.vmap``)."""
     psi = torch.where(mask, wrapped, 0.0).to(torch.float32)
     m = mask.to(torch.float32)
     if downsample > 1:
         d = int(downsample)
-        h, w = psi.shape
+        h, w = psi.shape[-2:]
         Hp, Wp = -(-h // d) * d, -(-w // d) * d
 
         def pool(a):
-            return F.pad(a, (0, Wp - w, 0, Hp - h)).reshape(
-                Hp // d, d, Wp // d, d).sum(dim=(1, 3))
+            return each(lambda x: F.pad(x, (0, Wp - w, 0, Hp - h)).reshape(
+                Hp // d, d, Wp // d, d).sum(dim=(1, 3)), a, streams=a.dim() > 2)
 
         zr, zi = pool(torch.cos(psi) * m), pool(torch.sin(psi) * m)
         mc = pool(m)
         psi_c = torch.atan2(zi, zr)
         phi_c = _wls_pcg_solve(torch.where(mc > 0, psi_c, 0.0), (mc > 0).to(torch.float32),
                                cg_iters, tol, consts)
-        phi = resize_linear(phi_c, (Hp, Wp), consts)[:h, :w]
+        phi = resize_linear(phi_c, (Hp, Wp), consts)[..., :h, :w]
     else:
         phi = _wls_pcg_solve(psi, m, cg_iters, tol, consts)
     return _gauge_and_project(phi, psi, m, mask)

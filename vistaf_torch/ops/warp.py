@@ -46,8 +46,9 @@ def sample_bilinear(img: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     (sy, sx): 'reflect' folds indices symmetrically (BORDER_REFLECT),
     'reflect101' as BORDER_REFLECT_101, anything else clamps them and reads
     zeros outside [0, w - 1] x [0, h - 1] ('constant0').  Four gathers of
-    the flat plane at explicit row-major indices."""
-    h, w = img.shape
+    the flat plane at explicit row-major indices.  A (B, H, W) stack takes
+    (B, ...) coordinates, each plane sampled at its own."""
+    h, w = img.shape[-2:]
     x0 = torch.floor(sx)
     y0 = torch.floor(sy)
     fx = (sx - x0).to(torch.float32)
@@ -61,6 +62,10 @@ def sample_bilinear(img: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     else:
         fold_y, fold_x = (lambda i: torch.clamp(i, 0, h - 1)), (lambda i: torch.clamp(i, 0, w - 1))
     ya, yb = fold_y(y0i) * w, fold_y(y0i + 1) * w
+    if img.dim() > 2:   # each plane's offset into the flat stack
+        base = (torch.arange(img.shape[0], device=img.device) * (h * w)).reshape(
+            -1, *([1] * (ya.dim() - 1)))
+        ya, yb = ya + base, yb + base
     xa, xb = fold_x(x0i), fold_x(x0i + 1)
     flat = img.reshape(-1)
     out = _bilinear([flat.take(ya + xa), flat.take(ya + xb), flat.take(yb + xa),
@@ -76,8 +81,10 @@ def sample_bilinear_stack(stack: torch.Tensor, sy: torch.Tensor, sx: torch.Tenso
     """Bilinear sample of a channel-first (C, H, W) stack at float
     coordinates (sy, sx), one index computation for all C channels: indices
     clamped into the plane, zeros outside [0, w - 1] x [0, h - 1].  The JAX
-    ``sample_bilinear_stack`` takes (H, W, C); this returns (C, *sy.shape)."""
-    C, h, w = stack.shape
+    ``sample_bilinear_stack`` takes (H, W, C); this returns (C, *sy.shape).
+    A (B, C, H, W) stack takes (B, ...) coordinates, each stack sampled at
+    its own, and returns (B, C, ...)."""
+    C, h, w = stack.shape[-3:]
     x0 = torch.floor(sx)
     y0 = torch.floor(sy)
     fx = (sx - x0).to(torch.float32)
@@ -86,26 +93,33 @@ def sample_bilinear_stack(stack: torch.Tensor, sy: torch.Tensor, sx: torch.Tenso
     y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
     x1i = torch.clamp(x0i + 1, 0, w - 1)
     y1i = torch.clamp(y0i + 1, 0, h - 1)
-    flat = stack.reshape(C, -1)
+    flat = stack.reshape(*stack.shape[:-3], C, -1)
 
     def take(iy, ix):
-        return flat.index_select(1, (iy * w + ix).reshape(-1)).reshape(C, *sy.shape)
+        if stack.dim() == 3:
+            return flat.index_select(1, (iy * w + ix).reshape(-1)).reshape(C, *sy.shape)
+        idx = (iy * w + ix).reshape(sy.shape[0], 1, -1)
+        return flat.gather(-1, idx.expand(sy.shape[0], C, idx.shape[-1])).reshape(
+            sy.shape[0], C, *sy.shape[1:])
 
+    chan = (lambda t: t) if stack.dim() == 3 else (lambda t: t[:, None])
     out = _bilinear([take(y0i, x0i), take(y0i, x1i), take(y1i, x0i), take(y1i, x1i)],
-                    fx, fy)
+                    chan(fx), chan(fy))
     inside = (sx >= 0) & (sx <= w - 1) & (sy >= 0) & (sy <= h - 1)
-    return torch.where(inside, out, 0.0)
+    return torch.where(chan(inside), out, 0.0)
 
 
 def warp_affine_inverse_map(img: torch.Tensor, M: torch.Tensor,
                             border: str = "reflect") -> torch.Tensor:
     """cv2.warpAffine(img, M, INTER_LINEAR | WARP_INVERSE_MAP) of an (H, W)
-    plane: dst(x, y) = src(M00 x + M01 y + M02, M10 x + M11 y + M12)."""
-    h, w = img.shape
+    plane: dst(x, y) = src(M00 x + M01 y + M02, M10 x + M11 y + M12); a (B,
+    H, W) stack with (B, 2, 3) warps, each plane by its own."""
+    h, w = img.shape[-2:]
     yy = torch.arange(h, dtype=torch.float32, device=img.device)[:, None].expand(h, w)
     xx = torch.arange(w, dtype=torch.float32, device=img.device)[None, :].expand(h, w)
-    sx = M[0, 0] * xx + M[0, 1] * yy + M[0, 2]
-    sy = M[1, 0] * xx + M[1, 1] * yy + M[1, 2]
+    M = M[..., None, None]
+    sx = M[..., 0, 0, :, :] * xx + M[..., 0, 1, :, :] * yy + M[..., 0, 2, :, :]
+    sy = M[..., 1, 0, :, :] * xx + M[..., 1, 1, :, :] * yy + M[..., 1, 2, :, :]
     return sample_bilinear(img.to(torch.float32), sy, sx, border=border)
 
 

@@ -12,13 +12,11 @@ same reductions as ``torch.distributed`` collectives over the mesh's group
 (each rank writes its streams into a zero (B, ...) tensor), as in JAX: a
 sum with zeros is exact, so every rank receives the same bits.
 
-A rank's streams run as the JAX package runs ``vmap(_single)``: where the
-pipeline's ``batch_route`` holds (the 640 deploy preset: no WHILE node and
-no K4 solve in the forward) as one batched forward over the leading stream
-axis, every op once over (B, ...) and every kernel launched once with the
-streams in its grid (``BatchedForce.route() == "batched"``); elsewhere (the
-parity presets, the native-4K routes) one stream after the other through
-the single forward (``"per_stream"``), each with its ECC and PCG loops.
+A rank's streams run as the JAX package runs ``vmap(_single)``, under
+every configuration: one batched forward over the leading stream axis,
+every op once over (B, ...), every kernel launched once with the streams in
+its grid, and the ECC and PCG loops running while any stream's solve is
+live, a stopped stream's state frozen.
 
 On the card each of the JAX package's jitted entry points is one CUDA graph
 replayed a call (``utils/cuda_graph.py::ForwardGraph``), as ``jax.jit``
@@ -27,13 +25,11 @@ compiles each into one program: ``BatchedForce.batched()`` and
 ``whole_limb_step`` / ``whole_limb_step_aux`` step one graph of the rank's
 streams and the head, its all-reduces on the NCCL group inside.  The first
 call runs eagerly (which also brings the communicator up) and captures;
-every later call replays.  On the per-stream route a rank's streams are
-captured one after the other in stream order, each stream's forward with
-its ECC and PCG loops as WHILE nodes and its seed pick as an IF node, so
-each stream's result is bit for bit the single forward's.  On the batched
-route the batch is one forward with one IF node for the seed pick (taken
-when any stream's pooled seed fails, each stream selecting its own).  On
-the CPU and on a gloo mesh everything runs eagerly.
+every later call replays.  The batch is one forward with one WHILE node a
+loop (its trip count the longest stream's) and one IF node for the seed
+pick (taken when any stream's pooled seed fails, each stream selecting its
+own); each stream's result is bit for bit its single forward's.  On the
+CPU and on a gloo mesh everything runs eagerly.
 """
 from __future__ import annotations
 
@@ -148,15 +144,12 @@ class BatchedForce:
     (the pipeline's: on the card, no debug outputs, no ``stop_after``) one
     CUDA graph of ``batched_eager``, captured at the first call and replayed
     at every later one (a stack of another shape raises); elsewhere
-    ``batched_eager`` itself on the batched route, and on the per-stream
-    route each stream through ``_single`` in turn (the seam a subclass that
-    changes a stream's forward overrides).  ``batched_eager`` takes the
-    route ``route()`` names, by configuration and shape only: ``"batched"``,
-    the pipeline's forward once over the stacks (``FTPPipeline.
-    batch_route``), or ``"per_stream"``, ``per_stream_eager``: the streams
-    in index order, each through ``_single_eager``, bit for bit
-    ``_single``'s.  The ``StreamingForce`` step and the whole-limb steps
-    run ``batched_eager`` on and off the card.
+    ``batched_eager`` itself: the pipeline's forward once over the stacks
+    and the tail, under every configuration.  ``per_stream_eager`` (the
+    streams in index order, each through ``_single_eager``) is the
+    reference each stream of a batch is held to, bit for bit; no path runs
+    it.  The ``StreamingForce`` step and the whole-limb steps run
+    ``batched_eager`` on and off the card.
 
     Keeps the JAX defaults: a 2 mm grating pitch, a 0.01 mm contact
     threshold, and a 1e-9 floor on the period (``ForcePipeline`` uses
@@ -175,11 +168,6 @@ class BatchedForce:
         """Whether ``batched()`` replays a CUDA graph: where the pipeline's
         forward would replay its own."""
         return self.pipe.graph_route()
-
-    def route(self) -> str:
-        """``"batched"`` where the pipeline's forward takes the stream axis
-        (``FTPPipeline.batch_route``), else ``"per_stream"``."""
-        return "batched" if self.pipe.batch_route() else "per_stream"
 
     def _tail(self, res: Dict[str, torch.Tensor], streams: bool = False
               ) -> Dict[str, torch.Tensor]:
@@ -211,20 +199,18 @@ class BatchedForce:
     def per_stream_eager(self, refs: torch.Tensor, frames: torch.Tensor
                          ) -> Dict[str, torch.Tensor]:
         """The streams of two (B, H, W, 3) device stacks in index order
-        through ``_single_eager``, stacked: the per-stream route."""
+        through ``_single_eager``, stacked: the reference a batch is held
+        to."""
         _check_stacks(refs, frames)
         return _stack([self._single_eager(refs[b], frames[b]) for b in range(frames.shape[0])])
 
     def batched_eager(self, refs: torch.Tensor, frames: torch.Tensor
                       ) -> Dict[str, torch.Tensor]:
-        """Two (B, H, W, 3) device stacks through the route ``route()``
-        names: one batched forward and tail, or ``per_stream_eager``.  What
-        the batch graph, the ``StreamingForce`` step and the whole-limb
-        steps run."""
+        """Two (B, H, W, 3) device stacks through one batched forward and
+        tail.  What the batch graph, the ``StreamingForce`` step and the
+        whole-limb steps run."""
         _check_stacks(refs, frames)
-        if self.route() == "batched":
-            return self._tail(self.pipe.forward_eager(refs, frames), streams=True)
-        return self.per_stream_eager(refs, frames)
+        return self._tail(self.pipe.forward_eager(refs, frames), streams=True)
 
     def batched(self):
         """A callable from (B, H, W, 3) uint8 ref and def stacks (numpy or
@@ -237,9 +223,7 @@ class BatchedForce:
                 if self._graph is None:
                     self._graph = ForwardGraph(self.batched_eager, self.device)
                 return self._graph(refs, frames)
-            if self.route() == "batched":
-                return self.batched_eager(refs, frames)
-            return _stack([self._single(refs[b], frames[b]) for b in range(frames.shape[0])])
+            return self.batched_eager(refs, frames)
         return fn
 
     def sharded(self, mesh: DeviceMesh):
@@ -278,11 +262,6 @@ class MeshStep:
     def graph_route(self) -> bool:
         return self.mesh.device_type == "cuda" and self.batched_force.graph_route()
 
-    def stream_route(self) -> str:
-        """The route of the step's streams: its force's ``route()``
-        (``"per_stream"`` for a stand-in force without one)."""
-        return stream_route(self.batched_force)
-
     def __call__(self, ref_local, def_local, aux=None) -> Dict[str, torch.Tensor]:
         extra = [aux[k] for k in self.aux_keys]
         inputs = [_on(self.mesh, x) for x in (ref_local, def_local, *extra)]
@@ -293,18 +272,11 @@ class MeshStep:
         return self.eager(*inputs)
 
 
-def stream_route(batched_force) -> str:
-    """``batched_force.route()``, or ``"per_stream"`` for a stand-in force
-    that offers only ``_single``."""
-    route = getattr(batched_force, "route", None)
-    return route() if route is not None else "per_stream"
-
-
 def _local_streams(batched_force, mesh: DeviceMesh, ref_local: torch.Tensor,
                    def_local: torch.Tensor, map_stride: int):
     """This rank's streams (device stacks) through the force's
-    ``batched_eager`` (its route: one batched forward, or the streams one by
-    one; a stand-in force without one: its ``_single`` a stream): the
+    ``batched_eager`` (one batched forward; a stand-in force without one:
+    its ``_single`` a stream): the
     stacked force, area and depth scalars and each stream's contact-depth
     map on the rank's device.  The indentation side is detected per stream
     as ``depth_map_to_volume_cm3`` detects it (whichever of +Z and -Z
@@ -336,7 +308,7 @@ def whole_limb_step(batched_force, mesh: DeviceMesh, map_stride: int = 1) -> Mes
     Returns ``step(ref_local, def_local) -> dict`` (a ``MeshStep``): the
     rank's (n, H, W, 3) uint8 streams (``shard_batch`` /
     ``shard_local_batch``) through the force (``_local_streams``: a
-    ``BatchedForce`` on its route, or any object with ``_single`` and
+    ``BatchedForce``'s batched forward, or any object with ``_single`` and
     ``depth_eps_mm``), then the head over the mesh, one CUDA graph a step
     on the card.  Every rank receives the same dict:
     ``per_stream_force`` (B,), ``total_force_N``, ``max_depth_mm`` and

@@ -18,7 +18,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from vistaf_torch.parallel.mesh import gather_streams, mesh_device, stream_route
+from vistaf_torch.parallel.mesh import gather_streams, mesh_device
 from vistaf_torch.utils.cuda_graph import ForwardGraph
 
 
@@ -139,10 +139,6 @@ class StreamingForce:
         return (self.device.type == "cuda"
                 and (self._mesh is None or self._mesh.device_type == "cuda")
                 and self._force.graph_route())
-
-    def stream_route(self) -> str:
-        """The route of the batch's streams (``BatchedForce.route``)."""
-        return stream_route(self._force)
 
     def _upload(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
