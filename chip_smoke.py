@@ -169,7 +169,7 @@ Phases, one line each, any failure raises and exits non-zero:
      constructor-built pipeline's direct call within rel 1e-6 and its
      heightmap bit-equal, the session's readings, maps and mask PNGs equal
      to the direct call, the JAX runner's file sets, the exact launches of
-     the kernel table, each command's wall time split by ``StageTimer``
+     the kernel table, each command's wall time split by ``staged``
      (setup, decode, forward, writers); a probe line says whether
      matplotlib, joblib and sklearn are present, and where they are the
      phase also runs ``force --debug`` and ``temperature``;
@@ -1085,12 +1085,12 @@ def cond_cases(device):
 
     def if_node():
         count.zero_()
-        cg.device_if(pred, lambda c: c.add_(1), count)
+        cg.device_if(pred, lambda c: c.add_(1), count, site="seed")
 
     def while_node():
         count.zero_()
         cg.device_while(lambda s: (s[0] < limit) & (s[0] < COND_CAP), lambda s: s[0].add_(1),
-                        (count,))
+                        (count,), site="pcg")
 
     cases = []
     for fn, inp, value, replaces in (
@@ -2494,18 +2494,18 @@ def loop_nodes(fn):
     from vistaf_torch.utils import cuda_graph
     trips, ifs = [], [0]
 
-    def counted_while(cond, body, state):
+    def counted_while(cond, body, state, **kw):
         n = [0]
 
         def counted(s):
             n[0] += 1
             body(s)
-        cuda_graph.device_while(cond, counted, state)
+        cuda_graph.device_while(cond, counted, state, **kw)
         trips.append(n[0])
 
-    def counted_if(pred, fn_, out):
+    def counted_if(pred, fn_, out, **kw):
         ifs[0] += 1
-        cuda_graph.device_if(pred, fn_, out)
+        cuda_graph.device_if(pred, fn_, out, **kw)
 
     saved = ecc_kernel.device_while, unwrap.device_while, components.device_if
     ecc_kernel.device_while = unwrap.device_while = counted_while
@@ -2905,10 +2905,15 @@ def probe_host_libraries():
 
 
 @contextlib.contextmanager
-def staged(timer, patches):
+def staged(totals, patches):
     """While the block runs, each call of ``owner.attr`` for (owner, attr,
-    stage) in ``patches`` is timed under ``timer.stage(stage)``; a call made
-    inside another timed call is not timed again."""
+    stage) in ``patches`` is the recorder's span ``stage``
+    (``profiling.span``) and adds its wall time to ``totals[stage]``
+    (seconds), fenced by ``torch.cuda.synchronize`` at its start and end so
+    that it owns the device work it enqueued; a call made inside another
+    timed call is not timed again."""
+    import torch
+    from vistaf_torch.utils import profiling
     active = []
 
     def wrap(fn, stage):
@@ -2917,8 +2922,14 @@ def staged(timer, patches):
                 return fn(*a, **k)
             active.append(stage)
             try:
-                with timer.stage(stage):
-                    return fn(*a, **k)
+                with profiling.span(stage):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    try:
+                        return fn(*a, **k)
+                    finally:
+                        torch.cuda.synchronize()
+                        totals[stage] = totals.get(stage, 0.0) + time.perf_counter() - t0
             finally:
                 active.pop()
         return timed
@@ -2933,24 +2944,23 @@ def staged(timer, patches):
             setattr(owner, attr, raw)
 
 
-def drive_counted(device, fn, patches):
+def drive_counted(fn, patches):
     """fn() with the launches counted from 0 and the stages timed: (its
     result, its stdout, the launches, {stage: ms}); the wall time that no
     stage took is the writers'."""
     from io import StringIO
     import torch
     from vistaf_torch import kernels
-    from vistaf_torch.utils.profiling import StageTimer
-    timer = StageTimer(device)
+    totals = {}
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with staged(timer, patches), contextlib.redirect_stdout(StringIO()) as text:
+    with staged(totals, patches), contextlib.redirect_stdout(StringIO()) as text:
         out = fn()
     torch.cuda.synchronize()
     total_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(kernels.LAUNCHES)
-    ms = {k: v * 1e3 for k, v in timer.totals.items()}
+    ms = {k: v * 1e3 for k, v in totals.items()}
     ms["writers"] = total_ms - sum(ms.values())
     ms["total"] = total_ms
     return out, text.getvalue(), launches, ms
@@ -3021,7 +3031,7 @@ def run_runner(device, rows, card, force_pipes, sessions, temp_parity):
     pipelines of the same presets, for the direct call), and ``run_session``
     over ``sessions``' multimodal pipelines (parity sequential, deploy
     ``fused_step``), each with the launch counts set to 0 just before and
-    its wall time split by ``StageTimer``; where matplotlib is present also
+    its wall time split by ``staged``; where matplotlib is present also
     ``force --debug``, and with joblib and sklearn the ``temperature``
     command."""
     from vistaf_torch.calib import artifacts
@@ -3038,7 +3048,7 @@ def run_runner(device, rows, card, force_pipes, sessions, temp_parity):
     figures = libs["matplotlib"]
 
     def drive(fn, patches):
-        return drive_counted(device, fn, patches)
+        return drive_counted(fn, patches)
 
     cli_stages = [(ForcePipeline, "from_artifacts", "setup"), (io, "imread_bgr", "decode"),
                   (ForcePipeline, "__call__", "forward")]
@@ -3222,7 +3232,7 @@ def run_force_trainers(device, rows, card, root, route, figures):
     # --- train-p2h
     out_p2h, recorded = os.path.join(root, "p2h"), []
     with figure_recorders(not figures, recorded):
-        rc, text, launches, ms = drive_counted(device, lambda: cli.main(
+        rc, text, launches, ms = drive_counted(lambda: cli.main(
             ["train-p2h", "--ref", ref_p, "--deformed-dir", data, "--out", out_p2h]), stages)
     record_launches("train_p2h", rows, launches, frames=len(p2h_names))
     with open(os.path.join(out_p2h, "calibration_results.csv"), newline="") as f:
@@ -3259,7 +3269,7 @@ def run_force_trainers(device, rows, card, root, route, figures):
             "--out", out_h2f]
     recorded = []
     with figure_recorders(not figures, recorded):
-        rc, _, launches, ms = drive_counted(device, lambda: cli.main(argv), stages)
+        rc, _, launches, ms = drive_counted(lambda: cli.main(argv), stages)
     record_launches("train_h2f", rows, launches, frames=len(h2f_names))
     files = trained_tree(out_h2f, recorded)
     with open(os.path.join(out_h2f, "per_image_results.csv"), newline="") as f:
@@ -3272,7 +3282,7 @@ def run_force_trainers(device, rows, card, root, route, figures):
                for r in h2f_rows]
     equal = [float(r["volume_cm3"]) == v for r, v in zip(h2f_rows, volumes)]
     with figure_recorders(not figures, []):
-        rc2, _, launches2, ms2 = drive_counted(device, lambda: cli.main(argv), stages)
+        rc2, _, launches2, ms2 = drive_counted(lambda: cli.main(argv), stages)
     record_launches("train_h2f_resume", rows, launches2)
     with open(os.path.join(out_h2f, "calibration_model.json"), "rb") as f:
         same_json = f.read() == first_json
@@ -3337,7 +3347,7 @@ def run_temperature_trainers(device, rows, card, root, route, figures, joblib_to
         mod.fit_huber_poly = keep(fits[device.type])
         try:
             with figure_recorders(not figures, recorded):
-                summary, _, launches, ms = drive_counted(device, lambda: train(device, out),
+                summary, _, launches, ms = drive_counted(lambda: train(device, out),
                                                          stages)
             record_launches(f"train_temp_{kind}", rows, launches)
             mod.fit_huber_poly = keep(fits["cpu_run"])
@@ -3494,7 +3504,7 @@ def run_pretest(device, rows, card, root, route, figures):
     pretest.analyze = keep
     try:
         with figure_recorders(not figures, recorded):
-            rc, _, launches, ms = drive_counted(device, lambda: cli.main(
+            rc, _, launches, ms = drive_counted(lambda: cli.main(
                 ["pretest", "--pattern", pattern, "--out", out, "--label", "settle"]), stages)
     finally:
         pretest.analyze = analyze

@@ -193,8 +193,8 @@ def test_pcg_stack_is_each_planes_own_solve(case, b, monkeypatch):
     trips = []
     real = tun.device_while
 
-    def spy(cond, body, state):
-        real(cond, body, state)
+    def spy(cond, body, state, **kw):
+        real(cond, body, state, **kw)
         trips.append(state[-1].clone())
     monkeypatch.setattr(tun, "device_while", spy)
     got = tun.unwrap_wls(wr, m, consts, cg_iters=8, **kw)

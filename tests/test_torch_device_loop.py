@@ -136,8 +136,8 @@ def test_pcg_trip_count_is_the_loops(monkeypatch):
     seen = []
     real = tun.device_while
 
-    def spy(cond, body, state):
-        real(cond, body, state)
+    def spy(cond, body, state, **kw):
+        real(cond, body, state, **kw)
         seen.append(int(state[-1]))
     monkeypatch.setattr(tun, "device_while", spy)
     for tol in (1e-8, 1e-2):

@@ -631,7 +631,8 @@ def test_while_node_trip_counts_equal_the_host_loop(dev):
     """A WHILE node (``device_while`` under a capture) counting up to a
     device limit under a cap of 9, its body adding a vector each trip: trip
     counts 0, 1, N and the cap equal to the plain loop's, the sums bit-equal,
-    and the condition setter run once more than the trips."""
+    and the condition setter run once more than the trips: the trips in
+    the site's slot, the first set in ``entry``."""
     from vistaf_torch.kernels import graph_cond_kernel
     from vistaf_torch.utils.cuda_graph import device_while
     limit = torch.zeros((), dtype=torch.int32, device=dev)
@@ -643,7 +644,7 @@ def test_while_node_trip_counts_equal_the_host_loop(dev):
         it.zero_()
         acc.zero_()
         device_while(lambda s: (s[0] < limit) & (s[0] < 9),
-                     lambda s: (s[1].add_(x * 1.5), s[0].add_(1)), (it, acc))
+                     lambda s: (s[1].add_(x * 1.5), s[0].add_(1)), (it, acc), site="pcg")
     g, pool = _captured(dev, loop)     # the pool lives as long as the graph
     for n in (0, 1, 5, 30):
         limit.fill_(n)
@@ -654,6 +655,8 @@ def test_while_node_trip_counts_equal_the_host_loop(dev):
         assert int(it) == want[0] == min(n, 9)
         assert torch.equal(acc, want[1])
         assert graph_cond_kernel.sets(dev) == want[0] + 1
+        assert graph_cond_kernel.slots(dev) == {"entry": 1, "ecc": 0, "pcg": want[0],
+                                                "seed": 0, "fold": 0}
 
 
 def test_if_node_taken_and_not_equal_the_host_branch(dev):
@@ -664,7 +667,8 @@ def test_if_node_taken_and_not_equal_the_host_branch(dev):
 
     def branch():
         out.fill_(1.0)
-        device_if(pred, lambda t: t.mul_(3.0).add_(torch.ones(4, device=dev)), out)
+        device_if(pred, lambda t: t.mul_(3.0).add_(torch.ones(4, device=dev)), out,
+                  site="fold")
     g, pool = _captured(dev, branch)
     for taken in (False, True):
         pred.fill_(taken)
@@ -674,6 +678,8 @@ def test_if_node_taken_and_not_equal_the_host_branch(dev):
         g.replay()
         assert torch.equal(out, want) and float(want[0]) == (4.0 if taken else 1.0)
         assert graph_cond_kernel.sets(dev) == 1
+        assert graph_cond_kernel.slots(dev) == {"entry": 0, "ecc": 0, "pcg": 0, "seed": 0,
+                                                "fold": 1}
 
 
 def test_parity_graph_replay_equals_eager_on_card(dev):

@@ -24,9 +24,12 @@
 // before each trip; an IF node runs its body once if it is non-zero.  The
 // trip count is the data's: nothing reads the device on the host.
 //
-// Each run of the setter adds one to a device counter (vt_cond_sets), so
-// that a replay's executions can be counted exactly: a setter inside a
-// WHILE body runs once a trip, which no count of captured launches gives.
+// Each run of the setter adds one to its call site's slot of a small device
+// array (the sites: kernels/graph_cond_kernel.py SITES), so that a replay's
+// executions are counted exactly and by site: a setter inside a WHILE body
+// runs once a trip, which no count of captured launches gives.  The setter
+// before a WHILE node counts in the "entry" slot, so a WHILE site's slot
+// holds its trips; an IF site's slot holds its nodes' runs.
 //
 // Bound.  The setter reads one byte and writes the handle's value: its time
 // is one launch's latency inside the graph.
@@ -38,12 +41,13 @@
 
 namespace {
 
-__device__ unsigned long long g_cond_sets;
+constexpr int kSlots = 5;   // = len(graph_cond_kernel.SITES)
+__device__ unsigned long long g_cond_sets[kSlots];
 
 __global__ void set_conditional_kernel(cudaGraphConditionalHandle handle,
-                                       const unsigned char* pred) {
+                                       const unsigned char* pred, int slot) {
   cudaGraphSetConditional(handle, pred[0] ? 1u : 0u);
-  atomicAdd(&g_cond_sets, 1ull);
+  atomicAdd(&g_cond_sets[slot], 1ull);
 }
 
 cudaError_t capture_info(cudaStream_t st, cudaGraph_t* graph, const cudaGraphNode_t** deps,
@@ -74,9 +78,11 @@ extern "C" int vt_cond_handle(unsigned long long* handle, void* stream) {
   return (int)err;
 }
 
-extern "C" int vt_set_conditional(unsigned long long handle, const void* pred, void* stream) {
+extern "C" int vt_set_conditional(unsigned long long handle, const void* pred, int slot,
+                                  void* stream) {
+  if (slot < 0 || slot >= kSlots) return (int)cudaErrorInvalidValue;
   set_conditional_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
-      (cudaGraphConditionalHandle)handle, (const unsigned char*)pred);
+      (cudaGraphConditionalHandle)handle, (const unsigned char*)pred, slot);
   return (int)cudaGetLastError();
 }
 
@@ -116,11 +122,20 @@ extern "C" int vt_cond_end(void* body_stream) {
   return (int)cudaStreamEndCapture((cudaStream_t)body_stream, &body);
 }
 
-extern "C" int vt_cond_sets(unsigned long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_cond_sets, sizeof(unsigned long long));
+extern "C" int vt_cond_slot_count() { return kSlots; }
+
+// The slots into host memory: synchronously, or enqueued on a stream (into
+// pinned memory, so that the copy does not wait for the host).
+extern "C" int vt_cond_slots(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_cond_sets, sizeof(g_cond_sets));
 }
 
-extern "C" int vt_cond_sets_reset() {
-  const unsigned long long zero = 0;
-  return (int)cudaMemcpyToSymbol(g_cond_sets, &zero, sizeof(unsigned long long));
+extern "C" int vt_cond_slots_async(void* out, void* stream) {
+  return (int)cudaMemcpyFromSymbolAsync(out, g_cond_sets, sizeof(g_cond_sets), 0,
+                                        cudaMemcpyDeviceToHost, (cudaStream_t)stream);
+}
+
+extern "C" int vt_cond_slots_reset() {
+  const unsigned long long zero[kSlots] = {};
+  return (int)cudaMemcpyToSymbol(g_cond_sets, zero, sizeof(g_cond_sets));
 }

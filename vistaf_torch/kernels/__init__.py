@@ -138,15 +138,17 @@ _SIGNATURES = {
     "vt_label_components": (_P, _P, _P, _I, _I, _I, _P),
     # the graph conditional nodes (graph_cond_kernel): handle out, stream
     "vt_cond_handle": (_P, _P),
-    # handle, predicate (1 byte), stream
-    "vt_set_conditional": (_U, _P, _P),
+    # handle, predicate (1 byte), slot (graph_cond_kernel.SITES), stream
+    "vt_set_conditional": (_U, _P, _I, _P),
     # handle, kind (0 IF, 1 WHILE), body stream, stream
     "vt_cond_begin": (_U, _I, _P, _P),
     # body stream
     "vt_cond_end": (_P,),
-    # the setter's runs: count out (host)
-    "vt_cond_sets": (_P,),
-    "vt_cond_sets_reset": (),
+    # the setter's runs by slot: -> slots; out (host); out (pinned host), stream
+    "vt_cond_slot_count": (),
+    "vt_cond_slots": (_P,),
+    "vt_cond_slots_async": (_P, _P),
+    "vt_cond_slots_reset": (),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -190,7 +190,7 @@ def gn_loop(moments: Callable[[torch.Tensor], torch.Tensor], p0: torch.Tensor,
         failed.logical_or_(now_failed if go is None else now_failed & go)
         it.add_(1 if go is None else go.to(torch.int32))
 
-    device_while(cond, body, state)
+    device_while(cond, body, state, site="ecc")
     p, _, rho, it, failed, best_rho, best_p, stall = state
     if stall_patience > 0:
         stalled = stall >= stall_patience

@@ -71,7 +71,8 @@ def dominant_component(mask: torch.Tensor, seed_pool: int = 1) -> torch.Tensor:
         seed = (yy == sy) & (xx == sx) & mask
         ok = seed.flatten(-2).any(dim=-1) & (dist.amax(dim=-1) > 0)   # dist[sf], the maximum
         fail = ~ok[..., None, None]
-        device_if(fail.any(), lambda s: s.copy_(torch.where(fail, _fine_seed(mask), s)), seed)
+        device_if(fail.any(), lambda s: s.copy_(torch.where(fail, _fine_seed(mask), s)), seed,
+                  site="seed")
     else:
         seed = _fine_seed(mask)
     return reconstruct(seed, mask)

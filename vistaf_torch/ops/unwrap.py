@@ -194,7 +194,7 @@ def _wls_pcg_solve(psi: torch.Tensor, m: torch.Tensor, cg_iters: int, tol: float
         rz.copy_(keep(rz_new, rz))
         it.add_(1 if go is None else go.to(torch.int32))
 
-    device_while(lambda s: live(s).any() if batched else live(s), body, state)
+    device_while(lambda s: live(s).any() if batched else live(s), body, state, site="pcg")
     return phi
 
 

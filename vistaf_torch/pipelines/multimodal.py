@@ -30,6 +30,7 @@ from vistaf_torch.calib import scalar_models
 from vistaf_torch.config import ForceConfig, FTPConfig, TempConfig
 from vistaf_torch.pipelines.force import ForcePipeline, depth_map_to_volume_cm3
 from vistaf_torch.temperature.inference import TemperaturePipeline
+from vistaf_torch.utils import profiling
 from vistaf_torch.utils.cuda_graph import ForwardGraph
 
 TEMP_SCALARS = ("t_mean", "t_min", "t_max", "t_std")
@@ -93,15 +94,16 @@ class MultimodalPipeline:
         """Upload a frame once; pass the result to ``__call__`` /
         ``step_fused`` so that both forwards read one transfer.  On the card
         the copy goes from pinned host memory; a tensor already on the
-        device passes through untouched."""
-        if isinstance(frame, torch.Tensor):
-            return frame.to(self.device)
-        host = torch.from_numpy(np.ascontiguousarray(frame))
-        if self.device.type != "cuda":
-            return host.to(self.device)
-        # the pinned block is freed on return; PyTorch's host allocator
-        # holds it until the copy on the current stream has finished
-        return host.pin_memory().to(self.device, non_blocking=True)
+        device passes through untouched.  The span ``ingest``."""
+        with profiling.span("ingest"):
+            if isinstance(frame, torch.Tensor):
+                return frame.to(self.device)
+            host = torch.from_numpy(np.ascontiguousarray(frame))
+            if self.device.type != "cuda":
+                return host.to(self.device)
+            # the pinned block is freed on return; PyTorch's host allocator
+            # holds it until the copy on the current stream has finished
+            return host.pin_memory().to(self.device, non_blocking=True)
 
     def _stats(self, temp_out: Dict[str, Any]) -> Dict[str, Any]:
         return temperature_stats(temp_out, self.temperature.cfg.crop_output_to_outer_roi)
@@ -142,7 +144,8 @@ class MultimodalPipeline:
                     functools.partial(self.fused_forward_eager, stats_only=stats_only),
                     self.device)
             return graph(ref_bgr, def_bgr)
-        return self.fused_forward_eager(ref_bgr, def_bgr, stats_only)
+        with profiling.span("eager"):
+            return self.fused_forward_eager(ref_bgr, def_bgr, stats_only)
 
     def fused_forward_eager(self, ref_bgr: torch.Tensor, def_bgr: torch.Tensor,
                             stats_only: bool = False):
@@ -172,11 +175,17 @@ class MultimodalPipeline:
         ``fetch='scalars'`` returns the force scalars, the temperature
         statistics (``t_*_C``, ``valid_pixels``) and the grating period as
         Python numbers, fetched in one device-to-host copy of a stacked
-        tensor, and moves no map."""
+        tensor, and moves no map.  The span ``step_fused``, holding
+        ``ingest`` a frame, ``replay`` (or ``eager``) and ``fetch``."""
         if fetch not in ("maps", "scalars"):
             raise ValueError(f"fetch must be 'maps' or 'scalars', got {fetch!r}")
-        fout, tout, scal = self.fused_forward(self.ingest(ref_bgr), self.ingest(def_bgr),
-                                              stats_only=fetch == "scalars")
+        with profiling.span("step_fused"):
+            fout, tout, scal = self.fused_forward(self.ingest(ref_bgr), self.ingest(def_bgr),
+                                                  stats_only=fetch == "scalars")
+            with profiling.span("fetch"):
+                return self._fetch(fout, tout, scal, fetch)
+
+    def _fetch(self, fout, tout, scal, fetch: str) -> Dict[str, Any]:
         names = [*scal, *(k + "_C" for k in TEMP_SCALARS), "valid_pixels",
                  "estimated_grating_period_px"]
         vals = torch.stack([t.to(torch.float64) for t in (

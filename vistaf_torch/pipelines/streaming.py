@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from vistaf_torch.parallel.mesh import gather_streams, mesh_device
+from vistaf_torch.utils import profiling
 from vistaf_torch.utils.cuda_graph import ForwardGraph
 
 
@@ -166,13 +167,21 @@ class StreamingForce:
             if self._graph is None:
                 self._graph = ForwardGraph(self.step_eager, self.device)
             return self._graph(refs, frames)
-        return self.step_eager(refs, frames)
+        with profiling.span("eager"):
+            return self.step_eager(refs, frames)
 
     def __call__(self, refs, frames) -> Dict[str, np.ndarray]:
         """One batch of (n_streams, H, W, 3) uint8 frames against the
         streams' reference frames (this rank's block of both over a mesh);
-        returns the step's outputs, of every stream, as numpy."""
-        return _to_host([self._step(self._upload(refs), self._upload(frames))])[0]
+        returns the step's outputs, of every stream, as numpy.  The span
+        ``stream_step``, holding ``upload``, ``replay`` (or ``eager``) and
+        ``fetch``."""
+        with profiling.span("stream_step"):
+            with profiling.span("upload"):
+                refs, frames = self._upload(refs), self._upload(frames)
+            out = self._step(refs, frames)
+            with profiling.span("fetch"):
+                return _to_host([out])[0]
 
     def reset(self, window: Optional[int] = None) -> None:
         """Back to no frames seen.  The same window zeroes the state's
@@ -193,15 +202,30 @@ class StreamingForce:
         host memory on a second CUDA stream while batch N computes, with
         events ordering each copy before its use and each use before the
         next copy into the same buffers.  The outputs are fetched once, at
-        the end.  Elsewhere the batches run one after the other."""
-        refs_dev = self._upload(refs)
+        the end.  Elsewhere the batches run one after the other.  The span
+        ``run_overlapped``, holding ``upload`` (the references), ``stage``
+        a batch (its wait for the pinned buffer's previous copy
+        ``stage_wait``), ``replay`` (or ``eager``) a step and one
+        ``fetch``."""
+        with profiling.span("run_overlapped"):
+            with profiling.span("upload"):
+                refs_dev = self._upload(refs)
+            outs = self._overlapped(refs_dev, frames_seq)
+            with profiling.span("fetch"):
+                return _to_host(outs)
+
+    def _overlapped(self, refs_dev: torch.Tensor, frames_seq) -> List[Dict[str, torch.Tensor]]:
         it = iter(frames_seq)
         first = next(it, None)
         if first is None:
             return []
         if self.device.type != "cuda":
-            return _to_host([self._step(refs_dev, self._upload(f))
-                             for f in (first, *it)])
+            outs = []
+            for f in (first, *it):
+                with profiling.span("stage"):
+                    f = self._upload(f)
+                outs.append(self._step(refs_dev, f))
+            return outs
 
         first = np.ascontiguousarray(first)
         main = torch.cuda.current_stream(self.device)
@@ -214,19 +238,21 @@ class StreamingForce:
         consumed: List[Optional[torch.cuda.Event]] = [None, None]
 
         def stage(i: int, frames) -> None:
-            k = i % 2
-            frames = np.ascontiguousarray(frames)
-            if frames.shape != first.shape or frames.dtype != np.uint8:
-                raise ValueError(f"batch {i}: {frames.shape} {frames.dtype}, expected "
-                                 f"{first.shape} uint8")
-            if i >= 2:
-                copied[k].synchronize()       # batch i-2's copy has left host[k]
-            host[k].copy_(torch.from_numpy(frames))
-            with torch.cuda.stream(side):
-                if consumed[k] is not None:
-                    side.wait_event(consumed[k])   # batch i-2's step is done with dev[k]
-                dev[k].copy_(host[k], non_blocking=True)
-                copied[k].record(side)
+            with profiling.span("stage"):
+                k = i % 2
+                frames = np.ascontiguousarray(frames)
+                if frames.shape != first.shape or frames.dtype != np.uint8:
+                    raise ValueError(f"batch {i}: {frames.shape} {frames.dtype}, expected "
+                                     f"{first.shape} uint8")
+                if i >= 2:
+                    with profiling.span("stage_wait"):
+                        copied[k].synchronize()       # batch i-2's copy has left host[k]
+                host[k].copy_(torch.from_numpy(frames))
+                with torch.cuda.stream(side):
+                    if consumed[k] is not None:
+                        side.wait_event(consumed[k])   # batch i-2's step is done with dev[k]
+                    dev[k].copy_(host[k], non_blocking=True)
+                    copied[k].record(side)
 
         outs = []
         stage(0, first)
@@ -242,4 +268,4 @@ class StreamingForce:
             if nxt is None:
                 break
             i, nxt = i + 1, next(it, None)
-        return _to_host(outs)
+        return outs

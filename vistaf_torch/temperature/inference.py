@@ -125,7 +125,7 @@ def oriented_gaussian_blur(map_f: torch.Tensor, roi: torch.Tensor, angle_rad: to
             # a capture cannot copy them from the host
             gaussian_blur_constants(rot.shape[1:], sx, consts, sigma_y=sy, vpu=vpu)
             device_if(pred, lambda out, sx=sx, sy=sy: out.copy_(
-                gaussian_blur(rot[0], sx, consts, sigma_y=sy, vpu=vpu)), blurred)
+                gaussian_blur(rot[0], sx, consts, sigma_y=sy, vpu=vpu)), blurred, site="fold")
         stack1 = torch.stack([blurred, (rot[1] > 0.5).to(torch.float32)])
         back = rotate_stack_shear(stack1, -ang, center)
         return torch.where(back[1] > 0.5, back[0], math.nan)

@@ -15,17 +15,23 @@ once for each replay instead (``kernels.count_replay``).  Every later call copie
 static buffers, replays the graph on the current stream and returns clones
 of the static outputs, which the next replay overwrites.  Inputs of another
 shape, dtype or device raise; so does a failed capture or replay: nothing
-runs the forward eagerly instead.
+runs the forward eagerly instead.  While ``utils/profiling.py``'s
+recorder is on, the first call's eager run and capture are the spans
+``eager`` and ``capture``, and a later call is a ``replay`` span whose
+replay is timed on the card and counts the condition setter's runs by site
+(``profiling.on_device``).
 
 The forward's data-dependent loops and branches stay on the device, as the
 JAX package's ``lax.while_loop`` and ``lax.cond`` do inside its jitted
-forward: ``device_while(cond, body, state)`` and ``device_if(pred, fn,
-out)``.  Under a capture each is a CUDA-graph conditional node (a WHILE or
-an IF node, ``kernels/graph_cond_kernel.py``) whose body is captured once
-on a stream of its own, its condition set on the card; anywhere else (on
-the CPU, in the card's eager forward) each is its plain version, ``while
-cond(state): body(state)`` and ``if pred: fn(out)``, with the predicate read
-on the host and the same ops in the same order.  A body
+forward: ``device_while(cond, body, state, site=...)`` and
+``device_if(pred, fn, out, site=...)``, ``site`` naming the setter's slot
+that counts the node's runs.  Under a capture each is a CUDA-graph
+conditional node (a WHILE or an IF node, ``kernels/graph_cond_kernel.py``)
+whose body is captured once on a stream of its own, its condition set on
+the card; anywhere else (on the CPU, in the card's eager forward) each is
+its plain version, ``while cond(state): body(state)`` and ``if pred:
+fn(out)``, with the predicate read on the host and the same ops in the
+same order.  A body
 updates its tensors in place: the body graph replays on fixed buffers, so
 it may not rebind its state, read the device on the host or build a tensor
 from host values.  Its temporaries live in a memory pool that lives as
@@ -46,6 +52,7 @@ import torch
 
 from vistaf_torch import kernels
 from vistaf_torch.kernels import graph_cond_kernel
+from vistaf_torch.utils import profiling
 
 _BODY_POOL = threading.local()    # .pool: the memory pool of the capture's bodies
 _BODY_STREAMS: Dict[int, torch.cuda.Stream] = {}
@@ -108,11 +115,13 @@ def conditional_bodies(device):
         _BODY_POOL.pool = prev
 
 
-def _conditional_node(kind: int, pred: torch.Tensor, body: Callable[[], None],
+def _conditional_node(kind: int, pred: torch.Tensor, body: Callable[[], None], site: str,
                       again: Optional[Callable[[], torch.Tensor]] = None) -> None:
     """Capture an IF or WHILE node on the current stream: the setter with
     ``pred``, the node, then ``body()`` (and, for a WHILE node, the setter
-    with ``again()``) captured into its body graph on the body stream."""
+    with ``again()``) captured into its body graph on the body stream.  The
+    setter counts in ``site``'s slot, but a WHILE node's first set, which
+    counts in ``entry``."""
     device = pred.device
     pool = getattr(_BODY_POOL, "pool", None)
     stream = _BODY_STREAMS.get(device.index)
@@ -122,26 +131,34 @@ def _conditional_node(kind: int, pred: torch.Tensor, body: Callable[[], None],
     if torch.cuda.current_stream(device) == stream:
         raise RuntimeError("a conditional node inside another one's body is not supported")
     handle = graph_cond_kernel.create_handle(device)
-    graph_cond_kernel.set_conditional(handle, pred)
+    graph_cond_kernel.set_conditional(handle, pred, "entry" if again is not None else site)
     graph_cond_kernel.begin_body(handle, kind, stream, device)
     try:
         with torch.cuda.stream(stream), torch.cuda.use_mem_pool(pool, device):
             body()
             if again is not None:
-                graph_cond_kernel.set_conditional(handle, again())
+                graph_cond_kernel.set_conditional(handle, again(), site)
     finally:
         graph_cond_kernel.end_body(stream)
 
 
+def _check_site(site: str) -> None:
+    if site not in graph_cond_kernel.SITES or site == "entry":
+        raise ValueError(f"site {site!r}: one of {graph_cond_kernel.SITES[1:]}")
+
+
 def device_while(cond: Callable[[Sequence[torch.Tensor]], torch.Tensor],
                  body: Callable[[Sequence[torch.Tensor]], None],
-                 state: Sequence[torch.Tensor]) -> None:
+                 state: Sequence[torch.Tensor], *, site: str) -> None:
     """``lax.while_loop`` on the device: ``body(state)`` updates the state
     tensors in place while ``cond(state)`` (a 0-dim bool tensor) holds.
-    Under a capture a WHILE node; else ``while cond(state): body(state)``,
-    the condition read on the host (``set_conditional_plain``)."""
+    Under a capture a WHILE node whose trips count in the setter's slot
+    ``site`` (``graph_cond_kernel.SITES``); else ``while cond(state):
+    body(state)``, the condition read on the host
+    (``set_conditional_plain``)."""
+    _check_site(site)
     if _capturing(state[0]):
-        _conditional_node(graph_cond_kernel.WHILE, cond(state), lambda: body(state),
+        _conditional_node(graph_cond_kernel.WHILE, cond(state), lambda: body(state), site,
                           lambda: cond(state))
         _WHILE_NODES[0] += 1
         return
@@ -150,12 +167,14 @@ def device_while(cond: Callable[[Sequence[torch.Tensor]], torch.Tensor],
 
 
 def device_if(pred: torch.Tensor, fn: Callable[[torch.Tensor], None],
-              out: torch.Tensor) -> None:
+              out: torch.Tensor, *, site: str) -> None:
     """``lax.cond`` on the device: ``fn(out)`` updates ``out`` in place if
-    the 0-dim bool ``pred`` holds.  Under a capture an IF node; else ``if
-    pred: fn(out)``, the predicate read on the host."""
+    the 0-dim bool ``pred`` holds.  Under a capture an IF node whose runs
+    count in the setter's slot ``site``; else ``if pred: fn(out)``, the
+    predicate read on the host."""
+    _check_site(site)
     if _capturing(pred):
-        _conditional_node(graph_cond_kernel.IF, pred, lambda: fn(out))
+        _conditional_node(graph_cond_kernel.IF, pred, lambda: fn(out), site)
         return
     if graph_cond_kernel.set_conditional_plain(pred):
         fn(out)
@@ -193,16 +212,19 @@ class ForwardGraph:
                 "the forward's CUDA graph was captured for inputs "
                 f"{[(tuple(s.shape), s.dtype, str(s.device)) for s in self._inputs]}, got "
                 f"{[(tuple(x.shape), x.dtype, str(x.device)) for x in inputs]}")
-        for s, x in zip(self._inputs, inputs):
-            s.copy_(x)
-        self.graph.replay()
-        kernels.count_replay(self.launches)
-        return _clone(self._outputs)
+        with profiling.span("replay") as sp:
+            for s, x in zip(self._inputs, inputs):
+                s.copy_(x)
+            with profiling.on_device(sp, self.device):
+                self.graph.replay()
+            kernels.count_replay(self.launches)
+            return _clone(self._outputs)
 
     def _capture(self, inputs):
         with torch.cuda.device(self.device):
             self._inputs = [torch.empty_like(x, device=self.device).copy_(x) for x in inputs]
-            out = self.fn(*self._inputs)
+            with profiling.span("eager"):
+                out = self.fn(*self._inputs)
             before = dict(kernels.LAUNCHES)
             graph = torch.cuda.CUDAGraph()
             # no garbage collection inside the capture: freeing a cycle
@@ -215,7 +237,8 @@ class ForwardGraph:
             gc.disable()
             whiles = _WHILE_NODES[0]
             try:
-                with conditional_bodies(self.device) as self.body_pool, \
+                with profiling.span("capture"), \
+                        conditional_bodies(self.device) as self.body_pool, \
                         torch.cuda.graph(graph, capture_error_mode="thread_local"):
                     self._outputs = self.fn(*self._inputs)
             finally:

@@ -1,13 +1,27 @@
-"""Profiling hooks: ``torch.profiler`` traces, stage wall timing and CUDA-event
-latency (JAX ``utils/profiling.py``), and the card measurements that
-``chip_smoke.py`` and ``bench_torch.py`` share.
+"""Profiling hooks: the port's span-and-counter recorder, ``torch.profiler``
+traces, and the card measurements that ``chip_smoke.py`` and
+``bench_torch.py`` share.
 
-``device_trace`` writes a Chrome trace of a block; ``StageTimer`` splits a
-run's wall time into named stages, each fenced by ``torch.cuda.synchronize``
-on a CUDA device so that a stage owns the device work it enqueued;
-``profile_callable`` times a callable on the card with CUDA events.  The
-kernels' build directory ``vistaf_torch/_build`` plays the part of the JAX
-package's persistent compilation cache.
+The recorder (``span``, ``on_device``, ``spans``, ``spans_reset``) is on
+exactly while a ``torch.profiler`` trace is collecting; off, ``span(name)``
+is one flag test and returns a shared null context.  On, each span is a
+``record_function`` range named ``vistaf.<name>``, so it shows in the
+Chrome trace on the clock of the card's kernels and copies, and a record
+in a bounded buffer: its name, start and end (``time.perf_counter_ns``),
+its parent and the id of the entry call that every span of one call
+shares.  ``on_device`` wraps a CUDA graph's replay inside a ``replay``
+span: a CUDA event on the replay's stream before and after it, put on the
+host clock through one anchor a device (a synchronize, then host readings
+around a few events, taken at the first replay the recorder sees), and the
+condition setter's slots (``graph_cond_kernel.SITES``) copied to pinned
+memory before and after it, which give the replay's WHILE trips and IF
+runs by site.  Both are read when the call's outermost span closes, once
+the card has done them (the call's fetch has synchronized), or when a
+reader asks: the recorder adds no synchronize to a call but the anchor's.
+
+``device_trace`` writes a Chrome trace of a block.  The kernels' build
+directory ``vistaf_torch/_build`` plays the part of the JAX package's
+persistent compilation cache.
 
 The card measurements: ``event_times`` (each call between two CUDA events,
 ``torch.cuda.synchronize`` after the second), ``cuda_ms`` (their median),
@@ -17,7 +31,8 @@ makes, from PyTorch's sync debug mode), ``device_ms`` (the kernels' and
 copies' own time under ``torch.profiler``), ``d2h_copies`` (the
 device-to-host copies one call makes) and ``profile_window`` (device busy
 share, launches and the heaviest device work over a few calls).  Each needs
-a card: a CPU run gives no device time.  Every trace is announced to
+a card: a CPU run gives no device time; each keeps the recorder off, so
+that it counts the program's work and not the recorder's.  Every trace is announced to
 ``cuda_graph.note_profiler`` first, which keeps the WHILE graphs that go
 after it.
 """
@@ -31,21 +46,230 @@ import re
 import tempfile
 import time
 import warnings
-from typing import Dict, List, Optional, Sequence
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-from vistaf_torch.utils import cuda_graph
+# the recorder's switch: ``_is_profiler_enabled`` holds while a
+# torch.profiler trace is collecting (``_forced`` swaps it)
+_switch = _autograd_profiler
+_NULL = contextlib.nullcontext()
+MAX_SPANS = 1 << 16
+ANCHOR_EVENTS = 32
+
+
+@dataclass
+class Span:
+    """One recorded span.  ``device_ns``: a replay's (start, end) on the
+    card, on the host's ``perf_counter_ns`` clock; ``trips``: the condition
+    setter's runs during it by site (a WHILE site's trips, an IF site's
+    runs, ``entry`` the WHILE nodes' first sets).  Both None until read,
+    and on any span but a replay."""
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int        # index in ``spans()``; -1 for a call's outermost span
+    call: int          # shared by every span of one entry call
+    device_ns: Optional[Tuple[int, int]] = None
+    trips: Optional[Dict[str, int]] = None
+
+
+@dataclass
+class _Replay:
+    span: Span
+    device: torch.device
+    begin: torch.cuda.Event
+    end: torch.cuda.Event
+    done: torch.cuda.Event     # after the second slot copy
+    slots: torch.Tensor        # (2, sites) pinned: before and after
+
+    def read(self, anchors) -> None:
+        from vistaf_torch.kernels.graph_cond_kernel import SITES
+        host_ns, ev = anchors[self.device.index]
+        self.span.device_ns = (host_ns + round(ev.elapsed_time(self.begin) * 1e6),
+                               host_ns + round(ev.elapsed_time(self.end) * 1e6))
+        before, after = self.slots.tolist()
+        self.span.trips = {k: b - a for k, a, b in zip(SITES, before, after)}
+
+
+class _Recorder:
+    def __init__(self):
+        self.records: List[Span] = []
+        self.dropped = 0
+        self.calls = 0
+        self.stack: List[int] = []          # indices of the open spans
+        self.anchors: Dict[int, Tuple[int, torch.cuda.Event]] = {}
+        self.anchor_width_ns: Dict[int, int] = {}
+        self.pending: List[_Replay] = []
+
+    def anchor(self, device: torch.device) -> None:
+        """The device's anchor: the host time of a first event on the card.
+        Each of ANCHOR_EVENTS events, recorded on an idle card, ran after
+        its record was called and before its synchronize returned; less its
+        time after the first event, each bounds the first's host time from
+        both sides, and the middle of the tightest bounds is taken
+        (``anchor_width_ns``: their distance)."""
+        if device.index in self.anchors:
+            return
+        stream = torch.cuda.current_stream(device)
+        torch.cuda.synchronize(device)
+        taken = []
+        for _ in range(ANCHOR_EVENTS):
+            ev = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter_ns()
+            ev.record(stream)
+            ev.synchronize()
+            taken.append((t0, time.perf_counter_ns(), ev))
+        first = taken[0][2]
+        after = [round(first.elapsed_time(ev) * 1e6) for _, _, ev in taken]
+        lo = max(t0 - d for (t0, _, _), d in zip(taken, after))
+        hi = min(t1 - d for (_, t1, _), d in zip(taken, after))
+        self.anchors[device.index] = ((lo + hi) // 2, first)
+        self.anchor_width_ns[device.index] = hi - lo
+
+    def resolve(self, wait: bool) -> None:
+        """Read the replays the card has done (all of them with ``wait``)."""
+        left = []
+        for r in self.pending:
+            if wait:
+                r.done.synchronize()
+            if wait or r.done.query():
+                r.read(self.anchors)
+            else:
+                left.append(r)
+        self.pending = left
+
+
+_REC = _Recorder()
+
+
+class _Open:
+    """A span being recorded: the ``record_function`` range and the record."""
+    __slots__ = ("name", "fn", "index")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> Optional[Span]:
+        self.fn = _autograd_profiler.record_function("vistaf." + self.name)
+        self.fn.__enter__()
+        rec, t = _REC, time.perf_counter_ns()
+        stack = rec.stack
+        if len(rec.records) >= MAX_SPANS:
+            rec.dropped += 1
+            self.index = -1
+            return None
+        parent = stack[-1] if stack else -1
+        if parent >= 0:
+            call = rec.records[parent].call
+        else:
+            rec.calls += 1
+            call = rec.calls
+        self.index = len(rec.records)
+        rec.records.append(Span(self.name, t, 0, parent, call))
+        stack.append(self.index)
+        return rec.records[-1]
+
+    def __exit__(self, *exc):
+        rec = _REC
+        if self.index >= 0:
+            rec.records[self.index].end_ns = time.perf_counter_ns()
+            rec.stack.pop()
+            if not rec.stack and rec.pending:
+                rec.resolve(wait=False)
+        self.fn.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """``with span(name):`` records the block as ``vistaf.<name>`` while a
+    ``torch.profiler`` trace is collecting; else a shared null context.
+    The ``as`` target is the record (None when off)."""
+    if not _switch._is_profiler_enabled:
+        return _NULL
+    return _Open(name)
+
+
+@contextlib.contextmanager
+def _device_span(sp: Span, device: torch.device):
+    from vistaf_torch.kernels import graph_cond_kernel
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    rec = _REC
+    rec.anchor(device)
+    stream = torch.cuda.current_stream(device)
+    slots = torch.empty((2, len(graph_cond_kernel.SITES)), dtype=torch.int64,
+                        pin_memory=True)
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    done = torch.cuda.Event()
+    graph_cond_kernel.slots_async(slots[0], device)
+    begin.record(stream)
+    yield
+    end.record(stream)
+    # after the end event, so that a copy queued behind another on the card
+    # does not stretch the span
+    graph_cond_kernel.slots_async(slots[1], device)
+    done.record(stream)
+    rec.pending.append(_Replay(sp, device, begin, end, done, slots))
+
+
+def on_device(sp: Optional[Span], device: torch.device):
+    """Around a CUDA graph's replay on ``device``'s current stream, inside
+    the span ``sp``: its device start and end and the setter's runs by site
+    (``Span.device_ns``, ``Span.trips``).  A null context when ``sp`` is
+    None (the recorder off)."""
+    if sp is None:
+        return _NULL
+    return _device_span(sp, device)
+
+
+def spans() -> List[Span]:
+    """The recorded spans, oldest first (``parent`` indexes this list); the
+    replays' device spans and trips read first, waiting for the card."""
+    _REC.resolve(wait=True)
+    return list(_REC.records)
+
+
+def spans_reset() -> None:
+    """Empty the buffer (after reading the replays still pending) and drop
+    the anchors: the next replay the recorder sees takes a new one."""
+    _REC.resolve(wait=True)
+    _REC.records.clear()
+    _REC.dropped = 0
+    _REC.anchors.clear()
+    _REC.anchor_width_ns.clear()
+
+
+@contextlib.contextmanager
+def _forced(on: bool):
+    """The recorder on (or off) whatever the profiler does: its cost
+    measured without a trace, tests, and the measurements below, which
+    count the program's own copies and launches under a trace."""
+    global _switch
+    saved = _switch
+    _switch = type("_Switch", (), {"_is_profiler_enabled": on})
+    try:
+        yield
+    finally:
+        _switch = saved
+
+
+def _note_profiler() -> None:
+    from vistaf_torch.utils import cuda_graph
+    cuda_graph.note_profiler()
 
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """``torch.profiler`` trace of the block (host, and the card's kernels
     and copies where there is one), written to ``log_dir/trace.json``
-    (Chrome trace format: chrome://tracing or Perfetto)."""
+    (Chrome trace format: chrome://tracing or Perfetto).  The recorder's
+    spans are in it as ``vistaf.*`` ranges."""
     from torch.profiler import ProfilerActivity, profile
-    cuda_graph.note_profiler()
+    _note_profiler()
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -56,58 +280,6 @@ def device_trace(log_dir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class StageTimer:
-    """Accumulating wall-clock stage timer.  On a CUDA ``device`` each stage
-    starts and ends with ``torch.cuda.synchronize``."""
-
-    def __init__(self, device="cpu"):
-        self.sync = torch.device(device).type == "cuda"
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        if self.sync:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.sync:
-                torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> str:
-        lines = []
-        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(f"{name:30s} {total * 1000:9.2f} ms total  "
-                         f"{total / n * 1000:8.2f} ms/call  x{n}")
-        return "\n".join(lines)
-
-
-def profile_callable(fn, *args, iters: int = 20, warmup: int = 1):
-    """(p50_ms, mean_ms, throughput_per_s) of ``fn(*args)`` on the card:
-    each call's latency between two CUDA events, then ``iters`` calls back
-    to back between two more.  Raises without a card: a CPU run gives no
-    device time."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_callable times the card with CUDA events; "
-                           "CUDA is not available")
-    lat = event_times(lambda: fn(*args), iters, warmup)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn(*args)
-    b.record()
-    torch.cuda.synchronize()
-    thr = iters / (a.elapsed_time(b) / 1000.0)
-    return float(np.percentile(lat, 50)), float(np.mean(lat)), float(thr)
 
 
 def event_times(fn, calls: int, warmup: int = 0) -> List[float]:
@@ -189,10 +361,11 @@ def device_ms(fn, reps: int = 10) -> float:
     bound by the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    cuda_graph.note_profiler()
+    _note_profiler()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _forced(False), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -200,31 +373,50 @@ def device_ms(fn, reps: int = 10) -> float:
                if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
-def _d2h_bytes(prof) -> List[int]:
-    """The bytes of each device-to-host copy in a profile (its Chrome
-    trace's ``gpu_memcpy`` events)."""
+def _trace_events(prof) -> List[dict]:
+    """The events of a profile's Chrome trace."""
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            return json.load(f)["traceEvents"]
     finally:
         os.unlink(path)
+
+
+def _d2h_bytes(events: List[dict]) -> List[int]:
+    """The bytes of each device-to-host copy among a Chrome trace's events
+    (its ``gpu_memcpy`` events)."""
     return [int(e["args"]["bytes"]) for e in events
             if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+
+
+def _device_busy_us(events: List[dict]) -> float:
+    """Microseconds in which some kernel, copy or memset ran on the card:
+    the union of their intervals over all streams, so that overlapping work
+    counts once."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                       if e.get("ph") == "X" and "dur" in e
+                       and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
 
 
 def d2h_copies(fn):
     """(count, bytes) of the device-to-host copies one call of fn() makes,
     from torch.profiler's memcpy events (the trace's ``bytes``)."""
     from torch.profiler import ProfilerActivity, profile
-    cuda_graph.note_profiler()
+    _note_profiler()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _forced(False), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    copies = _d2h_bytes(prof)
+    copies = _d2h_bytes(_trace_events(prof))
     return len(copies), copies
 
 
@@ -252,19 +444,22 @@ def _hand_written(key: str) -> Optional[str]:
 
 def profile_window(fn, frames: int, copies: bool = False) -> Dict[str, object]:
     """Device busy share of a steady window of ``frames`` calls of fn()
-    (one untimed call first): the kernels' self device time
-    (``torch.profiler``) over the window's wall time, profiler on; the
+    (one untimed call first): the union of the kernels', copies' and
+    memsets' intervals (``torch.profiler``'s Chrome trace, so that work
+    overlapping on two streams counts once) over the window's wall time,
+    profiler on; the
     launches (``cudaLaunchKernel``, the cooperative and cluster launches and
     the CUDA graph replays, ``cudaGraphLaunch``, apart), the ten heaviest
     device entries and the hand-written kernels (``csrc/*.cu`` keeps each in
-    an anonymous namespace), each per call; with ``copies`` also the device-to-host copies and their bytes
-    per call."""
+    an anonymous namespace), each per call; with ``copies`` also the
+    device-to-host copies and their bytes per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    cuda_graph.note_profiler()
+    _note_profiler()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _forced(False), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
             fn()
@@ -275,7 +470,8 @@ def profile_window(fn, frames: int, copies: bool = False) -> Dict[str, object]:
     # kernels' time too and would count it twice
     events = [e for e in averages
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / frames
+    trace = _trace_events(prof)
+    busy_ms = _device_busy_us(trace) / 1e3 / frames
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     launches = sum(e.count for e in averages if e.key == "cudaLaunchKernel")
     special = sum(e.count for e in averages
@@ -292,7 +488,7 @@ def profile_window(fn, frames: int, copies: bool = False) -> Dict[str, object]:
                     for e in top],
                hand_written=ours)
     if copies:
-        nbytes = _d2h_bytes(prof)
+        nbytes = _d2h_bytes(trace)
         out.update(d2h_copies_per_frame=len(nbytes) / frames,
                    d2h_bytes_per_frame=sum(nbytes) / frames)
     return out
